@@ -1,0 +1,213 @@
+"""The port's ``distance`` stage against tracs_tpu's on the CPU (CSV bytes
+identical, no --meta), plus the guards that keep the port free of jax and
+honest about its device."""
+
+import gzip
+import json
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from tracs_tpu_torch import cli as port_cli
+from tracs_tpu_torch.stages import distance as port_distance
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DATA = os.path.join(REPO, "tests", "data")
+PORT_DIR = os.path.join(REPO, "tracs_tpu_torch")
+
+
+def _write_msa(path, rng, n, L, alphabet="ACGTMRWSYKVHDBN-acgt", prefix="s"):
+    chars = np.array(list(alphabet))
+    opener = gzip.open if str(path).endswith(".gz") else open
+    with opener(path, "wt") as fh:
+        for k in range(n):
+            fh.write(f">{prefix}{k}\n{''.join(rng.choice(chars, size=L))}\n")
+    return str(path)
+
+
+def _clustered_msa(path, rng, n, L, prefix="c"):
+    """Samples near a few random centres, so a small -D keeps some pairs."""
+    centres = rng.choice(np.array(list("ACGT")), size=(3, L))
+    with open(path, "w") as fh:
+        for k in range(n):
+            s = centres[k % 3].copy()
+            hit = rng.choice(L, size=int(rng.integers(0, 12)), replace=False)
+            s[hit] = rng.choice(np.array(list("ACGTNRY-")), size=len(hit))
+            fh.write(f">{prefix}{k}\n{''.join(s)}\n")
+    return str(path)
+
+
+def _run_both(tmp_path, args):
+    """CSV bytes of tracs_tpu and of the port for the same distance args."""
+    pytest.importorskip("jax")
+    from tracs_tpu import cli as jax_cli
+
+    want = str(tmp_path / "jax.csv")
+    got = str(tmp_path / "port.csv")
+    jax_cli.main(["distance", *args, "-o", want, "--mesh", "off"])
+    port_cli.main(["distance", *args, "-o", got, "--device", "cpu"])
+    with open(want, "rb") as fh:
+        want_b = fh.read()
+    with open(got, "rb") as fh:
+        got_b = fh.read()
+    return got_b, want_b
+
+
+def test_ambig_csv_matches_reference(tmp_path):
+    got, want = _run_both(tmp_path, ["--msa", os.path.join(DATA, "ambig.aln")])
+    assert got == want
+    lines = got.decode().splitlines()
+    assert len(lines) == 11
+    row = lines[1].split(",")
+    assert row[2] == row[4] == row[5] == "NA" and row[6] == "0"
+
+
+@pytest.mark.parametrize("extra", [[], ["-D", "40"], ["--row-block", "3"], ["--row-block", "3", "-D", "40"]])
+def test_random_msa_csv_matches_reference(tmp_path, extra):
+    rng = np.random.default_rng(len(extra))
+    msa = _clustered_msa(tmp_path / "rand.fasta", rng, 17, 301)
+    got, want = _run_both(tmp_path, ["--msa", msa, *extra])
+    assert got == want and got.count(b"\n") > 1
+
+
+def test_gz_and_several_msas_match_reference(tmp_path):
+    rng = np.random.default_rng(21)
+    a = _write_msa(tmp_path / "one_combined.fasta.gz", rng, 9, 150)
+    b = _write_msa(tmp_path / "two.aln", rng, 6, 77, prefix="t")
+    got, want = _run_both(tmp_path, ["--msa", a, b, "-D", "120"])
+    assert got == want
+    assert b",one\n" in got and b",two\n" in got
+
+
+@pytest.mark.parametrize("row_block", [None, "2"])
+def test_msa_db_csv_matches_reference(tmp_path, row_block):
+    rng = np.random.default_rng(22)
+    q = _write_msa(tmp_path / "q.fasta", rng, 7, 200, prefix="q")
+    db = _write_msa(tmp_path / "db.fasta", rng, 5, 200, prefix="d")
+    args = ["--msa", q, "--msa-db", db, "-D", "190"]
+    if row_block:
+        args += ["--row-block", row_block]
+    got, want = _run_both(tmp_path, args)
+    assert got == want and got.count(b"\n") > 1
+
+
+def test_resume_after_interruption_matches_reference(tmp_path):
+    """A run cut after its first block (a partial line past the cursor's
+    byte offset) resumes to the bytes of an uninterrupted run."""
+    rng = np.random.default_rng(23)
+    msa = _clustered_msa(tmp_path / "r.fasta", rng, 13, 256)
+    args = ["--msa", msa, "-D", "60", "--row-block", "3"]
+    full, want = _run_both(tmp_path, args)
+    assert full == want
+
+    out = str(tmp_path / "resumed.csv")
+    keep = b"".join(
+        line for line in full.splitlines(keepends=True)
+        if line.startswith(b"sampleA") or int(line.split(b",")[0][1:]) < 3
+    )
+    with open(out, "wb") as fh:
+        fh.write(keep + b"c4,c7,NA,9")  # a line cut mid-write
+    with open(out + ".cursor", "w") as fh:
+        json.dump({"msa_index": 0, "next_row": 3, "bytes": len(keep)}, fh)
+    port_cli.main(["distance", *args, "-o", out, "--device", "cpu", "--resume"])
+    with open(out, "rb") as fh:
+        assert fh.read() == want
+    assert not os.path.exists(out + ".cursor")
+
+
+def test_large_input_streams_automatically(tmp_path, monkeypatch):
+    """Above the sample-count bound the non-streaming call streams in row
+    blocks; the count comes from the packed alignment and the CSV is the
+    same."""
+    rng = np.random.default_rng(24)
+    msa = _clustered_msa(tmp_path / "big.fasta", rng, 11, 128)
+    monkeypatch.setattr(port_distance, "_AUTO_STREAM_SAMPLES", 4)
+    seen = []
+    real = port_distance._distance_streaming
+    monkeypatch.setattr(port_distance, "_distance_streaming",
+                        lambda *a: seen.append(a[0].row_block) or real(*a))
+    got, want = _run_both(tmp_path, ["--msa", msa, "-D", "30"])
+    assert got == want and seen == [1024]
+
+
+def test_python_writer_matches_native(tmp_path, monkeypatch):
+    """Without the native library the Python CSV writer gives the same bytes."""
+    import tracs_tpu_torch.stages.distance as d
+
+    rng = np.random.default_rng(25)
+    msa = _clustered_msa(tmp_path / "w.fasta", rng, 12, 99)
+    native = str(tmp_path / "native.csv")
+    port_cli.main(["distance", "--msa", msa, "-o", native, "--device", "cpu"])
+    monkeypatch.setattr(d, "native_format_rows", lambda *a, **k: None)
+    plain = str(tmp_path / "plain.csv")
+    port_cli.main(["distance", "--msa", msa, "-o", plain, "--device", "cpu"])
+    with open(native, "rb") as a, open(plain, "rb") as b:
+        assert a.read() == b.read()
+
+
+# -- guards --
+
+def test_default_device_cuda_exits_nonzero_without_card(tmp_path, capsys):
+    import torch
+
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    with pytest.raises(SystemExit) as exc:
+        port_cli.main(["distance", "--msa", os.path.join(DATA, "ambig.aln"),
+                       "-o", str(tmp_path / "x.csv")])
+    assert exc.value.code not in (0, None)
+    assert "CUDA" in str(exc.value.code) and "--device cpu" in str(exc.value.code)
+
+
+@pytest.mark.parametrize(
+    "flags,item",
+    [(["--meta", os.path.join(DATA, "dates_ambig.csv")], "item 1"),
+     (["--filter"], "item 2"), (["--mesh", "2x1"], "item 4")],
+)
+def test_unported_flags_raise(tmp_path, flags, item):
+    with pytest.raises(NotImplementedError, match=item):
+        port_cli.main(["distance", "--msa", os.path.join(DATA, "ambig.aln"),
+                       "-o", str(tmp_path / "x.csv"), "--device", "cpu", *flags])
+
+
+def test_mesh_off_is_accepted(tmp_path):
+    out = str(tmp_path / "x.csv")
+    port_cli.main(["distance", "--msa", os.path.join(DATA, "ambig.aln"), "-o", out,
+                   "--device", "cpu", "--mesh", "off"])
+    assert os.path.getsize(out) > 0
+
+
+@pytest.mark.parametrize("sub", ["cluster", "align"])
+def test_other_subcommands_not_yet_ported(sub, capsys):
+    with pytest.raises(SystemExit) as exc:
+        port_cli.main([sub, "-d", "x.csv"])
+    assert exc.value.code == 2
+    assert "not yet ported" in capsys.readouterr().err
+
+
+def test_cli_import_leaves_jax_unloaded():
+    code = (
+        "import sys; import tracs_tpu_torch.cli; "
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.') "
+        "or m == 'tracs_tpu' or m.startswith('tracs_tpu.')]; "
+        "print(bad); sys.exit(1 if bad else 0)"
+    )
+    r = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
+                       text=True, timeout=120)
+    assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_port_sources_never_import_jax():
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|tracs_tpu)(\.|\s|$)", re.M)
+    sources = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(PORT_DIR):
+        sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(sources) > 10
+    for path in sources:
+        with open(path) as fh:
+            hits = pattern.findall(fh.read())
+        assert not hits, f"{path} imports {hits}"

@@ -1,0 +1,219 @@
+"""The port's split-gram kernel (tracs_tpu_torch/ops/kernels.py) against the
+JAX package's grams: the Pallas kernel K1 in interpret mode and the XLA
+twins ``_dense_split`` / ``_dense_split_ranged``.  Tolerance 0: every
+output is an integer.  Also pins the torch behaviours the port is built
+around, and checks the CUDA kernel against its plain version where a card
+exists."""
+
+import numpy as np
+import pytest
+import torch
+
+from tracs_tpu_torch.ops import kernels
+from tracs_tpu_torch.ops.packing import pack_sequences, split_alignment
+
+IUPAC = np.array(list("ACGTMRWSYKVHDBN-"))
+
+
+def _words(a):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32))
+
+
+def _seqs(rng, n, L, alphabet=IUPAC):
+    return ["".join(rng.choice(alphabet, size=L)) for _ in range(n)]
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.parametrize("na,nb,L", [(37, 37, 533), (37, 11, 533), (130, 5, 9000)])
+def test_split_gram_matches_pallas_and_xla(na, nb, L):
+    """Full-matrix grams: port wrapper (CPU -> plain version) and the plain
+    version itself equal Pallas K1 (interpret) and XLA _dense_split."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from tracs_tpu.ops.packing import pack_sequences as jax_pack
+    from tracs_tpu.ops.packing import split_alignment as jax_split
+    from tracs_tpu.ops.pairsnp import _dense_split
+    from tracs_tpu.ops.pallas_kernels import split_gram_pallas
+
+    rng = np.random.default_rng(na * 1000 + nb)
+    qa = _seqs(rng, na, L)
+    qb = qa if nb == na else _seqs(rng, nb, L)
+    sa = jax_split(jax_pack(qa))
+    sb = sa if nb == na else jax_split(jax_pack(qb))
+
+    gp, gnp = split_gram_pallas(sa.excl, sa.nmask, sb.excl, sb.nmask, interpret=True)
+    W = sa.excl.shape[2]
+    gx, gnx = _dense_split(
+        jnp.asarray(sa.excl), jnp.asarray(sa.nmask), jnp.asarray(sb.excl),
+        jnp.asarray(sb.nmask), wc=W, n_chunks=1, with_nn=True,
+    )
+
+    pa = split_alignment(pack_sequences(qa))
+    ea, nm = _words(pa.excl), _words(pa.nmask)
+    if nb == na:
+        eb = nmb = None
+    else:
+        pb = split_alignment(pack_sequences(qb))
+        eb, nmb = _words(pb.excl), _words(pb.nmask)
+    g, gn = kernels.split_gram(ea, nm, 0, na, 0, eb, nmb)
+    g0, gn0 = kernels.split_gram_reference(ea, nm, 0, na, 0, eb, nmb)
+    assert g.dtype == gn.dtype == torch.int32
+    for got in (g.numpy(), g0.numpy()):
+        assert np.array_equal(got, gp) and np.array_equal(got, np.asarray(gx))
+    for got in (gn.numpy(), gn0.numpy()):
+        assert np.array_equal(got, gnp) and np.array_equal(got, np.asarray(gnx))
+
+
+@pytest.mark.parametrize(
+    "n,L,r0,rb,c0",
+    [(37, 533, 5, 20, 9), (64, 700, 32, 32, 32), (50, 300, 49, 1, 0), (41, 97, 0, 41, 40)],
+)
+def test_split_gram_ranged_matches_xla(n, L, r0, rb, c0):
+    """Row-block x column-suffix addressing at r0 > 0, c0 > 0 and ragged W
+    equals _dense_split_ranged, which reads the same full layout."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from tracs_tpu.ops.pairsnp import _dense_split_ranged
+
+    rng = np.random.default_rng(n + L + r0)
+    sa = split_alignment(pack_sequences(_seqs(rng, n, L)))
+    W = sa.excl.shape[2]
+    assert W * 32 != L  # a ragged last word
+    gx, gnx = _dense_split_ranged(
+        jnp.asarray(sa.excl), jnp.asarray(sa.nmask), jnp.int32(r0),
+        rb=rb, c0=c0, wc=8, n_chunks=-(-W // 8),
+    )
+    g, gn = kernels.split_gram(_words(sa.excl), _words(sa.nmask), r0, rb, c0)
+    assert g.shape == (rb, n - c0)
+    assert np.array_equal(g.numpy(), np.asarray(gx))
+    assert np.array_equal(gn.numpy(), np.asarray(gnx))
+
+
+def test_split_gram_reference_chunking_is_exact(monkeypatch):
+    """One-word chunks (the memory bound at its tightest) give the same
+    grams as one chunk."""
+    rng = np.random.default_rng(7)
+    sa = split_alignment(pack_sequences(_seqs(rng, 23, 250)))
+    ea, nm = _words(sa.excl), _words(sa.nmask)
+    want = kernels.split_gram_reference(ea, nm, 3, 15, 4)
+    monkeypatch.setattr(kernels, "_REFERENCE_BYTES", 1)
+    got = kernels.split_gram_reference(ea, nm, 3, 15, 4)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+
+def test_cpu_call_counts_no_launch():
+    rng = np.random.default_rng(3)
+    sa = split_alignment(pack_sequences(_seqs(rng, 5, 64)))
+    before = kernels.SPLIT_GRAM_LAUNCHES
+    kernels.split_gram(_words(sa.excl), _words(sa.nmask), 0, 5, 0)
+    assert kernels.SPLIT_GRAM_LAUNCHES == before
+
+
+@pytest.mark.parametrize(
+    "case",
+    ["int64", "shape", "mask_shape", "noncontig", "rows", "cols", "eb_alone", "words", "meta"],
+)
+def test_split_gram_rejects_bad_inputs(case):
+    ea = torch.zeros((6, 4, 3), dtype=torch.int32)
+    nm = torch.zeros((6, 3), dtype=torch.int32)
+    args = dict(ea=ea, nm=nm, r0=0, rb=6, c0=0, eb=None, nmb=None)
+    if case == "int64":
+        args["ea"] = ea.long()
+    elif case == "shape":
+        args["ea"] = torch.zeros((6, 3, 3), dtype=torch.int32)
+    elif case == "mask_shape":
+        args["nm"] = torch.zeros((6, 2), dtype=torch.int32)
+    elif case == "noncontig":
+        args["ea"] = torch.zeros((6, 4, 6), dtype=torch.int32)[:, :, ::2]
+    elif case == "rows":
+        args["r0"] = 2
+    elif case == "cols":
+        args["c0"] = 7
+    elif case == "eb_alone":
+        args["eb"] = ea
+    elif case == "words":
+        args["eb"], args["nmb"] = torch.zeros((2, 4, 4), dtype=torch.int32), torch.zeros(
+            (2, 4), dtype=torch.int32)
+    elif case == "meta":
+        args["ea"], args["nm"] = ea.to("meta"), nm.to("meta")
+    with pytest.raises((TypeError, ValueError)):
+        kernels.split_gram(**args)
+
+
+# -- torch behaviours the port is built around (probed on torch 2.13 CPU) --
+
+def test_trap_int8_mm_wraps():
+    """int8 torch.mm returns int8 and wraps: 200 ones sum to -56.  The port
+    contracts 0/1 bits in float64 instead."""
+    ones = torch.ones((1, 200), dtype=torch.int8)
+    out = torch.mm(ones, ones.T)
+    assert out.dtype == torch.int8 and int(out) == 200 - 256
+    bits = torch.full((1, 4, 7), -1, dtype=torch.int32)  # 224 set bits per plane
+    g, gn = kernels.split_gram_reference(bits, bits[:, 0].contiguous(), 0, 1, 0)
+    assert int(gn) == 224 and int(g) == 4 * 224 - 224
+
+
+def test_trap_no_uint32_shift():
+    """``>>`` is not implemented for uint32 on the CPU; the port unpacks
+    words through a uint8 view, sign bit included."""
+    with pytest.raises((NotImplementedError, RuntimeError)):
+        torch.tensor([5], dtype=torch.uint32) >> 1
+    words = torch.tensor([-1, -(2**31), 1, 0x55555555], dtype=torch.int32)
+    bits = kernels._unpack_bits(words).reshape(4, 32).sum(dim=1)
+    assert bits.tolist() == [32, 1, 1, 16]
+
+
+def test_trap_no_popcount_op():
+    """torch has no popcount op; the plain versions count bits by
+    contracting unpacked bits, which equals a numpy popcount."""
+    from tracs_tpu_torch.ops.packing import popcount_words
+
+    assert not hasattr(torch, "bitwise_count")
+    rng = np.random.default_rng(11)
+    w = rng.integers(0, 2**32, size=(9, 5), dtype=np.uint32)
+    _, gn = kernels.split_gram_reference(
+        torch.zeros((9, 4, 5), dtype=torch.int32), _words(w), 0, 9, 0)
+    want = popcount_words(w[:, None, :] & w[None, :, :]).sum(axis=-1)
+    assert np.array_equal(gn.numpy(), want)
+
+
+def test_trap_int32_cumsum_promotes():
+    """torch.cumsum of int32 returns int64 (the JAX compaction's flat index
+    is int32 by contract); the port compacts with torch.nonzero, whose
+    row-major order is the emission order."""
+    assert torch.cumsum(torch.ones(3, dtype=torch.int32), 0).dtype == torch.int64
+    mask = torch.tensor([[0, 1, 1], [1, 0, 1]], dtype=torch.bool)
+    assert torch.nonzero(mask).tolist() == [[0, 1], [0, 2], [1, 0], [1, 2]]
+
+
+# -- on the card --
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "na,nb,W,r0,rb,c0",
+    [(37, None, 17, 0, 37, 0), (48, 14, 17, 5, 37, 3), (300, None, 1000, 100, 130, 64)],
+)
+def test_split_gram_cuda_matches_plain(cuda_device, na, nb, W, r0, rb, c0):
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(na * W)
+
+    def words(*shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
+                             device=cuda_device, generator=gen)
+
+    ea, nm = words(na, 4, W), words(na, W)
+    eb, nmb = (None, None) if nb is None else (words(nb, 4, W), words(nb, W))
+    before = kernels.SPLIT_GRAM_LAUNCHES
+    g, gn = kernels.split_gram(ea, nm, r0, rb, c0, eb, nmb)
+    torch.cuda.synchronize()
+    assert kernels.SPLIT_GRAM_LAUNCHES == before + 1
+    g0, gn0 = kernels.split_gram_reference(ea, nm, r0, rb, c0, eb, nmb)
+    assert torch.equal(g, g0) and torch.equal(gn, gn0)

@@ -1,0 +1,281 @@
+"""The port's split path (tracs_tpu_torch/ops/pairsnp.py and packing.py)
+against tracs_tpu on the CPU: the same numpy-seeded inputs through both
+packages, every yielded array compared exactly (tolerance 0 — all outputs
+are integers)."""
+
+import gzip
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from tracs_tpu_torch.ops import pairsnp as port
+from tracs_tpu_torch.ops.packing import (
+    from_reference,
+    pack_fasta,
+    pack_sequences,
+    split_alignment,
+)
+
+jax = pytest.importorskip("jax")
+
+from tracs_tpu.ops import packing as jpacking  # noqa: E402
+from tracs_tpu.ops import pairsnp as jref  # noqa: E402
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+DATA = os.path.join(REPO, "tests", "data")
+IUPAC = np.array(list("ACGTMRWSYKVHDBN-acgtnx"))
+CPU = torch.device("cpu")
+
+
+def _seqs(rng, n, L, alphabet=IUPAC):
+    return ["".join(rng.choice(alphabet, size=L)) for _ in range(n)]
+
+
+def _both(seqs, names=None):
+    """(jax PackedAlignment, port PackedAlignment) of the same sequences,
+    the port's built from the JAX package's state."""
+    j = jpacking.pack_sequences(seqs, names)
+    return j, from_reference(j.planes, j.length, j.names)
+
+
+def _mostly_conserved(rng, n, L, n_var, alphabet="ACGTNRYX-"):
+    base = rng.choice(np.array(list("ACGT")), size=L)
+    var_cols = rng.choice(L, size=n_var, replace=False)
+    seqs = []
+    for _ in range(n):
+        s = base.copy()
+        hit = rng.random(n_var) < 0.5
+        s[var_cols[hit]] = rng.choice(np.array(list(alphabet)), size=int(hit.sum()))
+        seqs.append("".join(s))
+    return seqs
+
+
+def _assert_streams_equal(got, want):
+    got, want = list(got), list(want)
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g[0] == w[0] and g[1] == w[1] and list(g[2]) == list(w[2])
+        for k in range(3, 8):
+            assert np.array_equal(np.asarray(g[k]), np.asarray(w[k])), k
+            assert np.asarray(g[k]).dtype == np.int64
+
+
+def test_port_packer_matches_reference():
+    rng = np.random.default_rng(1)
+    seqs = _seqs(rng, 7, 333)
+    j, p = _both(seqs)
+    own = pack_sequences(seqs)
+    assert np.array_equal(own.planes, j.planes) and own.length == j.length
+    assert np.array_equal(p.planes, j.planes) and p.names == j.names
+
+
+@pytest.mark.parametrize(
+    "planes,length,names",
+    [((2, 3, 1), 20, ["a", "b"]), ((2, 4, 2), 20, ["a", "b"]), ((2, 4, 1), 20, ["a"])],
+)
+def test_from_reference_rejects_mismatched_state(planes, length, names):
+    with pytest.raises(ValueError):
+        from_reference(np.zeros(planes, dtype=np.uint32), length, names)
+
+
+def test_pack_fasta_matches_reference(tmp_path):
+    rng = np.random.default_rng(2)
+    seqs = _seqs(rng, 6, 101)
+    path = str(tmp_path / "x.fasta.gz")
+    with gzip.open(path, "wt") as fh:
+        for k, s in enumerate(seqs):
+            fh.write(f">s{k} description\n{s[:50]}\n{s[50:]}\n")
+    got = pack_fasta(path)
+    want = jpacking.pack_fasta(path, use_cache=False)
+    assert np.array_equal(got.planes, want.planes)
+    assert (got.length, got.names) == (want.length, want.names)
+
+
+@pytest.mark.parametrize("native", [True, False])
+def test_split_alignment_matches_reference(monkeypatch, native):
+    rng = np.random.default_rng(3)
+    j, p = _both(_seqs(rng, 11, 300))
+    if not native:
+        import tracs_tpu_torch.runtime.native as nat
+
+        monkeypatch.setattr(nat, "native_split_stats", lambda planes: None)
+    got, want = split_alignment(p), jpacking.split_alignment(j)
+    for f in ("excl", "nmask", "partial", "cnt_n", "partial_pos"):
+        assert np.array_equal(getattr(got, f), getattr(want, f)), f
+    assert (got.n_partial, got.length) == (want.n_partial, want.length)
+
+
+def test_gram_partial_matches_reference():
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(4)
+    j, p = _both(_seqs(rng, 9, 900, np.array(list("ACGTMRWSYKVHDBN"))))
+    pt = split_alignment(p).partial
+    assert pt.shape[2] > 1
+    want = np.asarray(jref._gram_partial(jnp.asarray(pt[2:7]), jnp.asarray(pt)))
+    got = port._gram_partial(port._as_words(pt[2:7]), port._as_words(pt))
+    assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+
+
+def test_derive_split_planes_matches_host_layout():
+    rng = np.random.default_rng(5)
+    _, p = _both(_seqs(rng, 8, 200))
+    sa = split_alignment(p)
+    ea, nm = port._derive_split_planes(port._as_words(p.planes))
+    assert np.array_equal(ea.numpy().view(np.uint32), sa.excl)
+    assert np.array_equal(nm.numpy().view(np.uint32), sa.nmask)
+
+
+def test_ambig_golden_matches_reference():
+    path = os.path.join(DATA, "ambig.aln")
+    got = port.pairsnp([path], dist=10, device="cpu")
+    want = jref.pairsnp([path], dist=10)
+    assert list(got[0]) == [0, 0, 0, 0, 1, 1, 1, 2, 2, 3]
+    assert list(got[1]) == [1, 2, 3, 4, 2, 3, 4, 3, 4, 4]
+    assert list(got[2]) == [0, 2, 1, 1, 2, 2, 2, 3, 3, 0]
+    for g, w in zip(got, want):
+        assert list(g) == list(w)
+
+
+@pytest.mark.parametrize("row_block", [1, 3, 7, 100])
+@pytest.mark.parametrize("dist", [0, 150, port.INT32_MAX])
+def test_stream_matches_reference(row_block, dist):
+    """Random IUPAC with '-' and lowercase, L not a multiple of 32."""
+    rng = np.random.default_rng(row_block)
+    j, p = _both(_seqs(rng, 19, 333))
+    if dist == 0:  # make some identical pairs so dist=0 emits something
+        j.planes[5] = j.planes[2]
+        p.planes[5] = p.planes[2]
+    _assert_streams_equal(
+        port.pairsnp_stream([p], dist=dist, row_block=row_block, device="cpu"),
+        jref.pairsnp_stream([j], dist=dist, row_block=row_block),
+    )
+
+
+@pytest.mark.parametrize("start_row", [3, 6, 18])
+def test_stream_start_row_matches_reference(start_row):
+    rng = np.random.default_rng(start_row)
+    j, p = _both(_seqs(rng, 19, 200))
+    _assert_streams_equal(
+        port.pairsnp_stream([p], dist=120, row_block=3, start_row=start_row, device="cpu"),
+        jref.pairsnp_stream([j], dist=120, row_block=3, start_row=start_row),
+    )
+
+
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("row_block", [2, 64])
+def test_two_fasta_rectangle_matches_reference(compact, row_block):
+    """Query-vs-db with partial codes on both sides, compaction on and off."""
+    rng = np.random.default_rng(10 + row_block)
+    q = _mostly_conserved(rng, 6, 512, 40, alphabet="ACGTMRWSYKN-")
+    d = _mostly_conserved(rng, 5, 512, 40, alphabet="ACGTVHDB")
+    d = [q[0][:256] + s[256:] for s in d]  # shared backbone: compaction triggers
+    jq, pq = _both(q, [f"q{k}" for k in range(6)])
+    jd, pd = _both(d, [f"d{k}" for k in range(5)])
+    _assert_streams_equal(
+        port.pairsnp_stream([pq, pd], dist=400, row_block=row_block, compact=compact,
+                            device="cpu"),
+        jref.pairsnp_stream([jq, jd], dist=400, row_block=row_block, compact=compact),
+    )
+
+
+@pytest.mark.parametrize("compact", [True, False])
+@pytest.mark.parametrize("dist", [0, 3, 10**9])
+def test_compaction_matches_reference(compact, dist):
+    rng = np.random.default_rng(1234)
+    j, p = _both(_mostly_conserved(rng, 9, 700, 60))
+    got = port.pairsnp([p], dist=dist, compact=compact, device="cpu")
+    want = jref.pairsnp([j], dist=dist, compact=compact)
+    for g, w in zip(got, want):
+        assert list(g) == list(w)
+    if compact:
+        assert port._cached_compact(p, p) is not None  # the repack really ran
+
+
+@pytest.mark.parametrize("row_block", [4, 4096])
+def test_snp_distance_dense_matches_reference(row_block):
+    rng = np.random.default_rng(6)
+    j, p = _both(_seqs(rng, 13, 257))
+    D, NN = port.snp_distance_dense(p, device="cpu", row_block=row_block)
+    D0, NN0 = jref.snp_distance_dense(j, method="split")
+    assert np.array_equal(D, D0) and np.array_equal(NN, NN0)
+    jq, pq = _both(_seqs(rng, 4, 257))
+    D, NN = port.snp_distance_dense(pq, p, device="cpu", row_block=row_block)
+    D0, NN0 = jref.snp_distance_dense(jq, j, method="split")
+    assert np.array_equal(D, D0) and np.array_equal(NN, NN0)
+
+
+@pytest.mark.parametrize("triangle,r0,c0", [(True, 5, 5), (True, 0, 0), (False, 7, 0)])
+def test_extract_coo_order_matches_reference(triangle, r0, c0):
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(r0 + c0)
+    D = rng.integers(0, 40, size=(9, 14), dtype=np.int32)
+    NN = rng.integers(0, 99, size=(9, 14), dtype=np.int32)
+    n_valid = c0 + 12  # the last two columns are dead padding
+    packed = np.asarray(jref._extract_coo_packed(
+        jnp.asarray(D), jnp.asarray(NN), 20, jnp.int32(r0), jnp.int32(n_valid),
+        jnp.int32(c0), capacity=9 * 14, triangle=triangle,
+    ))
+    want = jref._unpack_survivors(packed, 9 * 14, int(packed[0]), 14, c0)
+    got = port._extract_coo(torch.from_numpy(D), torch.from_numpy(NN), 20, r0, n_valid,
+                            c0, triangle=triangle)
+    assert len(got[0]) == int(packed[0]) > 0
+    for g, w in zip(got, want):
+        assert np.array_equal(g, w)
+
+
+def test_prefix_block_is_column_suffix():
+    """A triangle block's columns start at its own first row (c0 = r0)."""
+    rng = np.random.default_rng(8)
+    _, p = _both(_seqs(rng, 10, 90))
+    sa = split_alignment(p)
+    D, NN, c0 = port.snp_distance_split_prefix_device(sa, 4, 7, device=CPU)
+    Df, NNf = port.snp_distance_split_device(sa, device=CPU)
+    assert c0 == 4 and D.shape == (3, 6)
+    assert torch.equal(D, Df[4:7, 4:]) and torch.equal(NN, NNf[4:7, 4:])
+    with pytest.raises(ValueError):
+        port.snp_distance_split_prefix_device(sa, 7, 7, device=CPU)
+
+
+def test_pair_layouts_must_share_partial_axis():
+    rng = np.random.default_rng(9)
+    _, a = _both(_seqs(rng, 3, 64))
+    _, b = _both(_seqs(rng, 3, 64))
+    with pytest.raises(ValueError):
+        port.snp_distance_split_device(split_alignment(a), split_alignment(b), device=CPU)
+
+
+def test_unported_options_raise():
+    rng = np.random.default_rng(10)
+    _, p = _both(_seqs(rng, 3, 64))
+    with pytest.raises(NotImplementedError):
+        list(port.pairsnp_stream([p], filter=True, device="cpu"))
+    with pytest.raises(NotImplementedError):
+        list(port.pairsnp_stream([p], method="popcount", device="cpu"))
+
+
+def test_cuda_device_without_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("this machine has a CUDA card")
+    from tracs_tpu_torch.runtime.device import DeviceUnavailableError
+
+    rng = np.random.default_rng(11)
+    _, p = _both(_seqs(rng, 3, 64))
+    with pytest.raises(DeviceUnavailableError):
+        list(port.pairsnp_stream([p], device="cuda"))
+
+
+def test_smoke_workload_matches_bench():
+    """chip_smoke.py's workload generator is bench.py's make_clustered,
+    array for array."""
+    sys.path.insert(0, REPO)
+    import bench
+    import chip_smoke
+
+    got = chip_smoke.make_clustered(70, 4000, cluster_size=6, n_partial_cols=64)
+    want = bench.make_clustered(70, 4000, cluster_size=6, n_partial_cols=64)
+    assert np.array_equal(got.planes, want.planes) and got.names == want.names

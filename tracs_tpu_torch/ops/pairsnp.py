@@ -1,0 +1,383 @@
+"""All-pairs SNP distances over bit-packed IUPAC alignments, on one device
+(the split path of tracs_tpu/ops/pairsnp.py, in PyTorch).
+
+Semantics: for a pair (i, j) a site *matches* when the two samples share at
+least one allele bit (IUPAC codes set several bits, N sets all four); the
+SNP distance is ``d = L - matches`` and the comparable-site count is
+``nn = L - popcount(N_i | N_j)``.
+
+Split decomposition.  With û = the N-exclusive planes and n = the N mask:
+
+    matches(u, v) = (G4 - Gn) + Gpartial + cntN_u + cntN_v
+    nn(u, v)      = L - cntN_u - cntN_v + Gn
+
+G4 and Gn come from the hand-written gram kernel (ops/kernels.py
+``split_gram``) straight from the packed words; Gpartial is a 10-channel
+correction gram over the few sites where some sample holds a 2- or 3-bit
+IUPAC code, in plain torch (float64, exact).  The self all-pairs sweep
+computes, for a row block [r0, r1), only the columns j >= r0: the triangle
+mask of the survivor extraction drops j <= i anyway.  Survivors (d <= dist)
+are compacted on the device in row-major order and copied to the host once
+per block.
+
+Every result is an exact integer and equals the ``tracs_tpu`` value bit for
+bit (tests/test_torch_pairsnp.py).
+"""
+
+from __future__ import annotations
+
+from typing import Sequence
+
+import numpy as np
+import torch
+
+from tracs_tpu_torch.ops.kernels import _unpack_bits, split_gram
+from tracs_tpu_torch.ops.packing import (
+    PackedAlignment,
+    SplitAlignment,
+    compact_variant_columns,
+    pack_fasta,
+    partial_site_positions,
+    split_alignment,
+)
+from tracs_tpu_torch.runtime.device import resolve_device, to_host
+
+INT32_MAX = 2**31 - 1
+
+# partial-correction channels: AND-products over plane pairs (sign -1) and
+# plane triples (sign +1); the quad is structurally zero on exclusive planes
+_PAIR_SUBSETS = [s for s in range(1, 16) if bin(s).count("1") == 2]
+_TRIPLE_SUBSETS = [s for s in range(1, 16) if bin(s).count("1") == 3]
+_PARTIAL_SIGNS = [-1.0] * 6 + [1.0] * 4
+
+# bytes of unpacked float64 operands per chunk of the correction gram
+_PARTIAL_CHUNK_BYTES = 256 << 20
+
+_NOT_PORTED = "not ported to tracs_tpu_torch yet; see ROADMAP.md"
+
+
+def _as_words(a: np.ndarray) -> torch.Tensor:
+    """uint32 numpy words as an int32 CPU tensor of the same bits."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32))
+
+
+def _derive_split_planes(planes: torch.Tensor):
+    """(excl, nmask) from raw packed planes [n, 4, W], on their device:
+    all4 = A&C&G&T, excl = planes & ~all4."""
+    all4 = planes[:, 0] & planes[:, 1] & planes[:, 2] & planes[:, 3]
+    return planes & ~all4[:, None, :], all4
+
+
+def _split_device(sa: SplitAlignment, device: torch.device):
+    """(excl, nmask, partial) of a SplitAlignment on ``device``, cached on it.
+    The 4 raw planes cross to the device once and excl/nmask are derived
+    there; the raw upload is freed after the derive."""
+    cache = getattr(sa, "_dev_cache", None)
+    if cache is None or cache[0] != device:
+        planes = _as_words(sa.src.planes).to(device)
+        ea, nm = _derive_split_planes(planes)
+        del planes
+        pt = _as_words(sa.partial).to(device)
+        cache = (device, ea, nm, pt)
+        sa._dev_cache = cache
+    return cache[1:]
+
+
+def _cnt_device(sa: SplitAlignment, device: torch.device) -> torch.Tensor:
+    """Per-sample N counts of a SplitAlignment as int32 on ``device``, cached."""
+    cache = getattr(sa, "_dev_cnt", None)
+    if cache is None or cache[0] != device:
+        cache = (device, torch.from_numpy(sa.cnt_n.astype(np.int32)).to(device))
+        sa._dev_cnt = cache
+    return cache[1]
+
+
+def _partial_channels(p: torch.Tensor) -> torch.Tensor:
+    """[n, 4, Wp] exclusive planes -> [n, 10, Wp] pair and triple AND-products."""
+    planes = {1: p[:, 0], 2: p[:, 1], 4: p[:, 2], 8: p[:, 3]}
+    prods = {}
+    for s in _PAIR_SUBSETS + _TRIPLE_SUBSETS:
+        low = s & (-s)
+        rest = s ^ low
+        prods[s] = planes[low] & (prods[rest] if rest in prods else planes[rest])
+    return torch.stack([prods[s] for s in _PAIR_SUBSETS + _TRIPLE_SUBSETS], dim=1)
+
+
+def _gram_partial(part_a: torch.Tensor, part_b: torch.Tensor) -> torch.Tensor:
+    """Correction gram over gathered partial-ambiguity sites.
+
+    part_* : [n, 4, Wp] int32 exclusive planes at partial sites
+    returns [na, nb] int32 = sum_{|S|=2} -G_S + sum_{|S|=3} +G_S, which ADDS
+    to the match count.  Contracted in float64, which is exact here; int8
+    ``torch.mm`` would wrap and CUDA has no int32 ``mm``."""
+    ca, cb = _partial_channels(part_a), _partial_channels(part_b)
+    na, nb, Wp = ca.shape[0], cb.shape[0], ca.shape[2]
+    signs = torch.tensor(_PARTIAL_SIGNS, dtype=torch.float64, device=ca.device)[None, :, None]
+    acc = torch.zeros((na, nb), dtype=torch.float64, device=ca.device)
+    chunk = max(1, _PARTIAL_CHUNK_BYTES // max(1, (na + nb) * 10 * 32 * 8))
+    for w0 in range(0, Wp, chunk):
+        w1 = min(Wp, w0 + chunk)
+        xa = _unpack_bits(ca[:, :, w0:w1]).to(torch.float64).reshape(na, -1)
+        xb = (_unpack_bits(cb[:, :, w0:w1]).to(torch.float64) * signs).reshape(nb, -1)
+        acc += xa @ xb.T
+    return acc.to(torch.int32)
+
+
+def _assemble_d(m, gp, cnt_a, cnt_b, L: int) -> torch.Tensor:
+    match = m + cnt_a[:, None] + cnt_b[None, :]
+    if gp is not None:
+        match = match + gp
+    return (L - match).to(torch.int32)
+
+
+def _assemble_nn(gn, cnt_a, cnt_b, L: int) -> torch.Tensor:
+    return (L - cnt_a[:, None] - cnt_b[None, :] + gn).to(torch.int32)
+
+
+def _split_block(sa: SplitAlignment, sb: SplitAlignment, r0: int, r1: int,
+                 c0: int, device: torch.device):
+    """(D, NN) int32 device blocks of rows [r0, r1) of ``sa`` against
+    columns [c0, n_b) of ``sb``."""
+    ea, nm, pa = _split_device(sa, device)
+    if sb is sa:
+        eb = nmb = None
+        pb = pa
+    else:
+        eb, nmb, pb = _split_device(sb, device)
+    m, gn = split_gram(ea, nm, r0, r1 - r0, c0, eb, nmb)
+    gp = _gram_partial(pa[r0:r1], pb[c0:]) if (sa.n_partial or sb.n_partial) else None
+    cnt_a = _cnt_device(sa, device)[r0:r1]
+    cnt_b = _cnt_device(sb, device)[c0:]
+    return _assemble_d(m, gp, cnt_a, cnt_b, sa.length), _assemble_nn(gn, cnt_a, cnt_b, sa.length)
+
+
+def snp_distance_split_prefix_device(sa: SplitAlignment, r0: int, r1: int, *,
+                                     device: torch.device):
+    """(D, NN, c0) — int32 device blocks of the triangle rows [r0, r1)
+    against the column suffix [c0, n) with c0 = r0: a row block of the self
+    all-pairs sweep only emits pairs with j > i >= r0, so the columns below
+    r0 are never computed.  Column j of the [r1-r0, n-c0] blocks is global
+    column j + c0; callers mask j <= i (the extraction's triangle mask
+    does)."""
+    n = sa.n_seqs
+    if not 0 <= r0 < r1 <= n:
+        raise ValueError(f"row range [{r0}, {r1}) outside [0, {n})")
+    D, NN = _split_block(sa, sa, r0, r1, r0, device)
+    return D, NN, r0
+
+
+def snp_distance_split_device(sa: SplitAlignment, sb: SplitAlignment | None = None,
+                              *, device: torch.device, r0: int = 0, r1: int | None = None):
+    """(D, NN) int32 device blocks of rows [r0, r1) of ``sa`` against every
+    row of ``sb`` (default: ``sa``).  The two layouts of a query-vs-db pair
+    must share the partial-site gather axis (``_split_pair`` builds them
+    so)."""
+    if sb is None:
+        sb = sa
+    if sa.length != sb.length:
+        raise ValueError("alignments must share sequence length")
+    if sb is not sa and not np.array_equal(sa.partial_pos, sb.partial_pos):
+        raise ValueError(
+            "SplitAlignments of a pair must share the partial-site gather "
+            "axis — build them with _split_pair(a, b)"
+        )
+    r1 = sa.n_seqs if r1 is None else r1
+    if not 0 <= r0 <= r1 <= sa.n_seqs:
+        raise ValueError(f"row range [{r0}, {r1}) outside [0, {sa.n_seqs}]")
+    return _split_block(sa, sb, r0, r1, 0, device)
+
+
+def _extract_coo(D, NN, dist: int, r0: int, n_valid: int, c0: int, *, triangle: bool):
+    """Threshold + row-major compaction of one block on its device, with
+    ONE device-to-host copy.  Keeps ``D <= dist``, global column ``< n_valid``
+    and, on triangle blocks, global column > global row.  Returns
+    (rows_local, cols_global, dvals, nvals) as int64 numpy arrays in
+    row-major order, the emission order of ``tracs_tpu``."""
+    na, nb = D.shape
+    dist = max(-1, min(int(dist), INT32_MAX))
+    cols = torch.arange(nb, device=D.device, dtype=torch.int64) + c0
+    mask = (D <= dist) & (cols < n_valid)[None, :]
+    if triangle:
+        rows = torch.arange(na, device=D.device, dtype=torch.int64) + r0
+        mask &= cols[None, :] > rows[:, None]
+    ij = torch.nonzero(mask)  # [k, 2], row-major
+    i, j = ij[:, 0], ij[:, 1]
+    packed = torch.stack([i.to(torch.int32), j.to(torch.int32), D[i, j], NN[i, j]])
+    rows_l, cols_l, dvals, nvals = to_host(packed).astype(np.int64)
+    return rows_l, cols_l + c0, dvals, nvals
+
+
+def _cached_split(packed: PackedAlignment) -> SplitAlignment:
+    """Build (and cache on the object) the SplitAlignment layout."""
+    split = getattr(packed, "_split_cache", None)
+    if split is None:
+        split = split_alignment(packed)
+        packed._split_cache = split
+    return split
+
+
+def _split_pair(a: PackedAlignment, b: PackedAlignment | None):
+    """(sa, sb) SplitAlignments for a comparison pair.  For a query-vs-db
+    pair both sides are gathered at the union of their partial positions,
+    so the correction gram's contraction axis lines up site for site.
+    Cached on ``a`` keyed by the partner's identity."""
+    if b is None or b is a:
+        sa = _cached_split(a)
+        return sa, sa
+    cache = getattr(a, "_split_pair_cache", None)
+    if cache is not None and cache[0] == id(b):
+        return cache[1]
+    pos = np.union1d(partial_site_positions(a), partial_site_positions(b))
+    pair = (split_alignment(a, pos), split_alignment(b, pos))
+    a._split_pair_cache = (id(b), pair)
+    return pair
+
+
+def _cached_compact(a: PackedAlignment, b: PackedAlignment):
+    """compact_variant_columns, memoised on the first alignment (streaming
+    resume re-enters with the same objects)."""
+    key = id(b) if b is not a else None
+    cache = getattr(a, "_compact_res", None)
+    if cache is not None and cache[0] == key:
+        return cache[1]
+    res = compact_variant_columns(a, None if b is a else b)
+    a._compact_res = (key, res)
+    return res
+
+
+def _check_method(method: str) -> None:
+    if method not in ("auto", "split"):
+        raise NotImplementedError(
+            f"method={method!r} (the popcount and 15-channel cross-check "
+            f"kernels) is {_NOT_PORTED}"
+        )
+
+
+def snp_distance_dense(
+    a: PackedAlignment,
+    b: PackedAlignment | None = None,
+    *,
+    device: str | torch.device,
+    method: str = "split",
+    row_block: int = 2048,
+) -> tuple[np.ndarray, np.ndarray]:
+    """Dense all-pairs SNP distance and comparable-site matrices, int32
+    numpy [n_a, n_b] (b defaults to a), computed in row blocks."""
+    _check_method(method)
+    device = resolve_device(device)
+    if b is None:
+        b = a
+    if a.length != b.length:
+        raise ValueError("alignments must share sequence length")
+    sa, sb = _split_pair(a, b)
+    D = np.empty((a.n_seqs, b.n_seqs), dtype=np.int32)
+    NN = np.empty((a.n_seqs, b.n_seqs), dtype=np.int32)
+    for r0 in range(0, a.n_seqs, row_block):
+        r1 = min(a.n_seqs, r0 + row_block)
+        Dd, Nd = snp_distance_split_device(sa, sb, device=device, r0=r0, r1=r1)
+        D[r0:r1] = to_host(Dd)
+        NN[r0:r1] = to_host(Nd)
+    return D, NN
+
+
+def pairsnp_stream(
+    fasta: Sequence[str] | Sequence[PackedAlignment],
+    dist: int = INT32_MAX,
+    filter: bool = False,
+    *,
+    device: str | torch.device,
+    method: str = "split",
+    row_block: int = 1024,
+    start_row: int = 0,
+    compact: bool = True,
+):
+    """Streaming COO emission for all-pairs runs.
+
+    Yields ``(r0, r1, names, rows, cols, dvals, filt, nn)`` per row block
+    (numpy arrays, row-major order within and across blocks), exactly what
+    ``tracs_tpu.ops.pairsnp.pairsnp_stream`` yields.  One FASTA (or
+    PackedAlignment) gives the all-pairs upper triangle j > i; two give the
+    query-vs-db rectangle, with db columns offset by the query count.
+    ``start_row`` resumes at a row-block boundary.  ``compact`` drops
+    alignment columns that cannot change any result (bit-identical output).
+    ``filt`` is zero-filled: the recombination filter is not ported yet.
+    """
+    if filter:
+        raise NotImplementedError(f"the recombination filter (--filter) is {_NOT_PORTED}")
+    _check_method(method)
+    device = resolve_device(device)
+    if len(fasta) < 1 or len(fasta) > 2:
+        raise ValueError("Invalid number of fasta files!")
+    packed = [p if isinstance(p, PackedAlignment) else pack_fasta(p) for p in fasta]
+    a = packed[0]
+    if len(packed) == 2:
+        b = packed[1]
+        if a.length != b.length:
+            raise ValueError("Error reading FASTA, variable sequence lengths!")
+        names = a.names + b.names
+        col_offset = a.n_seqs
+        triangle = False
+    else:
+        b = a
+        names = a.names
+        col_offset = 0
+        triangle = True
+
+    # kernels run on the compacted a_k/b_k; names stay in original space
+    nn_off = 0
+    a_k, b_k = a, b
+    if compact:
+        comp = _cached_compact(a, b)
+        if comp is not None:
+            a_k, b_k, _pos_map, nn_off = comp
+            if b is a:
+                b_k = a_k
+    sa, sb = _split_pair(a_k, b_k)
+
+    for r0 in range(start_row, a.n_seqs, row_block):
+        r1 = min(a.n_seqs, r0 + row_block)
+        if triangle:
+            D, NN, c0 = snp_distance_split_prefix_device(sa, r0, r1, device=device)
+        else:
+            D, NN = snp_distance_split_device(sa, sb, device=device, r0=r0, r1=r1)
+            c0 = 0
+        rows_l, cols, dvals, nvals = _extract_coo(
+            D, NN, dist, r0, b.n_seqs, c0, triangle=triangle
+        )
+        if nn_off:
+            nvals = nvals + nn_off
+        filt = np.zeros(len(rows_l), dtype=np.int64)
+        yield r0, r1, names, rows_l + r0, cols + col_offset, dvals, filt, nvals
+
+
+def pairsnp(
+    fasta: Sequence[str] | Sequence[PackedAlignment],
+    n_threads: int = 1,
+    dist: int = INT32_MAX,
+    filter: bool = False,
+    *,
+    device: str | torch.device,
+    method: str = "split",
+    row_block: int = 4096,
+    compact: bool = True,
+):
+    """Reference-compatible driver: sparse COO of the pairs with d <= dist,
+    in row-major order.  Returns (rows, cols, distances, seq_names,
+    filt_distances, n_compared_sites) — Python lists up to 2^22 surviving
+    pairs, int64 numpy arrays above that.  ``n_threads`` is accepted for API
+    parity; the filtered column is zero-filled."""
+    chunks = []  # per-block (rows, cols, d, filt, nn) numpy tuples
+    names = None
+    for _r0, _r1, names, rows, cols, dvals, filt, nvals in pairsnp_stream(
+        fasta, dist=dist, filter=filter, device=device, method=method,
+        row_block=row_block, compact=compact,
+    ):
+        chunks.append((rows, cols, dvals, filt, nvals))
+    cat = [
+        np.concatenate([np.asarray(c[k], dtype=np.int64) for c in chunks])
+        if chunks else np.zeros(0, dtype=np.int64)
+        for k in range(5)
+    ]
+    if len(cat[0]) <= 1 << 22:
+        cat = [list(col) for col in cat]
+    return cat[0], cat[1], cat[2], list(names), cat[3], cat[4]

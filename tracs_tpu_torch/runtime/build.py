@@ -1,0 +1,109 @@
+"""Builds the port's native code at first use, into the git-ignored
+``build/`` directory of the checkout, and loads it with ctypes.
+
+Two kinds of library are built here:
+
+* the host library ``src/tracs_native.cpp`` (FASTA packing, split-layout
+  statistics, CSV row formatting), with g++ into ``build/native/``;
+* the hand-written CUDA kernels ``tracs_tpu_torch/csrc/<name>.cu``, with
+  nvcc for Hopper (``sm_90a``) into ``build/kernels/``.  Each exposes a
+  plain C entry point that takes device pointers and a stream as
+  ``void*`` and returns ``cudaGetLastError()``.
+
+A library's file name carries a digest of its source and compiler command,
+so an edited source is rebuilt and never served stale.  Each build writes
+to a temporary name and ``os.replace``s it into place, so parallel
+processes (pytest-xdist workers) never load a half-written file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+
+REPO_ROOT = os.path.dirname(
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+)
+BUILD_DIR = os.path.join(REPO_ROOT, "build")
+CSRC_DIR = os.path.join(REPO_ROOT, "tracs_tpu_torch", "csrc")
+
+#: nvcc flags for every kernel: Hopper only (``wgmma``/``setmaxnreg`` need the
+#: ``a`` target); ``-Xptxas -v`` reports registers, shared memory and spills
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+_LOCK = threading.Lock()
+_LOADED: dict[str, ctypes.CDLL] = {}
+
+
+class BuildError(RuntimeError):
+    """A compiler was missing or refused a source."""
+
+
+def compile_library(src: str, out_dir: str, stem: str, argv: list[str],
+                    timeout: float = 600) -> tuple[str, str]:
+    """Compile ``src`` into ``out_dir/lib<stem>-<digest>.so`` unless that file
+    exists.  ``argv`` is the compiler command with ``{out}`` where the output
+    path goes.  Returns (library path, compiler output; empty when cached)."""
+    with open(src, "rb") as fh:
+        digest = hashlib.sha256(fh.read() + "\0".join(argv).encode()).hexdigest()[:16]
+    out = os.path.join(out_dir, f"lib{stem}-{digest}.so")
+    if os.path.exists(out):
+        return out, ""
+    os.makedirs(out_dir, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(dir=out_dir, prefix=f".{stem}-", suffix=".so")
+    os.close(fd)
+    try:
+        cmd = [tmp if a == "{out}" else a for a in argv]
+        try:
+            r = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+        except (OSError, subprocess.TimeoutExpired) as e:
+            raise BuildError(f"{cmd[0]} failed to run: {e}") from e
+        if r.returncode != 0:
+            raise BuildError(
+                f"building {os.path.basename(src)} failed (rc {r.returncode}):\n"
+                f"{' '.join(cmd)}\n{r.stderr[-4000:]}"
+            )
+        os.replace(tmp, out)
+    finally:
+        if os.path.exists(tmp):
+            os.remove(tmp)
+    return out, r.stdout + r.stderr
+
+
+def nvcc_path() -> str:
+    """The CUDA compiler: ``nvcc`` on PATH, else under ``$CUDA_HOME`` or
+    ``/usr/local/cuda``."""
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = os.path.join(home, "bin", "nvcc")
+    if not os.path.exists(path):
+        raise BuildError("nvcc not found (looked on PATH, in $CUDA_HOME and /usr/local/cuda)")
+    return path
+
+
+def build_cuda_library(name: str) -> tuple[str, str]:
+    """Build ``csrc/<name>.cu`` for sm_90a.  Returns (path, compiler output)."""
+    src = os.path.join(CSRC_DIR, f"{name}.cu")
+    argv = [nvcc_path(), *NVCC_FLAGS, "-o", "{out}", src]
+    return compile_library(src, os.path.join(BUILD_DIR, "kernels"), name, argv)
+
+
+def load_cuda_library(name: str) -> ctypes.CDLL:
+    """The loaded kernel library ``csrc/<name>.cu``, built on first use."""
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            path, _ = build_cuda_library(name)
+            lib = ctypes.CDLL(path)
+            _LOADED[name] = lib
+        return lib

@@ -1,0 +1,201 @@
+"""ctypes loader for the native C++ host library ``src/tracs_native.cpp``
+(counterpart of tracs_tpu/runtime/native.py, limited to the entry points
+the ``distance`` slice uses: FASTA packing, split-layout statistics and
+CSV row formatting).
+
+The library is built with g++ into the git-ignored ``build/native/`` at
+first use (runtime/build.py).  Every entry point returns None when the
+library cannot be built, and its caller then takes a numpy path.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import logging
+import os
+import threading
+
+import numpy as np
+
+from tracs_tpu_torch.runtime.build import BUILD_DIR, REPO_ROOT, BuildError, compile_library
+
+_SRC = os.path.join(REPO_ROOT, "src", "tracs_native.cpp")
+
+_LOCK = threading.Lock()
+_LIB: "ctypes.CDLL | None | bool" = None  # None = not tried, False = unavailable
+
+
+def get_lib():
+    """Return the loaded CDLL, building it on first use; None if unavailable."""
+    global _LIB
+    with _LOCK:
+        if _LIB is False:
+            return None
+        if _LIB is not None:
+            return _LIB
+        argv = [
+            "g++", "-O3", "-march=native", "-shared", "-fPIC", "-fopenmp",
+            "-std=c++17", _SRC, "-o", "{out}", "-lz",
+        ]
+        try:
+            path, _ = compile_library(_SRC, os.path.join(BUILD_DIR, "native"),
+                                      "tracs_native", argv, timeout=300)
+            lib = ctypes.CDLL(path)
+        except (BuildError, OSError) as e:
+            logging.warning("native host library unavailable, using numpy: %s", e)
+            _LIB = False
+            return None
+        _configure(lib)
+        _LIB = lib
+        return lib
+
+
+def _configure(lib) -> None:
+    u32p = np.ctypeslib.ndpointer(dtype=np.uint32, flags="C_CONTIGUOUS")
+    i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
+
+    lib.tn_fasta_scan.restype = ctypes.c_int64
+    lib.tn_fasta_scan.argtypes = [ctypes.c_char_p, ctypes.POINTER(ctypes.c_int64)]
+
+    lib.tn_fasta_pack.restype = ctypes.c_int64
+    lib.tn_fasta_pack.argtypes = [
+        ctypes.c_char_p, u32p, ctypes.c_int64, ctypes.c_int64,
+        ctypes.c_char_p, ctypes.c_int64,
+    ]
+
+    lib.tn_format_dist_rows.restype = ctypes.c_int64
+    lib.tn_format_dist_rows.argtypes = [
+        ctypes.c_char_p, i64p,                       # names blob + offsets
+        i64p, i64p, ctypes.c_int64,                  # rows, cols, n
+        ctypes.c_void_p, i64p,                       # datediff|NULL, dvals
+        ctypes.c_void_p, ctypes.c_void_p,            # p0|NULL, eK|NULL
+        ctypes.c_void_p,                             # filt|NULL
+        i64p, ctypes.c_char_p, ctypes.c_int64,       # nn, ref, ref_len
+        ctypes.c_char_p, ctypes.c_int64,             # out, cap
+    ]
+
+    lib.tn_split_stats.restype = None
+    lib.tn_split_stats.argtypes = [
+        u32p, ctypes.c_int64, ctypes.c_int64,        # planes, n, W
+        u32p, u32p, i64p,                            # excl, nmask, cnt_n
+        u32p, u32p, u32p, u32p,                      # ge2, b0, b1, partial_or
+    ]
+
+
+def native_pack_fasta(path):
+    """Parse + bit-pack an aligned FASTA via the native library.
+
+    Returns (planes [n, 4, W] uint32, length, names) or None when the native
+    path is unavailable (the caller falls back to the numpy packer).
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    path_b = os.fspath(path).encode()
+    seq_len = ctypes.c_int64(0)
+    n = lib.tn_fasta_scan(path_b, ctypes.byref(seq_len))
+    if n == -2:
+        raise ValueError("Error reading FASTA, variable sequence lengths!")
+    if n < 0:
+        raise ValueError(f"Error reading FASTA {os.fspath(path)!r}")
+    if n == 0:
+        raise ValueError(f"No sequences found in {path!r}")
+    L = seq_len.value
+    W = (L + 31) // 32
+    planes = np.zeros((n, 4, W), dtype=np.uint32)
+    name_cap = 4096
+    names_buf = ctypes.create_string_buffer(n * name_cap)
+    rc = lib.tn_fasta_pack(path_b, planes, n, L, names_buf, name_cap)
+    if rc < 0:
+        raise ValueError(f"Error packing FASTA {path!r} (code {rc})")
+    names = [
+        names_buf.raw[i * name_cap : (i + 1) * name_cap].split(b"\x00", 1)[0].decode()
+        for i in range(n)
+    ]
+    return planes, L, names
+
+
+def _names_blob(names):
+    """Concatenated UTF-8 names + int64 offsets for tn_format_dist_rows."""
+    offs = np.zeros(len(names) + 1, dtype=np.int64)
+    parts = []
+    pos = 0
+    for i, nm in enumerate(names):
+        b = nm.encode()
+        parts.append(b)
+        pos += len(b)
+        offs[i + 1] = pos
+    return b"".join(parts), offs
+
+
+def native_format_rows(names, rows, cols, dvals, nn, ref, filt=None, *,
+                       blob_cache=None):
+    """Format distance-CSV rows with the native writer; None if unavailable.
+
+    The transmission columns (date difference, transmission distance,
+    expected K) are written as NA: the port has no ``--meta`` yet.  ``filt``
+    None writes NA in the filtered column too.  ``blob_cache``: optional
+    dict to reuse the names blob across row blocks of a streaming run.
+    """
+    lib = get_lib()
+    if lib is None or len(rows) == 0:
+        return None
+
+    if blob_cache is not None and "blob" in blob_cache:
+        blob, offs = blob_cache["blob"]
+    else:
+        blob, offs = _names_blob(names)
+        if blob_cache is not None:
+            blob_cache["blob"] = (blob, offs)
+
+    n = len(rows)
+    rows = np.ascontiguousarray(rows, dtype=np.int64)
+    cols = np.ascontiguousarray(cols, dtype=np.int64)
+    dvals = np.ascontiguousarray(dvals, dtype=np.int64)
+    nn = np.ascontiguousarray(nn, dtype=np.int64)
+    ft_arr = None if filt is None else np.ascontiguousarray(filt, dtype=np.int64)
+    ft_p = None if ft_arr is None else ft_arr.ctypes.data_as(ctypes.c_void_p)
+
+    name_lens = offs[1:] - offs[:-1]
+    ref_b = ref.encode()
+    cap = int(
+        name_lens[rows].sum() + name_lens[cols].sum()
+        + n * (3 * 32 + 3 * 21 + 16 + len(ref_b))
+    )
+    out = ctypes.create_string_buffer(cap)
+    wrote = lib.tn_format_dist_rows(
+        blob, offs, rows, cols, n,
+        None, dvals, None, None, ft_p,
+        nn, ref_b, len(ref_b), out, cap,
+    )
+    if wrote < 0:
+        return None
+    return ctypes.string_at(out, wrote).decode()
+
+
+def native_split_stats(planes):
+    """Single-pass split-layout statistics over [n, 4, W] packed planes.
+
+    Returns ``(excl, nmask, cnt_n, partial_or)`` — the N-exclusive planes,
+    N mask, per-sample N counts and the OR-over-samples partial-site mask —
+    or None when the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    planes = np.ascontiguousarray(planes, dtype=np.uint32)
+    n, _, W = planes.shape
+    excl = np.empty((n, 4, W), dtype=np.uint32)
+    nmask = np.empty((n, W), dtype=np.uint32)
+    cnt_n = np.empty(n, dtype=np.int64)
+    # the exception mask and 2-bit code planes feed the TPU package's
+    # compact upload; the port uploads raw planes, so they are scratch here
+    ge2 = np.empty((n, W), dtype=np.uint32)
+    b0 = np.empty((n, W), dtype=np.uint32)
+    b1 = np.empty((n, W), dtype=np.uint32)
+    partial_or = np.empty(W, dtype=np.uint32)
+    lib.tn_split_stats(
+        planes.reshape(-1), n, W,
+        excl.reshape(-1), nmask.reshape(-1), cnt_n,
+        ge2.reshape(-1), b0.reshape(-1), b1.reshape(-1), partial_or,
+    )
+    return excl, nmask, cnt_n, partial_or

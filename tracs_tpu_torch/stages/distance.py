@@ -1,0 +1,266 @@
+"""``distance`` stage: pairwise SNP distances per MSA, written as the
+reference CSV (counterpart of tracs_tpu/stages/distance.py).
+
+The CSV schema is ``sampleA,sampleB,date difference,SNP distance,
+transmission distance,expected K,filtered SNP distance,sites considered,
+MSA file``.  The port runs the SNP sweep without ``--meta``, so the three
+transmission columns hold NA and the filtered column holds 0, byte for byte
+what ``tracs_tpu`` writes for the same invocation.  ``--meta``, ``--filter``
+and a ``--mesh`` other than ``off`` raise NotImplementedError, naming the
+ROADMAP.md item that will port them.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+
+from tracs_tpu_torch.ops.packing import pack_fasta
+from tracs_tpu_torch.ops.pairsnp import INT32_MAX, pairsnp, pairsnp_stream
+from tracs_tpu_torch.runtime.device import resolve_device
+from tracs_tpu_torch.runtime.native import native_format_rows
+from tracs_tpu_torch.runtime.profiling import phase, rate_logger
+from tracs_tpu_torch.utils import (
+    add_loglevel_arg,
+    check_positive_float,
+    check_positive_int,
+    setup_logging,
+)
+
+HEADER = (
+    "sampleA,sampleB,date difference,SNP distance,transmission distance,"
+    "expected K,filtered SNP distance,sites considered,MSA file\n"
+)
+
+#: MSAs with more samples than this stream in row blocks even without --row-block
+_AUTO_STREAM_SAMPLES = 4096
+
+
+def distance_parser(parser):
+    parser.description = (
+        "Estimates pairwise SNP and transmission distances between each pair "
+        "of samples aligned to the same reference genome."
+    )
+
+    io_opts = parser.add_argument_group("Input/output")
+    io_opts.add_argument(
+        "--msa", dest="msa_files", required=True,
+        help="Input fasta files formatted by the align and merge functions",
+        type=os.path.abspath, nargs="+",
+    )
+    io_opts.add_argument(
+        "--msa-db", dest="msa_db",
+        help="A database MSA used to compare each sequence to. By default "
+             "all pairwise comparisons within each MSA are considered.",
+        type=os.path.abspath, default=None,
+    )
+    io_opts.add_argument(
+        "--meta", dest="metadata", default=None,
+        help="Location of metadata in csv format (not ported yet).",
+        type=os.path.abspath,
+    )
+    io_opts.add_argument(
+        "-o", "--output", dest="output_file", required=True,
+        help="name of the output file to store the pairwise distance estimates.",
+        type=str,
+    )
+
+    snpdist = parser.add_argument_group("SNP distance options")
+    snpdist.add_argument(
+        "-D", "--snp_threshold", dest="snp_threshold",
+        help="Only output those transmission pairs with a SNP distance <= D",
+        type=check_positive_int, default=INT32_MAX,
+    )
+    snpdist.add_argument(
+        "--filter", dest="recomb_filter",
+        help="Filter out regions with unusually high SNP distances often "
+             "caused by HGT (not ported yet)",
+        action="store_true", default=False,
+    )
+
+    transdist = parser.add_argument_group(
+        "Transmission distance options (used with --meta, not ported yet)"
+    )
+    transdist.add_argument(
+        "--clock_rate", dest="clock_rate", type=check_positive_float,
+        default=1e-3 * 29903,
+        help="clock rate (SNPs/genome/year) default=1e-3 * 29903",
+    )
+    transdist.add_argument(
+        "--trans_rate", dest="trans_rate", type=check_positive_float, default=73.0,
+        help="transmission rate (transmissions/year) default=73",
+    )
+    transdist.add_argument(
+        "-K", "--trans_threshold", dest="trans_threshold", type=check_positive_int,
+        default=None,
+        help="Only outputs those pairs where the most likely number of "
+             "intermediate hosts <= K",
+    )
+    transdist.add_argument(
+        "--precision", dest="precision", type=check_positive_float, default=0.01,
+        help="The precision used to calculate E(K) (default=0.01).",
+    )
+
+    scale = parser.add_argument_group("Scale options")
+    scale.add_argument(
+        "--row-block", dest="row_block", type=check_positive_int, default=None,
+        help="Stream the all-pairs computation in row blocks of this many "
+             "samples (bounds host memory for very large runs and enables "
+             "--resume). Default: whole matrix at once.",
+    )
+    scale.add_argument(
+        "--resume", dest="resume", action="store_true", default=False,
+        help="Resume an interrupted --row-block run from the cursor file "
+             "written next to the output.",
+    )
+    scale.add_argument(
+        "--mesh", dest="mesh", type=str, default=None,
+        help="Device mesh for the all-pairs sweep; only 'off' (one device) "
+             "is ported.",
+    )
+    scale.add_argument(
+        "--device", dest="device", choices=["cuda", "cpu"], default="cuda",
+        help="Device of the sweep (default: cuda; fails when no card exists).",
+    )
+
+    parser.add_argument(
+        "-t", "--threads", dest="n_cpu",
+        help="number of threads to use (default=1)",
+        type=check_positive_int, default=1,
+    )
+    add_loglevel_arg(parser)
+    parser.set_defaults(func=distance)
+    return parser
+
+
+def _reject_unported(args) -> None:
+    if args.metadata is not None:
+        raise NotImplementedError(
+            "--meta needs the transcluster model, not ported to tracs_tpu_torch "
+            "yet (ROADMAP.md, 'Modules to port', item 1)"
+        )
+    if args.recomb_filter:
+        raise NotImplementedError(
+            "--filter needs the recombination filter, not ported to "
+            "tracs_tpu_torch yet (ROADMAP.md, 'Modules to port', item 2)"
+        )
+    if args.mesh is not None and args.mesh.strip().lower() != "off":
+        raise NotImplementedError(
+            f"--mesh {args.mesh}: multi-GPU sweeps are not ported to "
+            "tracs_tpu_torch yet (ROADMAP.md, 'Modules to port', item 4); "
+            "use --mesh off"
+        )
+
+
+def _ref_name(msa: str) -> str:
+    return os.path.basename(msa).split(".")[0].replace("_combined", "")
+
+
+def _format_rows(names, rows, cols, dvals, filt, nn, ref, blob_cache=None) -> str:
+    """CSV text of the emitted pairs (native writer, Python if it is absent)."""
+    if len(rows) == 0:
+        return ""
+    txt = native_format_rows(names, rows, cols, dvals, nn, ref, filt=filt,
+                             blob_cache=blob_cache)
+    if txt is None:
+        txt = "".join(
+            f"{names[i]},{names[j]},NA,{int(d)},NA,NA,{f},{c},{ref}\n"
+            for i, j, d, f, c in zip(rows, cols, dvals, filt, nn)
+        )
+    return txt
+
+
+def distance(args):
+    setup_logging(args.loglevel)
+    _reject_unported(args)
+    device = resolve_device(args.device)
+    logging.info("Running the SNP sweep on %s", device)
+
+    if args.row_block:
+        return _distance_streaming(args, device)
+
+    # large inputs stream automatically (bounded host memory, resumable);
+    # the sample count comes from the packed alignments, which are reused
+    packed = [pack_fasta(path) for path in args.msa_files]
+    db = pack_fasta(args.msa_db) if args.msa_db is not None else None
+    n_max = max(p.n_seqs for p in packed)
+    if n_max > _AUTO_STREAM_SAMPLES:
+        logging.info(
+            "%s samples detected: switching to streaming row blocks "
+            "(use --row-block to control the block size)", n_max,
+        )
+        args.row_block = 1024
+        return _distance_streaming(args, device, packed, db)
+
+    with open(args.output_file, "w") as outfile:
+        outfile.write(HEADER)
+        for msa, a in zip(args.msa_files, packed):
+            logging.info("Calculating pairwise snp distances for %s", msa)
+            rows, cols, dvals, names, filt, nn = pairsnp(
+                [a, db] if db is not None else [a],
+                n_threads=args.n_cpu, dist=args.snp_threshold, device=device,
+            )
+            logging.info("Saving distances for %s", msa)
+            outfile.write(_format_rows(names, rows, cols, dvals, filt, nn, _ref_name(msa)))
+
+
+def _distance_streaming(args, device, packed=None, db=None):
+    """Row-block streaming driver: bounded host memory, incremental CSV
+    writes, and a cursor file so an interrupted sweep resumes at the last
+    completed block.  The cursor records the flushed byte offset after each
+    block; a resumed run truncates the output there first, so it is
+    byte-identical to an uninterrupted one.  Output rows are identical to
+    the non-streaming path."""
+    cursor_path = args.output_file + ".cursor"
+    cursor = {"msa_index": 0, "next_row": 0}
+    mode = "w"
+    if args.resume and os.path.exists(cursor_path):
+        with open(cursor_path) as fh:
+            cursor = json.load(fh)
+        mode = "a"
+        logging.info("Resuming from %s", cursor)
+        if "bytes" in cursor and os.path.exists(args.output_file):
+            with open(args.output_file, "r+") as fh:
+                fh.truncate(cursor["bytes"])
+
+    with open(args.output_file, mode) as outfile:
+        if mode == "w":
+            outfile.write(HEADER)
+        for mi, msa in enumerate(args.msa_files):
+            if mi < cursor["msa_index"]:
+                continue
+            start_row = cursor["next_row"] if mi == cursor["msa_index"] else 0
+            ref = _ref_name(msa)
+            a = packed[mi] if packed is not None else pack_fasta(msa)
+            if db is None and args.msa_db is not None:
+                db = pack_fasta(args.msa_db)
+            logging.info("Streaming pairwise distances for %s", msa)
+            log_rate = rate_logger("pairs")
+            blob_cache = {}  # per MSA: the names blob is shared across blocks
+            for r0, r1, names, rows, cols, dvals, filt, nn in pairsnp_stream(
+                [a, db] if db is not None else [a], dist=args.snp_threshold,
+                row_block=args.row_block, start_row=start_row, device=device,
+            ):
+                with phase("block rows [%d,%d)" % (r0, r1)):
+                    outfile.write(_format_rows(names, rows, cols, dvals, filt, nn,
+                                               ref, blob_cache))
+                    outfile.flush()
+                    # atomic cursor update: a kill mid-write leaves the old one
+                    state = {"msa_index": mi, "next_row": r1, "bytes": outfile.tell()}
+                    with open(cursor_path + ".tmp", "w") as fh:
+                        json.dump(state, fh)
+                    os.replace(cursor_path + ".tmp", cursor_path)
+                log_rate((r1 - r0) * (len(names) - r0))
+            cursor = {"msa_index": mi + 1, "next_row": 0}
+    if os.path.exists(cursor_path):
+        os.remove(cursor_path)
+    logging.info("Streaming distance run complete.")
+
+
+def main(argv=None):
+    parser = argparse.ArgumentParser()
+    parser = distance_parser(parser)
+    args = parser.parse_args(argv)
+    args.func(args)
