@@ -9,18 +9,30 @@ Phases (each one passes or the script exits non-zero):
 
 0. the card's name and power limit, from nvidia-smi;
 1. the build of every kernel of the distance path from the sources in the
-   checkout (nvcc, sm_90a), with its seconds and ptxas report;
+   checkout (one nvcc per source, all started together, sm_90a), with its
+   seconds and ptxas report;
 2. each kernel against its plain PyTorch version on the card, exact equality,
    at a ragged shape, a rectangle with r0 > 0 and c0 > 0, and the main-path
-   shape rb=1024 x n=4096 x W=31250, with the median ms of both;
+   shape rb=1024 x n=4096 x W=31250, with the median ms of both:
+   ``split_gram`` (K1) and ``popcount_gram`` (K2 + K3);
 3. the distance slice through the normal entry point
    (``tracs_tpu_torch.cli.main(["distance", ...])``) on the headline
    workload: n=4096 samples x 1 Mb in clusters of 21, 2048 partial-IUPAC
    columns, seed 0, written as an uncompressed FASTA in a temp dir.  Checks
-   that every row block launched the gram kernel, that the CSV holds exactly
-   the within-cluster pairs, and that 2,000 sampled rows agree with a host
-   numpy popcount over the raw planes.  Prints wall seconds, pairs/s and the
-   CSV's sha256, then times the sweep alone.
+   that every row block launched the split-gram kernel, that the CSV holds
+   exactly the within-cluster pairs, and that 2,000 sampled rows agree with a
+   host numpy popcount over the raw planes.  Prints wall seconds, pairs/s and
+   the CSV's sha256;
+4. the sweep alone (``pairsnp_stream``) through both engines, cold and warm:
+   the popcount engine must launch ``popcount_gram`` once per row block and
+   yield, array for array, what the split engine yields;
+5. ``distance --meta`` through the CLI on the same workload, with a seeded
+   date per sample (a base date per cluster, members 0-180 days after it):
+   the split kernel once per row block, the same rows as phase 3, p0 in
+   [0, 1], E(K) finite and >= 0, and 2,000 sampled rows against the scalar
+   ``lprob_k_given_N`` and the model run on the CPU (rtol 1e-9);
+6. ``trans_dist`` alone on the card: its time on the run's unique (N, delta)
+   lanes, and the reference goldens at 1e-6.
 
 The line before the last is a JSON object describing each kernel; the last
 line is ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a
@@ -32,16 +44,22 @@ from __future__ import annotations
 import argparse
 import hashlib
 import json
+import math
 import os
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
 #: row block of the distance run: the JAX package's headline setting
 ROW_BLOCK = 1024
+#: the kernels of the distance path, built from csrc/<name>.cu
+KERNELS = ("split_gram", "popcount_gram")
+#: the transmission model's defaults (tracs distance --clock_rate/--trans_rate/--precision)
+LAMB, BETA, PRECISION = 1e-3 * 29903, 73.0, 0.01
 
 
 def fail(msg: str) -> None:
@@ -176,12 +194,8 @@ def time_ms(fn, reps: int) -> float:
     return float(np.median(times))
 
 
-def phase_kernels(device, seed: int):
-    """split_gram against split_gram_reference on the card; returns
-    (max_abs_err, kernel ms, plain ms) at the main-path shape."""
+def _random_words(device, seed: int):
     import torch
-
-    from tracs_tpu_torch.ops import kernels
 
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
@@ -189,45 +203,65 @@ def phase_kernels(device, seed: int):
     def words(*shape):
         return torch.randint(-2**31, 2**31, shape, dtype=torch.int32, device=device,
                              generator=gen)
-
-    cases = [
-        # name, A rows, B rows (None: self), W, r0, rb, c0
-        ("ragged n=37 W=17", 37, None, 17, 0, 37, 0),
-        ("rectangle 37x11 r0=5 c0=3", 48, 14, 17, 5, 37, 3),
-        ("main path rb=1024 n=4096 W=31250", 4096, None, 31250, 0, 1024, 0),
-    ]
-    max_err = 0
-    ms = plain_ms = None
-    for name, na, nb, W, r0, rb, c0 in cases:
-        ea, nm = words(na, 4, W), words(na, W)
-        eb, nmb = (None, None) if nb is None else (words(nb, 4, W), words(nb, W))
-        g, gn = kernels.split_gram(ea, nm, r0, rb, c0, eb, nmb)
-        torch.cuda.synchronize()
-        g0, gn0 = kernels.split_gram_reference(ea, nm, r0, rb, c0, eb, nmb)
-        err = max(int((g.long() - g0.long()).abs().max()), int((gn.long() - gn0.long()).abs().max()))
-        max_err = max(max_err, err)
-        print(f"# kernel vs plain, {name}: out {tuple(g.shape)}, max |err| {err}")
-        if err:
-            fail(f"split_gram disagrees with its plain version at {name}")
-        if W == 31250:
-            ms = time_ms(lambda: kernels.split_gram(ea, nm, r0, rb, c0, eb, nmb), 10)
-            plain_ms = time_ms(lambda: kernels.split_gram_reference(ea, nm, r0, rb, c0, eb, nmb), 3)
-            print(f"# split_gram at {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median)")
-        del ea, nm, eb, nmb, g, gn, g0, gn0
-        torch.cuda.empty_cache()
-    return max_err, ms, plain_ms
+    return words
 
 
-def phase_slice(n: int, L: int, row_block: int, seed: int, tmp: str):
-    """The distance stage through the CLI entry point; returns the number of
-    gram-kernel launches it made."""
+#: name, A rows, B rows (None: self), W, r0, rb, c0
+KERNEL_CASES = [
+    ("ragged n=37 W=17", 37, None, 17, 0, 37, 0),
+    ("rectangle 37x11 r0=5 c0=3", 48, 14, 17, 5, 37, 3),
+    ("main path rb=1024 n=4096 W=31250", 4096, None, 31250, 0, 1024, 0),
+]
+
+
+def phase_kernels(device, seed: int):
+    """Each kernel against its plain version on the card at KERNEL_CASES;
+    returns {kernel: (max_abs_err of each output, kernel ms, plain ms)}, the
+    times at the main-path shape."""
     import torch
 
-    from tracs_tpu_torch import cli
     from tracs_tpu_torch.ops import kernels
-    from tracs_tpu_torch.ops.packing import pack_fasta
-    from tracs_tpu_torch.ops.pairsnp import pairsnp_stream
 
+    words = _random_words(device, seed)
+
+    def split_args(na, nb, W, r0, rb, c0):
+        b = (None, None) if nb is None else (words(nb, 4, W), words(nb, W))
+        return (words(na, 4, W), words(na, W), r0, rb, c0) + b
+
+    def popcount_args(na, nb, W, r0, rb, c0):
+        return (words(na, 4, W), r0, rb, c0, None if nb is None else words(nb, 4, W))
+
+    specs = {
+        "split_gram": (kernels.split_gram, kernels.split_gram_reference, split_args),
+        "popcount_gram": (kernels.popcount_gram, kernels.popcount_gram_reference,
+                          popcount_args),
+    }
+    out = {}
+    for kname, (fn, plain, make) in specs.items():
+        errs = [0, 0]
+        ms = plain_ms = None
+        for name, na, nb, W, r0, rb, c0 in KERNEL_CASES:
+            args = make(na, nb, W, r0, rb, c0)
+            got = fn(*args)
+            torch.cuda.synchronize()
+            want = plain(*args)
+            err = [int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)]
+            errs = [max(e, f) for e, f in zip(errs, err)]
+            print(f"# {kname} vs plain, {name}: out {tuple(got[0].shape)}, max |err| {err}")
+            if any(err):
+                fail(f"{kname} disagrees with its plain version at {name}")
+            if W == 31250:
+                ms = time_ms(lambda: fn(*args), 10)
+                plain_ms = time_ms(lambda: plain(*args), 3)
+                print(f"# {kname} at {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median)")
+            del args, got, want
+            torch.cuda.empty_cache()
+        out[kname] = (errs, ms, plain_ms)
+    return out
+
+
+def _headline(n: int, L: int, seed: int, tmp: str):
+    """(packed alignment, FASTA path, cluster size) of the headline workload."""
     cluster_size = max(6, round(0.005 * n) + 1)
     t0 = time.perf_counter()
     packed = make_clustered(n, L, cluster_size=cluster_size, seed=seed)
@@ -235,26 +269,42 @@ def phase_slice(n: int, L: int, row_block: int, seed: int, tmp: str):
     write_fasta(fasta, packed)
     print(f"# workload: n={n} L={L} clusters of {cluster_size}, FASTA "
           f"{os.path.getsize(fasta) / 1e9:.2f} GB written in {time.perf_counter() - t0:.1f} s")
+    return packed, fasta, cluster_size
 
-    out = os.path.join(tmp, "dists.csv")
-    argv = ["distance", "--msa", fasta, "-o", out, "-D", "200", "--row-block", str(row_block)]
-    kernels.SPLIT_GRAM_LAUNCHES = 0
+
+def _run_cli(argv, n: int, row_block: int, what: str, device):
+    """One ``distance`` CLI run with the launch counts set to 0 just before
+    it; returns (wall s, split_gram launches, CSV rows as field lists, sha256)."""
+    import torch
+
+    from tracs_tpu_torch import cli
+    from tracs_tpu_torch.ops import kernels
+
+    kernels.SPLIT_GRAM_LAUNCHES = kernels.POPCOUNT_GRAM_LAUNCHES = 0
     t0 = time.perf_counter()
-    cli.main(argv)
+    cli.main(argv + ["--device", device.type])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.SPLIT_GRAM_LAUNCHES
     n_blocks = -(-n // row_block)
-    print(f"# distance CLI: {wall:.3f} s wall, split_gram launches {launches} "
-          f"for {n_blocks} row blocks")
+    print(f"# {what}: {wall:.3f} s wall, split_gram launches {launches} for "
+          f"{n_blocks} row blocks, popcount_gram launches {kernels.POPCOUNT_GRAM_LAUNCHES}")
     if launches != n_blocks:
-        fail(f"{launches} split_gram launches for {n_blocks} row blocks")
-
-    with open(out, "rb") as fh:
+        fail(f"{what}: {launches} split_gram launches for {n_blocks} row blocks")
+    with open(argv[argv.index("-o") + 1], "rb") as fh:
         data = fh.read()
-    sha = hashlib.sha256(data).hexdigest()
-    lines = data.decode().splitlines()
-    fields = [ln.split(",") for ln in lines[1:]]
+    fields = [ln.split(",") for ln in data.decode().splitlines()[1:]]
+    return wall, launches, fields, hashlib.sha256(data).hexdigest()
+
+
+def phase_slice(packed, fasta: str, cluster_size: int, row_block: int, seed: int, tmp: str,
+                device):
+    """The distance stage through the CLI entry point; returns (split_gram
+    launches, CSV rows)."""
+    n, L = packed.n_seqs, packed.length
+    out = os.path.join(tmp, "dists.csv")
+    argv = ["distance", "--msa", fasta, "-o", out, "-D", "200", "--row-block", str(row_block)]
+    wall, launches, fields, sha = _run_cli(argv, n, row_block, "distance CLI", device)
     i = np.array([int(f[0]) for f in fields], dtype=np.int64)
     j = np.array([int(f[1]) for f in fields], dtype=np.int64)
     sizes = np.bincount(np.arange(n) // cluster_size)
@@ -275,19 +325,145 @@ def phase_slice(n: int, L: int, row_block: int, seed: int, tmp: str):
     if not (np.array_equal(d_csv, d_ref) and np.array_equal(nn_csv, nn_ref)):
         fail("sampled CSV rows disagree with the host popcount oracle")
     print(f"# oracle: {len(pick)} sampled rows agree (SNP distance and sites considered)")
+    return launches, fields
 
-    # where the time went: ingest, then the sweep alone, cold and warm
+
+def phase_sweeps(fasta: str, row_block: int, device):
+    """pairsnp_stream through both engines, cold (fresh alignment object:
+    compaction scan, layout and upload) and warm (resident), the warm runs
+    taken in turns.  The popcount run is the popcount engine's main path:
+    its launch count is read around its cold sweep.  Returns that count."""
+    import torch
+
+    from tracs_tpu_torch.ops import kernels
+    from tracs_tpu_torch.ops.packing import PackedAlignment, pack_fasta
+    from tracs_tpu_torch.ops.pairsnp import pairsnp_stream
+
     t0 = time.perf_counter()
-    again = pack_fasta(fasta)
-    t_pack = time.perf_counter() - t0
-    for label in ("cold (split + upload)", "warm (layout cached)"):
+    packed = pack_fasta(fasta)
+    print(f"# pack_fasta: {time.perf_counter() - t0:.3f} s")
+    n_blocks = -(-packed.n_seqs // row_block)
+
+    def sweep(p, method):
         t0 = time.perf_counter()
-        rows = sum(len(blk[3]) for blk in pairsnp_stream(
-            [again], dist=200, row_block=row_block, device=torch.device("cuda")))
+        blocks = list(pairsnp_stream([p], dist=200, row_block=row_block, device=device,
+                                     method=method))
         torch.cuda.synchronize()
-        print(f"# sweep {label}: {time.perf_counter() - t0:.3f} s, {rows} pairs")
-    print(f"# pack_fasta: {t_pack:.3f} s")
+        return time.perf_counter() - t0, blocks
+
+    fresh = {m: PackedAlignment(packed.planes, packed.length, packed.names)
+             for m in ("split", "popcount")}
+    t_split, split_blocks = sweep(fresh["split"], "split")
+    kernels.SPLIT_GRAM_LAUNCHES = kernels.POPCOUNT_GRAM_LAUNCHES = 0
+    t_pc, pc_blocks = sweep(fresh["popcount"], "popcount")
+    launches = kernels.POPCOUNT_GRAM_LAUNCHES
+    print(f"# sweep cold (layout + upload): split {t_split:.3f} s, popcount {t_pc:.3f} s; "
+          f"popcount_gram launches {launches}, split_gram launches "
+          f"{kernels.SPLIT_GRAM_LAUNCHES} for {n_blocks} row blocks")
+    if launches != n_blocks or kernels.SPLIT_GRAM_LAUNCHES:
+        fail(f"the popcount sweep made {launches} popcount_gram launches for {n_blocks} "
+             f"row blocks and {kernels.SPLIT_GRAM_LAUNCHES} split_gram launches")
+    if len(pc_blocks) != len(split_blocks):
+        fail("the popcount and split sweeps yield different numbers of blocks")
+    for bp, bs in zip(pc_blocks, split_blocks):
+        if bp[:2] != bs[:2] or not all(np.array_equal(x, y) for x, y in zip(bp[3:], bs[3:])):
+            fail(f"the popcount sweep disagrees with the split sweep at rows [{bs[0]}, {bs[1]})")
+    rows = sum(len(b[3]) for b in pc_blocks)
+    print(f"# popcount sweep == split sweep, array for array: {len(pc_blocks)} blocks, "
+          f"{rows} pairs")
+    warm = {"split": [], "popcount": []}
+    for method in ("split", "popcount", "popcount", "split", "split", "popcount"):
+        warm[method].append(sweep(fresh[method], method)[0])
+    for method, ts in warm.items():
+        print(f"# sweep warm {method}: median {float(np.median(ts)):.4f} s of "
+              f"{', '.join(f'{t:.4f}' for t in ts)}")
     return launches
+
+
+def write_dates(path: str, n: int, cluster_size: int, seed: int) -> None:
+    """Seeded metadata CSV of the headline workload: each cluster gets a base
+    date in 2019-2021, and each member is dated 0-180 days after it."""
+    from datetime import date, timedelta
+
+    rng = np.random.default_rng(seed + 2)
+    n_clusters = -(-n // cluster_size)
+    base = rng.integers(0, 3 * 365, size=n_clusters)
+    offset = rng.integers(0, 181, size=n)
+    with open(path, "w") as fh:
+        fh.write("name,date\n")
+        for i in range(n):
+            day = date(2019, 1, 1) + timedelta(days=int(base[i // cluster_size] + offset[i]))
+            fh.write(f"{i},{day.isoformat()}\n")
+
+
+def phase_meta(packed, fasta: str, cluster_size: int, row_block: int, seed: int,
+               tmp: str, plain_fields, device):
+    """``distance --meta`` through the CLI on the card; returns (wall s,
+    split_gram launches, the run's (N, delta) columns)."""
+    from tracs_tpu_torch.models.transcluster import lprob_k_given_N, trans_dist
+
+    n = packed.n_seqs
+    dates = os.path.join(tmp, "dates.csv")
+    write_dates(dates, n, cluster_size, seed)
+    out = os.path.join(tmp, "dists_meta.csv")
+    argv = ["distance", "--msa", fasta, "-o", out, "-D", "200", "--row-block", str(row_block),
+            "--meta", dates]
+    wall, launches, fields, sha = _run_cli(argv, n, row_block, "distance --meta CLI", device)
+    print(f"# --meta CSV: {len(fields)} rows, sha256 {sha}")
+    if [f[:2] for f in fields] != [f[:2] for f in plain_fields]:
+        fail("the --meta run's rows differ from the run without --meta")
+    if [f[3] for f in fields] != [f[3] for f in plain_fields]:
+        fail("the --meta run's SNP distances differ from the run without --meta")
+    N = np.array([int(f[3]) for f in fields], dtype=np.int64)
+    years = np.array([float(f[2]) for f in fields])
+    p0 = np.array([float(f[4]) for f in fields])
+    eK = np.array([float(f[5]) for f in fields])
+    if not (np.all((p0 >= 0) & (p0 <= 1)) and np.all(np.isfinite(eK) & (eK >= 0))):
+        fail("a p0 outside [0, 1] or an E(K) that is not finite and >= 0")
+    if any(f[6] != "NA" for f in fields):
+        fail("the filtered column is not NA on a --meta run")
+
+    rng = np.random.default_rng(seed + 3)
+    pick = rng.choice(len(fields), size=min(2000, len(fields)), replace=False)
+    # the reference's table lgamma[i] = lgamma(i); entry 0 (a pole) is never read
+    lgamma = [math.inf] + [math.lgamma(i) for i in range(1, int(N.max()) + 3)]
+    lp_scalar = np.array([lprob_k_given_N(N[k], 0, years[k], LAMB, BETA, lgamma)[0]
+                          for k in pick])
+    err_scalar = float(np.max(np.abs(np.log(p0[pick]) - lp_scalar) / np.maximum(1, np.abs(lp_scalar))))
+    lp_cpu, ek_cpu = trans_dist(N[pick], years[pick], LAMB, BETA, PRECISION, device="cpu")
+    err_p0 = float(np.max(np.abs(p0[pick] - np.exp(lp_cpu)) / np.abs(np.exp(lp_cpu))))
+    err_ek = float(np.max(np.abs(eK[pick] - ek_cpu) / np.maximum(np.abs(ek_cpu), 1e-300)))
+    print(f"# --meta sampled rows ({len(pick)}): log p0 vs scalar lprob_k_given_N rel err "
+          f"{err_scalar:.3e}; p0 vs CPU model {err_p0:.3e}, E(K) vs CPU model {err_ek:.3e}")
+    if max(err_scalar, err_p0, err_ek) > 1e-9:
+        fail("sampled --meta rows disagree with the scalar model or the CPU model at 1e-9")
+    return wall, launches, N, years
+
+
+def phase_trans_dist(N, years, device):
+    """trans_dist alone on the card over the run's pairs (every (N, delta)
+    lane new), and the reference goldens on the card at 1e-6."""
+    import torch
+
+    from tracs_tpu_torch.models.transcluster import trans_dist
+
+    lanes = len(np.unique(np.stack([N, years], axis=1), axis=0))
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        trans_dist(N, years, LAMB, BETA, PRECISION, device=device)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    print(f"# trans_dist on the card: {len(N)} pairs, {lanes} unique (N, delta) lanes, "
+          f"{', '.join(f'{t:.4f}' for t in times)} s (median {float(np.median(times)):.4f} s)")
+    day = 86400 / 31556952
+    p0, eK = trans_dist([0, 2], [day, day], 29.903, 73.0, 0.01, device=device)
+    want_p0 = [0.23794988406662973, 0.024467137572328577]
+    want_ek = [2.6335200453700187, 7.315670110063259]
+    err = max(np.max(np.abs(np.exp(p0) - want_p0)), np.max(np.abs(eK - want_ek)))
+    print(f"# trans_dist reference goldens on the card: max |err| {err:.3e}")
+    if not err < 1e-6:
+        fail("trans_dist misses the reference goldens on the card")
 
 
 def main() -> None:
@@ -313,27 +489,45 @@ def main() -> None:
     print(f"# torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}")
 
+    def build(name):
+        t0 = time.perf_counter()
+        path, log = build_cuda_library(name)
+        return time.perf_counter() - t0, path, log
+
     t0 = time.perf_counter()
-    path, log = build_cuda_library("split_gram")
-    print(f"# build split_gram.cu: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(path)}")
-    for line in log.splitlines():
-        if "registers" in line or "spill" in line or "smem" in line:
-            print(f"#   {line.strip()}")
+    with ThreadPoolExecutor(len(KERNELS)) as pool:
+        builds = dict(zip(KERNELS, pool.map(build, KERNELS)))
+    print(f"# built {len(KERNELS)} kernels in parallel: {time.perf_counter() - t0:.2f} s")
+    for name, (secs, path, log) in builds.items():
+        print(f"# build {name}.cu: {secs:.2f} s -> {os.path.relpath(path)}")
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line or "smem" in line:
+                print(f"#   {line.strip()}")
 
-    max_err, ms, plain_ms = phase_kernels(device, args.seed)
+    errs = phase_kernels(device, args.seed)
     with tempfile.TemporaryDirectory() as tmp:
-        launches = phase_slice(args.n, args.length, ROW_BLOCK, args.seed, tmp)
+        packed, fasta, cluster_size = _headline(args.n, args.length, args.seed, tmp)
+        split_launches, fields = phase_slice(packed, fasta, cluster_size, ROW_BLOCK,
+                                             args.seed, tmp, device)
+        pc_launches = phase_sweeps(fasta, ROW_BLOCK, device)
+        _, _, N, years = phase_meta(packed, fasta, cluster_size, ROW_BLOCK, args.seed, tmp,
+                                    fields, device)
+    phase_trans_dist(N, years, device)
 
-    print(json.dumps({"kernels": [{
-        "name": "split_gram",
-        "route": "cuda",
-        "source": "tracs_tpu_torch/csrc/split_gram.cu",
-        "replaces": "tracs_tpu/ops/pallas_kernels.py:157",
-        "launches": launches,
-        "max_abs_err": max_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-    }]}))
+    def entry(name, kernel, replaces, launches, outputs):
+        out_errs, ms, plain_ms = errs[kernel]
+        return {"name": name, "route": "cuda", "source": f"tracs_tpu_torch/csrc/{kernel}.cu",
+                "replaces": f"tracs_tpu/ops/pallas_kernels.py:{replaces}",
+                "launches": launches, "max_abs_err": max(out_errs[k] for k in outputs),
+                "ms": ms, "plain_ms": plain_ms}
+
+    # K2 and K3 are one fused kernel: both entries carry its launch count and
+    # time, each with the error of its own output (matches, nunion)
+    print(json.dumps({"kernels": [
+        entry("split_gram", "split_gram", 157, split_launches, (0, 1)),
+        entry("popcount_gram (K2 matches)", "popcount_gram", 45, pc_launches, (0,)),
+        entry("popcount_gram (K3 nunion)", "popcount_gram", 65, pc_launches, (1,)),
+    ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,11 @@
-"""The port's ``distance`` stage against tracs_tpu's on the CPU (CSV bytes
-identical, no --meta), plus the guards that keep the port free of jax and
-honest about its device."""
+"""The port's ``distance`` stage against tracs_tpu's on the CPU, plus the
+guards that keep the port free of jax and honest about its device.
+
+Without --meta the CSV bytes are identical.  With --meta every column but
+two is compared exactly (names, date difference, SNP distance, the NA
+filtered column, sites considered, MSA file, and the set and order of the
+rows); the transmission distance and expected K come from two float64
+engines whose exp/log/lgamma differ by ulps, and are compared at rtol 1e-9."""
 
 import gzip
 import json
@@ -149,6 +154,146 @@ def test_python_writer_matches_native(tmp_path, monkeypatch):
         assert a.read() == b.read()
 
 
+# -- --meta: the transmission model --
+
+def _write_dates(path, names, rng, missing=()):
+    """A --meta CSV: a date in 2019-2020 for each name, clustered so that
+    some pairs are days apart and some months."""
+    from datetime import date, timedelta
+
+    base = rng.integers(0, 600, size=3)
+    with open(path, "w") as fh:
+        fh.write("name,date\n")
+        for k, name in enumerate(names):
+            if name in missing:
+                continue
+            day = date(2019, 1, 1) + timedelta(days=int(base[k % 3] + rng.integers(0, 181)))
+            fh.write(f"{name},{day.isoformat()}\n")
+    return str(path)
+
+
+def _assert_meta_csv_close(got, want):
+    """Same header and rows in the same order; every column exact but the
+    transmission distance and expected K, which agree at rtol 1e-9."""
+    got, want = got.decode().splitlines(), want.decode().splitlines()
+    assert got[0] == want[0] and len(got) == len(want)
+    for g, w in zip(got[1:], want[1:]):
+        g, w = g.split(","), w.split(",")
+        assert [g[k] for k in (0, 1, 2, 3, 6, 7, 8)] == [w[k] for k in (0, 1, 2, 3, 6, 7, 8)]
+        assert g[6] == "NA"
+        np.testing.assert_allclose([float(g[4]), float(g[5])], [float(w[4]), float(w[5])],
+                                   rtol=1e-9)
+
+
+@pytest.mark.parametrize(
+    "extra", [[], ["-K", "3"], ["--row-block", "2"], ["--row-block", "2", "-K", "3"]])
+def test_meta_ambig_matches_reference(tmp_path, extra):
+    """The reference's golden input (tests/test_stages.py) through both
+    stages, streaming and not, with and without -K."""
+    args = ["--msa", os.path.join(DATA, "ambig.aln"),
+            "--meta", os.path.join(DATA, "dates_ambig.csv"), *extra]
+    got, want = _run_both(tmp_path, args)
+    _assert_meta_csv_close(got, want)
+    rows = [ln.split(",") for ln in got.decode().splitlines()[1:]]
+    assert len(rows) == (3 if "-K" in extra else 10)
+    seq12 = rows[0]
+    assert (seq12[0], seq12[1], seq12[3]) == ("seq1", "seq2", "0")
+    assert abs(float(seq12[2]) - 0.002737907006988508) < 1e-6
+    assert abs(float(seq12[4]) - 0.23794988406662973) < 1e-6
+    assert abs(float(seq12[5]) - 2.6335200453700187) < 1e-6
+
+
+@pytest.mark.parametrize("extra", [[], ["-K", "6"], ["--row-block", "7"],
+                                   ["--row-block", "7", "-K", "6"]])
+def test_meta_clustered_msa_matches_reference(tmp_path, extra):
+    """A seeded clustered MSA with seeded dates, large enough to stream in
+    several row blocks; -K keeps some rows and drops others."""
+    rng = np.random.default_rng(31)
+    msa = _clustered_msa(tmp_path / "m.fasta", rng, 30, 401)
+    dates = _write_dates(tmp_path / "dates.csv", [f"c{k}" for k in range(30)], rng)
+    got, want = _run_both(tmp_path, ["--msa", msa, "--meta", dates, "-D", "20", *extra])
+    _assert_meta_csv_close(got, want)
+    n_rows = got.count(b"\n") - 1
+    if "-K" in extra:
+        assert 0 < n_rows < 135  # 3 clusters of 10: 135 pairs within -D 20
+    else:
+        assert n_rows == 135
+
+
+@pytest.mark.parametrize("row_block", [None, "3"])
+def test_meta_msa_db_matches_reference(tmp_path, row_block):
+    rng = np.random.default_rng(32)
+    q = _write_msa(tmp_path / "q.fasta", rng, 7, 200, prefix="q")
+    db = _write_msa(tmp_path / "db.fasta", rng, 5, 200, prefix="d")
+    dates = _write_dates(tmp_path / "dates.csv", [f"q{k}" for k in range(7)]
+                         + [f"d{k}" for k in range(5)], rng)
+    args = ["--msa", q, "--msa-db", db, "-D", "190", "--meta", dates]
+    if row_block:
+        args += ["--row-block", row_block]
+    got, want = _run_both(tmp_path, args)
+    _assert_meta_csv_close(got, want)
+    assert got.count(b"\n") > 1
+
+
+def test_meta_resume_after_interruption_matches_reference(tmp_path):
+    """A --meta run cut after its first block resumes to the bytes of the
+    port's uninterrupted run, which matches tracs_tpu's."""
+    rng = np.random.default_rng(33)
+    msa = _clustered_msa(tmp_path / "r.fasta", rng, 13, 256)
+    dates = _write_dates(tmp_path / "dates.csv", [f"c{k}" for k in range(13)], rng)
+    args = ["--msa", msa, "-D", "60", "--row-block", "3", "--meta", dates, "-K", "9"]
+    full, want = _run_both(tmp_path, args)
+    _assert_meta_csv_close(full, want)
+
+    out = str(tmp_path / "resumed.csv")
+    keep = b"".join(
+        line for line in full.splitlines(keepends=True)
+        if line.startswith(b"sampleA") or int(line.split(b",")[0][1:]) < 3
+    )
+    with open(out, "wb") as fh:
+        fh.write(keep + b"c4,c7,0.0027")  # a line cut mid-write
+    with open(out + ".cursor", "w") as fh:
+        json.dump({"msa_index": 0, "next_row": 3, "bytes": len(keep)}, fh)
+    port_cli.main(["distance", *args, "-o", out, "--device", "cpu", "--resume"])
+    with open(out, "rb") as fh:
+        assert fh.read() == full
+    assert not os.path.exists(out + ".cursor")
+
+
+@pytest.mark.parametrize("row_block", [[], ["--row-block", "4"]])
+def test_meta_python_writer_matches_native(tmp_path, monkeypatch, row_block):
+    """Without the native library the Python writer gives the same bytes
+    for the transmission columns (Python float repr)."""
+    import tracs_tpu_torch.stages.distance as d
+
+    rng = np.random.default_rng(34)
+    msa = _clustered_msa(tmp_path / "w.fasta", rng, 12, 99)
+    dates = _write_dates(tmp_path / "dates.csv", [f"c{k}" for k in range(12)], rng)
+    args = ["distance", "--msa", msa, "--meta", dates, "--device", "cpu", *row_block]
+    native = str(tmp_path / "native.csv")
+    port_cli.main([*args, "-o", native])
+    monkeypatch.setattr(d, "native_format_rows", lambda *a, **k: None)
+    plain = str(tmp_path / "plain.csv")
+    port_cli.main([*args, "-o", plain])
+    with open(native, "rb") as a, open(plain, "rb") as b:
+        text = a.read()
+        assert text == b.read()
+    assert text.count(b",NA,") == text.count(b"\n") - 1  # only the filtered column
+
+
+@pytest.mark.parametrize("row_block", [[], ["--row-block", "2"]])
+def test_meta_missing_date_raises(tmp_path, row_block):
+    """A sample in an emitted pair without a date raises KeyError, as in
+    the reference."""
+    rng = np.random.default_rng(35)
+    msa = _clustered_msa(tmp_path / "x.fasta", rng, 6, 64)
+    dates = _write_dates(tmp_path / "dates.csv", [f"c{k}" for k in range(6)], rng,
+                         missing=("c4",))
+    with pytest.raises(KeyError):
+        port_cli.main(["distance", "--msa", msa, "--meta", dates, "-o",
+                       str(tmp_path / "x.csv"), "--device", "cpu", *row_block])
+
+
 # -- guards --
 
 def test_default_device_cuda_exits_nonzero_without_card(tmp_path, capsys):
@@ -163,11 +308,7 @@ def test_default_device_cuda_exits_nonzero_without_card(tmp_path, capsys):
     assert "CUDA" in str(exc.value.code) and "--device cpu" in str(exc.value.code)
 
 
-@pytest.mark.parametrize(
-    "flags,item",
-    [(["--meta", os.path.join(DATA, "dates_ambig.csv")], "item 1"),
-     (["--filter"], "item 2"), (["--mesh", "2x1"], "item 4")],
-)
+@pytest.mark.parametrize("flags,item", [(["--filter"], "item 2"), (["--mesh", "2x1"], "item 4")])
 def test_unported_flags_raise(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         port_cli.main(["distance", "--msa", os.path.join(DATA, "ambig.aln"),

@@ -255,7 +255,7 @@ def test_unported_options_raise():
     with pytest.raises(NotImplementedError):
         list(port.pairsnp_stream([p], filter=True, device="cpu"))
     with pytest.raises(NotImplementedError):
-        list(port.pairsnp_stream([p], method="popcount", device="cpu"))
+        list(port.pairsnp_stream([p], method="mxu", device="cpu"))
 
 
 def test_cuda_device_without_card_raises():

@@ -2,12 +2,19 @@
 (counterpart of tracs_tpu/ops/pallas_kernels.py).
 
 ``split_gram`` — the split-decomposition grams of a row block against a
-column suffix, ``g = G4 - Gn`` and ``gn = Gn`` (see ops/pairsnp.py).  On a
-CUDA tensor it launches the CUDA kernel ``csrc/split_gram.cu`` (built for
-sm_90a at first use, runtime/build.py) and counts the launch in
-``SPLIT_GRAM_LAUNCHES``; on a CPU tensor it returns
-``split_gram_reference``, the plain exact version.  There is no fallback
-from one to the other.
+column suffix, ``g = G4 - Gn`` and ``gn = Gn`` (see ops/pairsnp.py), from
+the CUDA kernel ``csrc/split_gram.cu``; launches counted in
+``SPLIT_GRAM_LAUNCHES``.
+
+``popcount_gram`` — the popcount engine: match counts
+``sum popc(OR_x(a_x & b_x))`` and N-union counts ``sum popc(N_a | N_b)``
+over the raw planes, both from the one CUDA kernel
+``csrc/popcount_gram.cu``; launches counted in ``POPCOUNT_GRAM_LAUNCHES``.
+
+On a CUDA tensor each wrapper launches its kernel (built for sm_90a at first
+use, runtime/build.py) and counts the launch; on a CPU tensor it returns its
+``*_reference``, the plain exact version.  There is no fallback from one to
+the other.
 
 Layouts: packed words are ``int32`` tensors holding the bits of the uint32
 planes; the kernel reads them as ``uint32``.
@@ -17,13 +24,23 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
+
+from tracs_tpu_torch.runtime.device import resolve_device, to_host
 
 #: launches of the CUDA split-gram kernel in this process
 SPLIT_GRAM_LAUNCHES = 0
+#: launches of the CUDA popcount-gram kernel in this process
+POPCOUNT_GRAM_LAUNCHES = 0
 
 # words per chunk of the plain version: bounds the unpacked float64 operands
 _REFERENCE_BYTES = 512 << 20
+
+
+def _as_words(a: np.ndarray) -> torch.Tensor:
+    """uint32 numpy words as an int32 CPU tensor of the same bits."""
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32))
 
 
 def _unpack_bits(words: torch.Tensor) -> torch.Tensor:
@@ -93,18 +110,45 @@ def split_gram_reference(ea, nm, r0: int, rb: int, c0: int, eb=None, nmb=None):
     return (acc4 - accn).to(torch.int32), accn.to(torch.int32)
 
 
-def _split_gram_entry():
-    """The kernel library's C entry point, built and typed on first use."""
+def _kernel_entry(name: str, n_inputs: int):
+    """C entry point ``tracs_<name>`` of the kernel library ``csrc/<name>.cu``,
+    built and typed on first use: ``n_inputs`` device pointers, W, r0, rb,
+    c0, m, two output pointers and the stream."""
     from tracs_tpu_torch.runtime.build import load_cuda_library
 
-    fn = load_cuda_library("split_gram").tracs_split_gram
+    fn = getattr(load_cuda_library(name), f"tracs_{name}")
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = (
-            [ctypes.c_void_p] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 4
+            [ctypes.c_void_p] * n_inputs + [ctypes.c_longlong] + [ctypes.c_int] * 4
             + [ctypes.c_void_p] * 3
         )
     return fn
+
+
+def _launch(name: str, inputs, W: int, r0: int, rb: int, c0: int, m: int):
+    """Two int32 [rb, m] outputs of kernel ``name`` on the inputs' card and
+    PyTorch's current stream; raises if the launch is refused."""
+    dev = inputs[0].device
+    out = (torch.empty((rb, m), dtype=torch.int32, device=dev),
+           torch.empty((rb, m), dtype=torch.int32, device=dev))
+    if rb == 0 or m == 0:
+        return out
+    fn = _kernel_entry(name, len(inputs))
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = fn(*(t.data_ptr() for t in inputs), W, r0, rb, c0, m,
+                out[0].data_ptr(), out[1].data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+    return out
+
+
+def _check_cuda(t: torch.Tensor, what: str, rows: int) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {t.device}")
+    if rows >= 2**31:
+        raise ValueError("more rows than the kernel's int32 row indexing holds")
 
 
 def split_gram(ea, nm, r0: int, rb: int, c0: int, eb=None, nmb=None):
@@ -119,21 +163,127 @@ def split_gram(ea, nm, r0: int, rb: int, c0: int, eb=None, nmb=None):
     global SPLIT_GRAM_LAUNCHES
     if ea.device.type == "cpu":
         return split_gram_reference(ea, nm, r0, rb, c0, eb, nmb)
-    if ea.device.type != "cuda":
-        raise ValueError(f"split_gram runs on cuda or cpu, not {ea.device}")
     eb, nmb, m = _operands(ea, nm, r0, rb, c0, eb, nmb)
-    if max(ea.shape[0], eb.shape[0]) >= 2**31:
-        raise ValueError("more rows than the kernel's int32 row indexing holds")
-    fn = _split_gram_entry()
-    g = torch.empty((rb, m), dtype=torch.int32, device=ea.device)
-    gn = torch.empty((rb, m), dtype=torch.int32, device=ea.device)
-    if rb == 0 or m == 0:
-        return g, gn
-    with torch.cuda.device(ea.device):
-        stream = torch.cuda.current_stream(ea.device).cuda_stream
-        rc = fn(ea.data_ptr(), nm.data_ptr(), eb.data_ptr(), nmb.data_ptr(),
-                ea.shape[2], r0, rb, c0, m, g.data_ptr(), gn.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"split_gram kernel launch failed: CUDA error {rc}")
-    SPLIT_GRAM_LAUNCHES += 1
-    return g, gn
+    _check_cuda(ea, "split_gram", max(ea.shape[0], eb.shape[0]))
+    out = _launch("split_gram", (ea, nm, eb, nmb), ea.shape[2], r0, rb, c0, m)
+    if rb and m:
+        SPLIT_GRAM_LAUNCHES += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the popcount engine (K2 + K3)
+# ---------------------------------------------------------------------------
+
+#: the 15 non-empty subsets of the 4 planes as bit masks, and the
+#: inclusion-exclusion sign (-1)^(|S|+1) of each
+_SUBSETS = list(range(1, 16))
+_SUBSET_SIGNS = [1.0 if bin(s).count("1") % 2 else -1.0 for s in _SUBSETS]
+
+
+def _check_planes(p: torch.Tensor, what: str) -> None:
+    if p.dtype != torch.int32:
+        raise TypeError(f"{what}: packed words must be int32, got {p.dtype}")
+    if p.dim() != 3 or p.shape[1] != 4:
+        raise ValueError(f"{what}: want [n, 4, W] planes, got {tuple(p.shape)}")
+    if not p.is_contiguous():
+        raise ValueError(f"{what}: tensors must be contiguous")
+
+
+def _popcount_operands(pa, r0, rb, c0, pb):
+    """Validated (pb, m) for a popcount-gram call."""
+    if pb is None:
+        pb = pa
+    _check_planes(pa, "A")
+    _check_planes(pb, "B")
+    if pb.shape[2] != pa.shape[2]:
+        raise ValueError(f"A has {pa.shape[2]} words, B has {pb.shape[2]}")
+    if pa.device != pb.device:
+        raise ValueError(f"operands on several devices: {pa.device}, {pb.device}")
+    if not (0 <= r0 and 0 <= rb and r0 + rb <= pa.shape[0]):
+        raise ValueError(f"rows [{r0}, {r0 + rb}) outside [0, {pa.shape[0]})")
+    if not 0 <= c0 <= pb.shape[0]:
+        raise ValueError(f"column start {c0} outside [0, {pb.shape[0]}]")
+    return pb, pb.shape[0] - c0
+
+
+def _subset_products(p: torch.Tensor) -> torch.Tensor:
+    """[n, 4, w] planes -> [n, 15, w]: the AND over each non-empty plane
+    subset, subset s at channel s - 1 (so channel 14 is the N mask)."""
+    prods = {1: p[:, 0], 2: p[:, 1], 4: p[:, 2], 8: p[:, 3]}
+    for s in _SUBSETS:
+        if s not in prods:
+            low = s & -s
+            prods[s] = prods[low] & prods[s ^ low]
+    return torch.stack([prods[s] for s in _SUBSETS], dim=1)
+
+
+def popcount_gram_reference(pa, r0: int, rb: int, c0: int, pb=None):
+    """Plain exact version of ``popcount_gram``, independent of the kernel's
+    OR-of-ANDs: by inclusion-exclusion over the OR,
+
+        matches = sum over the 15 plane subsets S of
+                  (-1)^(|S|+1) * gram(AND_{x in S} a_x, AND_{x in S} b_x)
+        nunion  = cnt_N(a) + cnt_N(b) - gram(N_a, N_b),
+
+    each gram a float64 contraction of unpacked 0/1 bits (exact: every sum
+    is an integer far below 2^53), chunked over words so the unpacked
+    operands stay under ~512 MB."""
+    pb, m = _popcount_operands(pa, r0, rb, c0, pb)
+    a, b = pa[r0:r0 + rb], pb[c0:]
+    W = pa.shape[2]
+    f64 = dict(dtype=torch.float64, device=pa.device)
+    signs = torch.tensor(_SUBSET_SIGNS, **f64)[None, :, None]
+    accm = torch.zeros((rb, m), **f64)
+    accn = torch.zeros((rb, m), **f64)
+    cnt_a = torch.zeros(rb, **f64)
+    cnt_b = torch.zeros(m, **f64)
+    chunk = max(1, _REFERENCE_BYTES // max(1, (2 * rb + m) * 16 * 32 * 8))
+    for w0 in range(0, W, chunk):
+        w1 = min(W, w0 + chunk)
+        xa = _unpack_bits(_subset_products(a[:, :, w0:w1])).to(torch.float64)
+        xb = _unpack_bits(_subset_products(b[:, :, w0:w1])).to(torch.float64)
+        accm += (xa * signs).reshape(rb, -1) @ xb.reshape(m, -1).T
+        na, nb = xa[:, -1], xb[:, -1]
+        accn += na @ nb.T
+        cnt_a += na.sum(dim=1)
+        cnt_b += nb.sum(dim=1)
+        del xa, xb, na, nb
+    nunion = cnt_a[:, None] + cnt_b[None, :] - accn
+    return accm.to(torch.int32), nunion.to(torch.int32)
+
+
+def popcount_gram(pa, r0: int, rb: int, c0: int, pb=None):
+    """(matches, nunion), int32 [rb, n_b - c0], of rows [r0, r0+rb) of the
+    raw planes ``pa`` against rows [c0, n_b) of ``pb``.
+
+    pa, pb : int32 [n, 4, W] raw packed planes; ``pb`` defaults to ``pa``
+    (the self all-pairs sweep, c0 = r0 for its triangle blocks) and is
+    given for a query-vs-db rectangle (c0 = 0).  The full device-resident
+    planes go in; no block is copied.  CPU tensors take
+    ``popcount_gram_reference``; CUDA tensors launch the kernel or raise."""
+    global POPCOUNT_GRAM_LAUNCHES
+    if pa.device.type == "cpu":
+        return popcount_gram_reference(pa, r0, rb, c0, pb)
+    pb, m = _popcount_operands(pa, r0, rb, c0, pb)
+    _check_cuda(pa, "popcount_gram", max(pa.shape[0], pb.shape[0]))
+    out = _launch("popcount_gram", (pa, pb), pa.shape[2], r0, rb, c0, m)
+    if rb and m:
+        POPCOUNT_GRAM_LAUNCHES += 1
+    return out
+
+
+def snp_distance_popcount(a, b=None, *, device):
+    """(D, NN) int32 numpy [n_a, n_b] of two PackedAlignments (b defaults
+    to a) through the popcount engine: D = L - matches, NN = L - nunion
+    (counterpart of tracs_tpu.ops.pallas_kernels.snp_distance_pallas)."""
+    device = resolve_device(device)
+    if b is None:
+        b = a
+    if a.length != b.length:
+        raise ValueError("alignments must share sequence length")
+    pa = _as_words(a.planes).to(device)
+    pb = None if b is a else _as_words(b.planes).to(device)
+    matches, nunion = popcount_gram(pa, 0, a.n_seqs, 0, pb)
+    L = a.length
+    return to_host(L - matches).astype(np.int32), to_host(L - nunion).astype(np.int32)

@@ -1,5 +1,5 @@
 """All-pairs SNP distances over bit-packed IUPAC alignments, on one device
-(the split path of tracs_tpu/ops/pairsnp.py, in PyTorch).
+(the split and popcount paths of tracs_tpu/ops/pairsnp.py, in PyTorch).
 
 Semantics: for a pair (i, j) a site *matches* when the two samples share at
 least one allele bit (IUPAC codes set several bits, N sets all four); the
@@ -20,6 +20,12 @@ mask of the survivor extraction drops j <= i anyway.  Survivors (d <= dist)
 are compacted on the device in row-major order and copied to the host once
 per block.
 
+Popcount engine (``method="popcount"``).  matches = sum popc(OR_x(a_x & b_x))
+and nunion = sum popc(N_i | N_j) come straight from the raw planes through
+the kernel ``popcount_gram`` (K2 + K3 in one pass): D = L - matches,
+NN = L - nunion, with no split layout and no correction gram.  Same sweep
+schedule, extraction and emission order as the split path.
+
 Every result is an exact integer and equals the ``tracs_tpu`` value bit for
 bit (tests/test_torch_pairsnp.py).
 """
@@ -31,7 +37,13 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from tracs_tpu_torch.ops.kernels import _unpack_bits, split_gram
+from tracs_tpu_torch.ops.kernels import (
+    _as_words,
+    _subset_products,
+    _unpack_bits,
+    popcount_gram,
+    split_gram,
+)
 from tracs_tpu_torch.ops.packing import (
     PackedAlignment,
     SplitAlignment,
@@ -56,11 +68,6 @@ _PARTIAL_CHUNK_BYTES = 256 << 20
 _NOT_PORTED = "not ported to tracs_tpu_torch yet; see ROADMAP.md"
 
 
-def _as_words(a: np.ndarray) -> torch.Tensor:
-    """uint32 numpy words as an int32 CPU tensor of the same bits."""
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32))
-
-
 def _derive_split_planes(planes: torch.Tensor):
     """(excl, nmask) from raw packed planes [n, 4, W], on their device:
     all4 = A&C&G&T, excl = planes & ~all4."""
@@ -83,6 +90,18 @@ def _split_device(sa: SplitAlignment, device: torch.device):
     return cache[1:]
 
 
+def _planes_device(packed: PackedAlignment, device: torch.device) -> torch.Tensor:
+    """The raw planes [n, 4, W] of a PackedAlignment on ``device``, cached on
+    it: the popcount engine's resident operand (the split path frees its own
+    raw upload after deriving its layout, so the two engines keep separate
+    copies)."""
+    cache = getattr(packed, "_dev_planes", None)
+    if cache is None or cache[0] != device:
+        cache = (device, _as_words(packed.planes).to(device))
+        packed._dev_planes = cache
+    return cache[1]
+
+
 def _cnt_device(sa: SplitAlignment, device: torch.device) -> torch.Tensor:
     """Per-sample N counts of a SplitAlignment as int32 on ``device``, cached."""
     cache = getattr(sa, "_dev_cnt", None)
@@ -94,13 +113,7 @@ def _cnt_device(sa: SplitAlignment, device: torch.device) -> torch.Tensor:
 
 def _partial_channels(p: torch.Tensor) -> torch.Tensor:
     """[n, 4, Wp] exclusive planes -> [n, 10, Wp] pair and triple AND-products."""
-    planes = {1: p[:, 0], 2: p[:, 1], 4: p[:, 2], 8: p[:, 3]}
-    prods = {}
-    for s in _PAIR_SUBSETS + _TRIPLE_SUBSETS:
-        low = s & (-s)
-        rest = s ^ low
-        prods[s] = planes[low] & (prods[rest] if rest in prods else planes[rest])
-    return torch.stack([prods[s] for s in _PAIR_SUBSETS + _TRIPLE_SUBSETS], dim=1)
+    return _subset_products(p)[:, [s - 1 for s in _PAIR_SUBSETS + _TRIPLE_SUBSETS]]
 
 
 def _gram_partial(part_a: torch.Tensor, part_b: torch.Tensor) -> torch.Tensor:
@@ -132,6 +145,20 @@ def _assemble_d(m, gp, cnt_a, cnt_b, L: int) -> torch.Tensor:
 
 def _assemble_nn(gn, cnt_a, cnt_b, L: int) -> torch.Tensor:
     return (L - cnt_a[:, None] - cnt_b[None, :] + gn).to(torch.int32)
+
+
+def _assemble_popcount(matches, nunion, L: int):
+    return (L - matches).to(torch.int32), (L - nunion).to(torch.int32)
+
+
+def _popcount_block(a: PackedAlignment, b: PackedAlignment, r0: int, r1: int,
+                    c0: int, device: torch.device):
+    """(D, NN) int32 device blocks of rows [r0, r1) of ``a`` against
+    columns [c0, n_b) of ``b`` through the popcount engine."""
+    pa = _planes_device(a, device)
+    pb = None if b is a else _planes_device(b, device)
+    matches, nunion = popcount_gram(pa, r0, r1 - r0, c0, pb)
+    return _assemble_popcount(matches, nunion, a.length)
 
 
 def _split_block(sa: SplitAlignment, sb: SplitAlignment, r0: int, r1: int,
@@ -245,12 +272,16 @@ def _cached_compact(a: PackedAlignment, b: PackedAlignment):
     return res
 
 
-def _check_method(method: str) -> None:
-    if method not in ("auto", "split"):
+def _check_method(method: str) -> str:
+    """The engine a method name runs: ``auto`` is the split path."""
+    if method == "mxu":
         raise NotImplementedError(
-            f"method={method!r} (the popcount and 15-channel cross-check "
-            f"kernels) is {_NOT_PORTED}"
+            f"method='mxu' (the 15-channel cross-check gram) is {_NOT_PORTED} "
+            "('Modules to port', item 8)"
         )
+    if method not in ("auto", "split", "popcount"):
+        raise ValueError(f"unknown method {method!r}")
+    return "popcount" if method == "popcount" else "split"
 
 
 def snp_distance_dense(
@@ -262,19 +293,24 @@ def snp_distance_dense(
     row_block: int = 2048,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Dense all-pairs SNP distance and comparable-site matrices, int32
-    numpy [n_a, n_b] (b defaults to a), computed in row blocks."""
-    _check_method(method)
+    numpy [n_a, n_b] (b defaults to a), computed in row blocks by the split
+    engine or (``method="popcount"``) the popcount engine."""
+    engine = _check_method(method)
     device = resolve_device(device)
     if b is None:
         b = a
     if a.length != b.length:
         raise ValueError("alignments must share sequence length")
-    sa, sb = _split_pair(a, b)
+    if engine == "split":
+        sa, sb = _split_pair(a, b)
     D = np.empty((a.n_seqs, b.n_seqs), dtype=np.int32)
     NN = np.empty((a.n_seqs, b.n_seqs), dtype=np.int32)
     for r0 in range(0, a.n_seqs, row_block):
         r1 = min(a.n_seqs, r0 + row_block)
-        Dd, Nd = snp_distance_split_device(sa, sb, device=device, r0=r0, r1=r1)
+        if engine == "split":
+            Dd, Nd = snp_distance_split_device(sa, sb, device=device, r0=r0, r1=r1)
+        else:
+            Dd, Nd = _popcount_block(a, b, r0, r1, 0, device)
         D[r0:r1] = to_host(Dd)
         NN[r0:r1] = to_host(Nd)
     return D, NN
@@ -300,11 +336,13 @@ def pairsnp_stream(
     query-vs-db rectangle, with db columns offset by the query count.
     ``start_row`` resumes at a row-block boundary.  ``compact`` drops
     alignment columns that cannot change any result (bit-identical output).
-    ``filt`` is zero-filled: the recombination filter is not ported yet.
+    ``method`` picks the engine (``auto``/``split`` or ``popcount``); both
+    yield the same arrays.  ``filt`` is zero-filled: the recombination
+    filter is not ported yet.
     """
     if filter:
         raise NotImplementedError(f"the recombination filter (--filter) is {_NOT_PORTED}")
-    _check_method(method)
+    engine = _check_method(method)
     device = resolve_device(device)
     if len(fasta) < 1 or len(fasta) > 2:
         raise ValueError("Invalid number of fasta files!")
@@ -332,15 +370,19 @@ def pairsnp_stream(
             a_k, b_k, _pos_map, nn_off = comp
             if b is a:
                 b_k = a_k
-    sa, sb = _split_pair(a_k, b_k)
+    if engine == "split":
+        sa, sb = _split_pair(a_k, b_k)
 
     for r0 in range(start_row, a.n_seqs, row_block):
         r1 = min(a.n_seqs, r0 + row_block)
-        if triangle:
+        # triangle blocks sweep the column suffix c0 = r0; rectangles c0 = 0
+        c0 = r0 if triangle else 0
+        if engine == "popcount":
+            D, NN = _popcount_block(a_k, b_k, r0, r1, c0, device)
+        elif triangle:
             D, NN, c0 = snp_distance_split_prefix_device(sa, r0, r1, device=device)
         else:
             D, NN = snp_distance_split_device(sa, sb, device=device, r0=r0, r1=r1)
-            c0 = 0
         rows_l, cols, dvals, nvals = _extract_coo(
             D, NN, dist, r0, b.n_seqs, c0, triangle=triangle
         )

@@ -1,6 +1,6 @@
 """ctypes loader for the native C++ host library ``src/tracs_native.cpp``
 (counterpart of tracs_tpu/runtime/native.py, limited to the entry points
-the ``distance`` slice uses: FASTA packing, split-layout statistics and
+the ``distance`` stage uses: FASTA packing, split-layout statistics and
 CSV row formatting).
 
 The library is built with g++ into the git-ignored ``build/native/`` at
@@ -128,14 +128,15 @@ def _names_blob(names):
     return b"".join(parts), offs
 
 
-def native_format_rows(names, rows, cols, dvals, nn, ref, filt=None, *,
-                       blob_cache=None):
+def native_format_rows(names, rows, cols, dvals, nn, ref, datediff=None, p0=None,
+                       eK=None, filt=None, *, blob_cache=None):
     """Format distance-CSV rows with the native writer; None if unavailable.
 
-    The transmission columns (date difference, transmission distance,
-    expected K) are written as NA: the port has no ``--meta`` yet.  ``filt``
-    None writes NA in the filtered column too.  ``blob_cache``: optional
-    dict to reuse the names blob across row blocks of a streaming run.
+    ``datediff``, ``p0`` and ``eK`` fill the date difference, transmission
+    distance and expected K columns (float64, Python repr text); ``None``
+    writes NA there, as does ``filt`` None in the filtered column.
+    ``blob_cache``: optional dict to reuse the names blob across row blocks
+    of a streaming run.
     """
     lib = get_lib()
     if lib is None or len(rows) == 0:
@@ -153,8 +154,12 @@ def native_format_rows(names, rows, cols, dvals, nn, ref, filt=None, *,
     cols = np.ascontiguousarray(cols, dtype=np.int64)
     dvals = np.ascontiguousarray(dvals, dtype=np.int64)
     nn = np.ascontiguousarray(nn, dtype=np.int64)
+    # the arrays stay referenced here until the writer returns
+    dd_arr, p0_arr, ek_arr = (None if x is None else np.ascontiguousarray(x, dtype=np.float64)
+                              for x in (datediff, p0, eK))
     ft_arr = None if filt is None else np.ascontiguousarray(filt, dtype=np.int64)
-    ft_p = None if ft_arr is None else ft_arr.ctypes.data_as(ctypes.c_void_p)
+    dd_p, p0_p, ek_p, ft_p = (None if x is None else x.ctypes.data_as(ctypes.c_void_p)
+                              for x in (dd_arr, p0_arr, ek_arr, ft_arr))
 
     name_lens = offs[1:] - offs[:-1]
     ref_b = ref.encode()
@@ -165,7 +170,7 @@ def native_format_rows(names, rows, cols, dvals, nn, ref, filt=None, *,
     out = ctypes.create_string_buffer(cap)
     wrote = lib.tn_format_dist_rows(
         blob, offs, rows, cols, n,
-        None, dvals, None, None, ft_p,
+        dd_p, dvals, p0_p, ek_p, ft_p,
         nn, ref_b, len(ref_b), out, cap,
     )
     if wrote < 0:

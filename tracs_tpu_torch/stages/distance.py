@@ -1,13 +1,15 @@
-"""``distance`` stage: pairwise SNP distances per MSA, written as the
-reference CSV (counterpart of tracs_tpu/stages/distance.py).
+"""``distance`` stage: pairwise SNP and transmission distances per MSA,
+written as the reference CSV (counterpart of tracs_tpu/stages/distance.py).
 
 The CSV schema is ``sampleA,sampleB,date difference,SNP distance,
 transmission distance,expected K,filtered SNP distance,sites considered,
-MSA file``.  The port runs the SNP sweep without ``--meta``, so the three
-transmission columns hold NA and the filtered column holds 0, byte for byte
-what ``tracs_tpu`` writes for the same invocation.  ``--meta``, ``--filter``
-and a ``--mesh`` other than ``off`` raise NotImplementedError, naming the
-ROADMAP.md item that will port them.
+MSA file``.  Without ``--meta`` the three transmission columns hold NA and
+the filtered column holds 0, byte for byte what ``tracs_tpu`` writes for the
+same invocation.  With ``--meta`` (a CSV of sample name and ISO sampling
+date) the transmission model (models/transcluster.py) fills them on
+``--device``, ``-K`` drops the pairs whose expected K exceeds it, and the
+filtered column holds NA.  ``--filter`` and a ``--mesh`` other than ``off``
+raise NotImplementedError, naming the ROADMAP.md item that will port them.
 """
 
 from __future__ import annotations
@@ -16,7 +18,16 @@ import argparse
 import json
 import logging
 import os
+from datetime import date
 
+import numpy as np
+
+from tracs_tpu_torch.models.transcluster import (
+    SECONDS_IN_YEAR,
+    TransClusterCache,
+    calculate_trans_prob,
+    sample_seconds,
+)
 from tracs_tpu_torch.ops.packing import pack_fasta
 from tracs_tpu_torch.ops.pairsnp import INT32_MAX, pairsnp, pairsnp_stream
 from tracs_tpu_torch.runtime.device import resolve_device
@@ -58,7 +69,9 @@ def distance_parser(parser):
     )
     io_opts.add_argument(
         "--meta", dest="metadata", default=None,
-        help="Location of metadata in csv format (not ported yet).",
+        help="Location of metadata in csv format. The first column must "
+             "include the sequence names and the second column must include "
+             "sampling dates.",
         type=os.path.abspath,
     )
     io_opts.add_argument(
@@ -80,9 +93,7 @@ def distance_parser(parser):
         action="store_true", default=False,
     )
 
-    transdist = parser.add_argument_group(
-        "Transmission distance options (used with --meta, not ported yet)"
-    )
+    transdist = parser.add_argument_group("Transmission distance options (used with --meta)")
     transdist.add_argument(
         "--clock_rate", dest="clock_rate", type=check_positive_float,
         default=1e-3 * 29903,
@@ -122,7 +133,8 @@ def distance_parser(parser):
     )
     scale.add_argument(
         "--device", dest="device", choices=["cuda", "cpu"], default="cuda",
-        help="Device of the sweep (default: cuda; fails when no card exists).",
+        help="Device of the sweep and the transmission model (default: cuda; "
+             "fails when no card exists).",
     )
 
     parser.add_argument(
@@ -136,11 +148,6 @@ def distance_parser(parser):
 
 
 def _reject_unported(args) -> None:
-    if args.metadata is not None:
-        raise NotImplementedError(
-            "--meta needs the transcluster model, not ported to tracs_tpu_torch "
-            "yet (ROADMAP.md, 'Modules to port', item 1)"
-        )
     if args.recomb_filter:
         raise NotImplementedError(
             "--filter needs the recombination filter, not ported to "
@@ -158,18 +165,71 @@ def _ref_name(msa: str) -> str:
     return os.path.basename(msa).split(".")[0].replace("_combined", "")
 
 
-def _format_rows(names, rows, cols, dvals, filt, nn, ref, blob_cache=None) -> str:
-    """CSV text of the emitted pairs (native writer, Python if it is absent)."""
+def _load_dates(path: str) -> dict:
+    """``{sample name: (date text, datetime.date)}`` from the --meta CSV
+    (header skipped; name and ISO date in the first two columns)."""
+    dates = {}
+    with open(path) as fh:
+        next(fh)
+        for line in fh:
+            fields = line.strip().split(",")
+            dates[fields[0]] = (fields[1], date.fromisoformat(fields[1]))
+    return dates
+
+
+class _PairYears:
+    """Date differences in years of emitted pairs of one MSA.  Each
+    sample's date is looked up once, at its first emitted pair, so a block
+    costs one numpy gather; a sample without a date raises KeyError there,
+    as in the reference."""
+
+    def __init__(self, dates: dict, names):
+        self.dates, self.names = dates, names
+        self.secs = np.zeros(len(names))
+        self.known = np.zeros(len(names), dtype=bool)
+
+    def __call__(self, rows, cols):
+        needed = np.unique(np.concatenate([rows, cols]))
+        for i in needed[~self.known[needed]]:
+            self.secs[i] = sample_seconds(self.dates, self.names[i])
+            self.known[i] = True
+        return np.abs(self.secs[rows] - self.secs[cols]) / SECONDS_IN_YEAR
+
+
+def _format_rows(names, rows, cols, dvals, filt, nn, ref, trans=None,
+                 blob_cache=None) -> str:
+    """CSV text of the emitted pairs (native writer, Python if it is absent).
+    ``trans`` = (date difference, p0, expected K) fills the transmission
+    columns and writes NA in the filtered one; without it those three
+    columns are NA."""
     if len(rows) == 0:
         return ""
-    txt = native_format_rows(names, rows, cols, dvals, nn, ref, filt=filt,
-                             blob_cache=blob_cache)
+    if trans is None:
+        txt = native_format_rows(names, rows, cols, dvals, nn, ref, filt=filt,
+                                 blob_cache=blob_cache)
+        if txt is None:
+            txt = "".join(
+                f"{names[i]},{names[j]},NA,{int(d)},NA,NA,{f},{c},{ref}\n"
+                for i, j, d, f, c in zip(rows, cols, dvals, filt, nn)
+            )
+        return txt
+    txt = native_format_rows(names, rows, cols, dvals, nn, ref, *trans, blob_cache=blob_cache)
     if txt is None:
         txt = "".join(
-            f"{names[i]},{names[j]},NA,{int(d)},NA,NA,{f},{c},{ref}\n"
-            for i, j, d, f, c in zip(rows, cols, dvals, filt, nn)
+            f"{names[i]},{names[j]},{float(t)},{int(d)},{float(p)},{float(e)},NA,{c},{ref}\n"
+            for i, j, d, c, t, p, e in zip(rows, cols, dvals, nn, *trans)
         )
     return txt
+
+
+def _transmission_rows(args, names, rows, cols, dvals, nn, ref, trans, blob_cache=None):
+    """CSV text of the pairs that -K keeps (expected K <= K; all without
+    -K), with their transmission columns ``trans`` = (years, p0, eK)."""
+    keep = (np.arange(len(rows)) if args.trans_threshold is None
+            else np.nonzero(args.trans_threshold >= trans[2])[0])
+    rows, cols, dvals, nn, *trans = (np.asarray(x)[keep]
+                                      for x in (rows, cols, dvals, nn, *trans))
+    return _format_rows(names, rows, cols, dvals, None, nn, ref, trans, blob_cache)
 
 
 def distance(args):
@@ -177,9 +237,10 @@ def distance(args):
     _reject_unported(args)
     device = resolve_device(args.device)
     logging.info("Running the SNP sweep on %s", device)
+    dates = _load_dates(args.metadata) if args.metadata is not None else None
 
     if args.row_block:
-        return _distance_streaming(args, device)
+        return _distance_streaming(args, device, dates)
 
     # large inputs stream automatically (bounded host memory, resumable);
     # the sample count comes from the packed alignments, which are reused
@@ -192,7 +253,7 @@ def distance(args):
             "(use --row-block to control the block size)", n_max,
         )
         args.row_block = 1024
-        return _distance_streaming(args, device, packed, db)
+        return _distance_streaming(args, device, dates, packed, db)
 
     with open(args.output_file, "w") as outfile:
         outfile.write(HEADER)
@@ -202,17 +263,29 @@ def distance(args):
                 [a, db] if db is not None else [a],
                 n_threads=args.n_cpu, dist=args.snp_threshold, device=device,
             )
+            ref = _ref_name(msa)
             logging.info("Saving distances for %s", msa)
-            outfile.write(_format_rows(names, rows, cols, dvals, filt, nn, _ref_name(msa)))
+            if dates is None or len(rows) == 0:
+                outfile.write(_format_rows(names, rows, cols, dvals, filt, nn, ref))
+                continue
+            logging.info("Inferring transmission probabilities for %s", msa)
+            p0, eK, years = calculate_trans_prob(
+                [rows, cols, dvals], dates, K=100, lamb=args.clock_rate,
+                beta=args.trans_rate, samplenames=names, precision=args.precision,
+                device=device,
+            )
+            outfile.write(_transmission_rows(args, names, rows, cols, dvals, nn, ref,
+                                             (years, p0, eK)))
 
 
-def _distance_streaming(args, device, packed=None, db=None):
+def _distance_streaming(args, device, dates, packed=None, db=None):
     """Row-block streaming driver: bounded host memory, incremental CSV
     writes, and a cursor file so an interrupted sweep resumes at the last
     completed block.  The cursor records the flushed byte offset after each
     block; a resumed run truncates the output there first, so it is
-    byte-identical to an uninterrupted one.  Output rows are identical to
-    the non-streaming path."""
+    byte-identical to an uninterrupted one.  With ``dates`` one
+    TransClusterCache serves every block of the run.  Output rows are
+    identical to the non-streaming path."""
     cursor_path = args.output_file + ".cursor"
     cursor = {"msa_index": 0, "next_row": 0}
     mode = "w"
@@ -224,6 +297,10 @@ def _distance_streaming(args, device, packed=None, db=None):
         if "bytes" in cursor and os.path.exists(args.output_file):
             with open(args.output_file, "r+") as fh:
                 fh.truncate(cursor["bytes"])
+    cache = None
+    if dates is not None:
+        cache = TransClusterCache(args.clock_rate, args.trans_rate, args.precision,
+                                  device=device)
 
     with open(args.output_file, mode) as outfile:
         if mode == "w":
@@ -239,13 +316,23 @@ def _distance_streaming(args, device, packed=None, db=None):
             logging.info("Streaming pairwise distances for %s", msa)
             log_rate = rate_logger("pairs")
             blob_cache = {}  # per MSA: the names blob is shared across blocks
+            years_of = None  # per MSA: its samples' dates, filled lazily
             for r0, r1, names, rows, cols, dvals, filt, nn in pairsnp_stream(
                 [a, db] if db is not None else [a], dist=args.snp_threshold,
                 row_block=args.row_block, start_row=start_row, device=device,
             ):
                 with phase("block rows [%d,%d)" % (r0, r1)):
-                    outfile.write(_format_rows(names, rows, cols, dvals, filt, nn,
-                                               ref, blob_cache))
+                    if cache is None or len(rows) == 0:
+                        txt = _format_rows(names, rows, cols, dvals, filt, nn, ref,
+                                           blob_cache=blob_cache)
+                    else:
+                        if years_of is None:
+                            years_of = _PairYears(dates, names)
+                        years = years_of(rows, cols)
+                        log_p0, eK = cache.lookup(dvals, years)
+                        txt = _transmission_rows(args, names, rows, cols, dvals, nn, ref,
+                                                 (years, np.exp(log_p0), eK), blob_cache)
+                    outfile.write(txt)
                     outfile.flush()
                     # atomic cursor update: a kill mid-write leaves the old one
                     state = {"msa_index": mi, "next_row": r1, "bytes": outfile.tell()}
