@@ -8,13 +8,14 @@ Run from the root of a checkout, on a machine with a CUDA card:
 Phases (each one passes or the script exits non-zero):
 
 0. the card's name and power limit, from nvidia-smi;
-1. the build of every kernel of the distance path from the sources in the
-   checkout (one nvcc per source, all started together, sm_90a), with its
-   seconds and ptxas report;
+1. the build of every kernel from the sources in the checkout (one nvcc per
+   source, all started together, sm_90a), with its seconds and ptxas report;
 2. each kernel against its plain PyTorch version on the card, exact equality,
    at a ragged shape, a rectangle with r0 > 0 and c0 > 0, and the main-path
    shape rb=1024 x n=4096 x W=31250, with the median ms of both:
-   ``split_gram`` (K1) and ``popcount_gram`` (K2 + K3);
+   ``split_gram`` (K1), every tensor-core variant of ``split_gram_variant``
+   (K1', on K1's inputs, so their times stand beside K1's) and
+   ``popcount_gram`` (K2 + K3);
 3. the distance slice through the normal entry point
    (``tracs_tpu_torch.cli.main(["distance", ...])``) on the headline
    workload: n=4096 samples x 1 Mb in clusters of 21, 2048 partial-IUPAC
@@ -25,18 +26,47 @@ Phases (each one passes or the script exits non-zero):
    the CSV's sha256;
 4. the sweep alone (``pairsnp_stream``) through both engines, cold and warm:
    the popcount engine must launch ``popcount_gram`` once per row block and
-   yield, array for array, what the split engine yields;
+   yield, array for array, what the split engine yields.  On the layouts
+   that stay resident, ``mismatch_positions_kernel`` against its plain
+   version, exact on the whole table: the first row block's emitted pairs at
+   the capacity the filter gives it (timed), and a ragged length with a
+   capacity below some counts, through the split layout and the raw planes;
 5. ``distance --meta`` through the CLI on the same workload, with a seeded
    date per sample (a base date per cluster, members 0-180 days after it):
    the split kernel once per row block, the same rows as phase 3, p0 in
    [0, 1], E(K) finite and >= 0, and 2,000 sampled rows against the scalar
    ``lprob_k_given_N`` and the model run on the CPU (rtol 1e-9);
 6. ``trans_dist`` alone on the card: its time on the run's unique (N, delta)
-   lanes, and the reference goldens at 1e-6.
+   lanes, and the reference goldens at 1e-6;
+7. ``distance --filter`` through the CLI on the same workload: the
+   mismatch-position kernel launched, the same rows and raw distances as
+   phase 3, 0 <= filtered <= raw on every row, and 2,000 sampled rows equal
+   to the host bitset path (``filter_recomb_batch(mismatch_words(...))`` on
+   the numpy planes).  Prints wall seconds, the filter's share and the sha256;
+8. a planted case through ``pairsnp_stream(filter=True)``: 256 samples x
+   1 Mb off one base genome (so the compaction drops almost every column and
+   its position map is in use), scattered SNPs on every sample and a tract of
+   30 SNPs within 2 kb on every fourth; each pair with a tract must lose it
+   to the filter, and every pair must equal the host bitset path;
+9. the variant sweep through its entry point
+   (``tracs_tpu_torch.experiments.kernel_experiments.main``) at full width,
+   n=4096 x 1 Mb over the full square: every variant launched and ``OK``
+   against K1, ms and pairs/s printed.  Then, at that shape and on that
+   layout, K1 and every variant against its plain version, exact: the
+   variants' times, plain times and bounds in the JSON line are those of the
+   full square, the shape their own path gives them (their block times stay
+   beside them as ``block_ms`` and ``block_plain_ms``).
 
-The line before the last is a JSON object describing each kernel; the last
-line is ``{"ok": true, "device": {...}}``.  Without CUDA, or outside a
-checkout, the script exits non-zero before printing a result.
+The whole run takes about twice what it took before phases 7 to 9 existed;
+no earlier phase was cut for them.
+
+The line before the last is a JSON object describing each kernel (its
+launches on its main path, its error and times against its plain version, and
+the least time the card could take for the same work, the only number in it
+that is computed and not measured; what else the script computes about a
+bound goes to ``# bound of`` comment lines).  The last line is
+``{"ok": true, "device": {...}}``.  Without CUDA, or outside a checkout, the
+script exits non-zero before printing a result.
 """
 
 from __future__ import annotations
@@ -56,10 +86,20 @@ import numpy as np
 
 #: row block of the distance run: the JAX package's headline setting
 ROW_BLOCK = 1024
-#: the kernels of the distance path, built from csrc/<name>.cu
-KERNELS = ("split_gram", "popcount_gram")
+#: the kernel sources, built from csrc/<name>.cu
+KERNELS = ("split_gram", "popcount_gram", "split_gram_mma", "mism_positions")
 #: the transmission model's defaults (tracs distance --clock_rate/--trans_rate/--precision)
 LAMB, BETA, PRECISION = 1e-3 * 29903, 73.0, 0.01
+
+
+#: published dense peaks of one H100 SXM (NVIDIA's data sheet): tensor-core
+#: int8 and bf16 operations a second, and device-memory bytes a second
+PEAK_INT8, PEAK_BF16, PEAK_BYTES = 1979e12, 989e12, 3.35e12
+#: integer operations a second outside the tensor cores: the data sheet's
+#: 67 TFLOP/s of float32 counts a fused multiply-add as two
+PEAK_CUDA_CORE = 33.5e12
+#: samples of the planted recombination case (phase 8)
+PLANTED_N = 256
 
 
 def fail(msg: str) -> None:
@@ -67,77 +107,60 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+def bound(bytes_moved: float, ops: float, peak_ops: float):
+    """(the least ms the card could take, "bytes" or "operations"): the larger
+    of the bytes over the memory rate and the operations over their peak."""
+    t_bytes, t_ops = bytes_moved / PEAK_BYTES * 1e3, ops / peak_ops * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def gram_bound(what: str, na: int, nb, W: int, r0: int, rb: int, c0: int, *, planes: int,
+               products: int, peak_ops: float, popc: int, card):
+    """Bound of a gram kernel call, {bound_ms, bound_by}: every distinct input
+    row read once (``planes`` words per 32 sites) and both int32 outputs
+    written once, against the operations of the cheaper of the two routes
+    that compute the function: ``products`` bit-products per site pair as
+    multiply-adds at the tensor cores' ``peak_ops``, or ``popc`` POPC per word
+    pair on the CUDA cores (16 a clock on each SM at the card's highest SM
+    clock).  Prints both routes' times on a comment line."""
+    m = (na if nb is None else nb) - c0
+    if nb is None:
+        rows = rb + m - max(0, min(r0 + rb, na) - max(r0, c0))
+    else:
+        rows = rb + m
+    t_mma = 2 * products * rb * m * 32 * W / peak_ops * 1e3
+    t_popc = popc * rb * m * W / (16 * card["sms"] * card["sm_hz"]) * 1e3
+    t_bytes = (rows * planes * W * 4 + 2 * rb * m * 4) / PEAK_BYTES * 1e3
+    t_ops = min(t_mma, t_popc)
+    ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    print(f"# bound of {what}: {ms:.3f} ms by {by}; tensor-core route ({products} bit-products "
+          f"a site pair) {t_mma:.3f} ms, CUDA-core route ({popc} POPC a word pair) "
+          f"{t_popc:.3f} ms")
+    return {"bound_ms": ms, "bound_by": by}
+
+
+def reset_counts() -> None:
+    """Every kernel's launch count to 0."""
+    from tracs_tpu_torch.ops import kernels
+
+    kernels.SPLIT_GRAM_LAUNCHES = kernels.POPCOUNT_GRAM_LAUNCHES = 0
+    kernels.MISM_POSITIONS_LAUNCHES = 0
+    for name in kernels.SPLIT_GRAM_VARIANT_LAUNCHES:
+        kernels.SPLIT_GRAM_VARIANT_LAUNCHES[name] = 0
+
+
+def read_counts() -> dict:
+    from tracs_tpu_torch.ops import kernels
+
+    return {"split_gram": kernels.SPLIT_GRAM_LAUNCHES,
+            "popcount_gram": kernels.POPCOUNT_GRAM_LAUNCHES,
+            "mism_positions": kernels.MISM_POSITIONS_LAUNCHES,
+            **kernels.SPLIT_GRAM_VARIANT_LAUNCHES}
+
+
 # ---------------------------------------------------------------------------
-# the headline workload: bench.py's make_clustered, in the port's numpy code
+# the headline workload (bench.py's make_clustered, from the package) on disk
 # ---------------------------------------------------------------------------
-
-def random_planes(n: int, L: int, seed: int = 0) -> np.ndarray:
-    """n random packed samples, ~86% unambiguous calls and 14% N, cut from
-    one random site pool at 32-site offsets (bench.py::_random_planes)."""
-    from tracs_tpu_torch.ops.packing import nibbles_to_planes
-
-    rng = np.random.default_rng(seed)
-    probs = np.array([0.215] * 4 + [0.14])
-    codes = np.array([1, 2, 4, 8, 15], dtype=np.uint8)
-    counts = np.diff(np.round(np.concatenate([[0.0], np.cumsum(probs)]) * 256))
-    lut = np.repeat(codes, counts.astype(np.int64))
-    pool_L = L + 32 * n
-    nib = lut[rng.integers(0, 256, size=pool_L, dtype=np.uint8)]
-    pool_planes = nibbles_to_planes(nib[None, :])[0]  # [4, Wp]
-    W = (L + 31) // 32
-    planes = np.empty((n, 4, W), dtype=np.uint32)
-    for i in range(n):
-        planes[i] = pool_planes[:, i : i + W]
-    tail = W * 32 - L
-    if tail:
-        planes[:, :, -1] &= np.uint32(0xFFFFFFFF >> tail)
-    return planes
-
-
-def _mutate_inplace(planes, positions, rng) -> None:
-    """Unambiguous point substitutions of one sample's packed planes."""
-    w = (positions // 32).astype(np.int64)
-    b = (positions % 32).astype(np.uint32)
-    clear = ~(np.uint32(1) << b)
-    setb = np.uint32(1) << b
-    for c in range(4):
-        np.bitwise_and.at(planes[c], w, clear)
-    newbase = rng.integers(0, 4, size=positions.shape[0])
-    np.bitwise_or.at(planes, (newbase, w), setb)
-
-
-def make_clustered(n, L, cluster_size=6, max_mut=90, n_partial_cols=2048, seed=0):
-    """bench.py::make_clustered: clusters of mutated copies of random base
-    genomes, plus shared columns of partial codes M/R in every sample.
-    Every within-cluster pair lands under a SNP threshold of 200 and no
-    other pair does.  Returns the port's PackedAlignment."""
-    from tracs_tpu_torch.ops.packing import PackedAlignment
-
-    n_clusters = (n + cluster_size - 1) // cluster_size
-    bases = random_planes(n_clusters, L, seed=seed)
-    rng = np.random.default_rng(seed + 1)
-    max_mut = min(max_mut, max(5, L // 16))
-    n_partial_cols = min(n_partial_cols, L // 8)
-    planes = np.empty((n, 4, bases.shape[2]), dtype=np.uint32)
-    for i in range(n):
-        planes[i] = bases[i // cluster_size]
-        k = int(rng.integers(min(5, max_mut), max_mut + 1))
-        pos = rng.choice(L, size=k, replace=False)
-        _mutate_inplace(planes[i], pos, rng)
-    if n_partial_cols:
-        cols = rng.choice(L, size=n_partial_cols, replace=False)
-        w = (cols // 32).astype(np.int64)
-        setb = np.uint32(1) << (cols % 32).astype(np.uint32)
-        clear = ~setb
-        for i in range(n):
-            is_m = rng.integers(0, 2, size=n_partial_cols) == 0  # M else R
-            for c in range(4):
-                np.bitwise_and.at(planes[i, c], w, clear)
-            np.bitwise_or.at(planes[i, 0], w, setb)  # A bit in both codes
-            np.bitwise_or.at(planes[i, 1], w[is_m], setb[is_m])
-            np.bitwise_or.at(planes[i, 2], w[~is_m], setb[~is_m])
-    return PackedAlignment(planes=planes, length=L, names=[str(i) for i in range(n)])
-
 
 def write_fasta(path: str, packed, batch: int = 128) -> None:
     """Uncompressed FASTA of a PackedAlignment, one line per sequence."""
@@ -214,55 +237,83 @@ KERNEL_CASES = [
 ]
 
 
-def phase_kernels(device, seed: int):
-    """Each kernel against its plain version on the card at KERNEL_CASES;
-    returns {kernel: (max_abs_err of each output, kernel ms, plain ms)}, the
-    times at the main-path shape."""
+def phase_kernels(device, seed: int, card):
+    """Each gram kernel against its plain version on the card at
+    KERNEL_CASES.  K1 and the tensor-core variants run on the same inputs;
+    the variants of one operand type share its plain version, and K1 shares
+    the b1 one.  Returns {kernel: {max_abs_err (of each output), ms,
+    plain_ms, bound_ms, bound_by}}, the times and bounds at the main-path
+    shape."""
+    from functools import partial
+
     import torch
 
     from tracs_tpu_torch.ops import kernels
 
     words = _random_words(device, seed)
+    split_fns = {"split_gram": (kernels.split_gram, "b1")}
+    for dot, tile, unpack in kernels.SPLIT_GRAM_VARIANTS:
+        split_fns[kernels.variant_name(dot, tile, unpack)] = (
+            partial(kernels.split_gram_variant, dot=dot, tile=tile, unpack=unpack), dot)
+    plains = {dot: partial(kernels.split_gram_variant_reference, dot=dot)
+              for dot in ("b1", "s8", "bf16")}
+    out = {name: {"max_abs_err": [0, 0]} for name in (*split_fns, "popcount_gram")}
 
-    def split_args(na, nb, W, r0, rb, c0):
+    def check(kname, name, got, want):
+        err = [int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)]
+        out[kname]["max_abs_err"] = [max(e, f) for e, f in zip(out[kname]["max_abs_err"], err)]
+        print(f"# {kname} vs plain, {name}: out {tuple(got[0].shape)}, max |err| {err}")
+        if any(err):
+            fail(f"{kname} disagrees with its plain version at {name}")
+
+    for name, na, nb, W, r0, rb, c0 in KERNEL_CASES:
+        timed = W == 31250
         b = (None, None) if nb is None else (words(nb, 4, W), words(nb, W))
-        return (words(na, 4, W), words(na, W), r0, rb, c0) + b
-
-    def popcount_args(na, nb, W, r0, rb, c0):
-        return (words(na, 4, W), r0, rb, c0, None if nb is None else words(nb, 4, W))
-
-    specs = {
-        "split_gram": (kernels.split_gram, kernels.split_gram_reference, split_args),
-        "popcount_gram": (kernels.popcount_gram, kernels.popcount_gram_reference,
-                          popcount_args),
-    }
-    out = {}
-    for kname, (fn, plain, make) in specs.items():
-        errs = [0, 0]
-        ms = plain_ms = None
-        for name, na, nb, W, r0, rb, c0 in KERNEL_CASES:
-            args = make(na, nb, W, r0, rb, c0)
+        args = (words(na, 4, W), words(na, W), r0, rb, c0) + b
+        want, plain_ms = {}, {}
+        for dot, plain in plains.items():
+            want[dot] = plain(*args)
+            if timed:
+                plain_ms[dot] = time_ms(lambda: plain(*args), 3)
+        for kname, (fn, dot) in split_fns.items():
             got = fn(*args)
             torch.cuda.synchronize()
-            want = plain(*args)
-            err = [int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)]
-            errs = [max(e, f) for e, f in zip(errs, err)]
-            print(f"# {kname} vs plain, {name}: out {tuple(got[0].shape)}, max |err| {err}")
-            if any(err):
-                fail(f"{kname} disagrees with its plain version at {name}")
-            if W == 31250:
+            check(kname, name, got, want[dot])
+            if timed:
                 ms = time_ms(lambda: fn(*args), 10)
-                plain_ms = time_ms(lambda: plain(*args), 3)
-                print(f"# {kname} at {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (median)")
-            del args, got, want
-            torch.cuda.empty_cache()
-        out[kname] = (errs, ms, plain_ms)
+                print(f"# {kname} at {name}: kernel {ms:.3f} ms, plain ({dot}) "
+                      f"{plain_ms[dot]:.3f} ms (median)")
+                out[kname].update(ms=ms, plain_ms=plain_ms[dot], **gram_bound(
+                    f"{kname} at {name}", na, nb, W, r0, rb, c0, planes=5, products=5,
+                    popc=5, card=card,
+                    peak_ops=PEAK_BF16 if dot == "bf16" else PEAK_INT8))
+        del args, b, got, want
+        torch.cuda.empty_cache()
+
+        args = (words(na, 4, W), r0, rb, c0, None if nb is None else words(nb, 4, W))
+        got = kernels.popcount_gram(*args)
+        torch.cuda.synchronize()
+        check("popcount_gram", name, got, kernels.popcount_gram_reference(*args))
+        if timed:
+            ms = time_ms(lambda: kernels.popcount_gram(*args), 10)
+            plain = time_ms(lambda: kernels.popcount_gram_reference(*args), 3)
+            print(f"# popcount_gram at {name}: kernel {ms:.3f} ms, plain {plain:.3f} ms (median)")
+            # as a matrix product the two counts are 16 bit-products: the 15
+            # plane subsets of the inclusion-exclusion and the N gram
+            out["popcount_gram"].update(ms=ms, plain_ms=plain, **gram_bound(
+                f"popcount_gram at {name}", na, nb, W, r0, rb, c0, planes=4, products=16,
+                popc=2, card=card,
+                peak_ops=PEAK_INT8))
+        del args, got
+        torch.cuda.empty_cache()
     return out
 
 
 def _headline(n: int, L: int, seed: int, tmp: str):
     """(packed alignment, FASTA path, cluster size) of the headline workload."""
     cluster_size = max(6, round(0.005 * n) + 1)
+    from tracs_tpu_torch.experiments.workload import make_clustered
+
     t0 = time.perf_counter()
     packed = make_clustered(n, L, cluster_size=cluster_size, seed=seed)
     fasta = os.path.join(tmp, "clustered.fasta")
@@ -274,27 +325,28 @@ def _headline(n: int, L: int, seed: int, tmp: str):
 
 def _run_cli(argv, n: int, row_block: int, what: str, device):
     """One ``distance`` CLI run with the launch counts set to 0 just before
-    it; returns (wall s, split_gram launches, CSV rows as field lists, sha256)."""
+    it and read just after; returns (wall s, the counts, CSV rows as field
+    lists, sha256)."""
     import torch
 
     from tracs_tpu_torch import cli
-    from tracs_tpu_torch.ops import kernels
 
-    kernels.SPLIT_GRAM_LAUNCHES = kernels.POPCOUNT_GRAM_LAUNCHES = 0
+    reset_counts()
     t0 = time.perf_counter()
     cli.main(argv + ["--device", device.type])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels.SPLIT_GRAM_LAUNCHES
+    counts = read_counts()
     n_blocks = -(-n // row_block)
-    print(f"# {what}: {wall:.3f} s wall, split_gram launches {launches} for "
-          f"{n_blocks} row blocks, popcount_gram launches {kernels.POPCOUNT_GRAM_LAUNCHES}")
-    if launches != n_blocks:
-        fail(f"{what}: {launches} split_gram launches for {n_blocks} row blocks")
+    print(f"# {what}: {wall:.3f} s wall, split_gram launches {counts['split_gram']} for "
+          f"{n_blocks} row blocks, popcount_gram launches {counts['popcount_gram']}, "
+          f"mism_positions launches {counts['mism_positions']}")
+    if counts["split_gram"] != n_blocks:
+        fail(f"{what}: {counts['split_gram']} split_gram launches for {n_blocks} row blocks")
     with open(argv[argv.index("-o") + 1], "rb") as fh:
         data = fh.read()
     fields = [ln.split(",") for ln in data.decode().splitlines()[1:]]
-    return wall, launches, fields, hashlib.sha256(data).hexdigest()
+    return wall, counts, fields, hashlib.sha256(data).hexdigest()
 
 
 def phase_slice(packed, fasta: str, cluster_size: int, row_block: int, seed: int, tmp: str,
@@ -304,7 +356,7 @@ def phase_slice(packed, fasta: str, cluster_size: int, row_block: int, seed: int
     n, L = packed.n_seqs, packed.length
     out = os.path.join(tmp, "dists.csv")
     argv = ["distance", "--msa", fasta, "-o", out, "-D", "200", "--row-block", str(row_block)]
-    wall, launches, fields, sha = _run_cli(argv, n, row_block, "distance CLI", device)
+    wall, counts, fields, sha = _run_cli(argv, n, row_block, "distance CLI", device)
     i = np.array([int(f[0]) for f in fields], dtype=np.int64)
     j = np.array([int(f[1]) for f in fields], dtype=np.int64)
     sizes = np.bincount(np.arange(n) // cluster_size)
@@ -325,14 +377,86 @@ def phase_slice(packed, fasta: str, cluster_size: int, row_block: int, seed: int
     if not (np.array_equal(d_csv, d_ref) and np.array_equal(nn_csv, nn_ref)):
         fail("sampled CSV rows disagree with the host popcount oracle")
     print(f"# oracle: {len(pick)} sampled rows agree (SNP distance and sites considered)")
-    return launches, fields
+    return counts["split_gram"], fields
+
+
+def phase_mism_positions(packed, block, device):
+    """``mismatch_positions_kernel`` against its plain version on the layouts
+    the sweeps left resident: the pairs of one emitted row block at the
+    capacity the filter gives it (timed), then a ragged length with a
+    capacity below some counts (cross-cluster pairs mismatch at most sites)
+    through the split layout and the raw planes.  Returns the kernel's record
+    for the JSON line."""
+    import torch
+
+    from tracs_tpu_torch.ops import kernels
+    from tracs_tpu_torch.ops.pairsnp import (_cached_compact, _planes_device, _split_device,
+                                             _split_pair)
+
+    comp = _cached_compact(packed, packed)
+    a_k = packed if comp is None else comp[0]
+    ea, nm, _ = _split_device(_split_pair(a_k, None)[0], device)
+    raw = _planes_device(a_k, device)
+    n, L, W = a_k.n_seqs, a_k.length, ea.shape[2]
+    rows, cols, dvals = block[3], block[4], block[5]
+    todo = dvals > 1
+    ii = torch.from_numpy(rows[todo]).to(device)
+    jj = torch.from_numpy(cols[todo]).to(device)
+    # ops/recomb.py::filter_pairs: the power of two at or above the largest d, at least 128
+    cap = 1 << max(7, int(np.ceil(np.log2(max(2, int(dvals.max()))))))
+    far = torch.arange(min(16, n // 2), device=device)
+    ii2, jj2 = torch.cat([ii[:2000], far]), torch.cat([jj[:2000], n - 1 - far])
+    cases = [
+        (f"main path P={len(ii)} W={W} capacity={cap}, split layout",
+         (ea, None, ii, jj, L, cap, nm, None)),
+        (f"ragged L={L - 13} capacity=64 P={len(ii2)}, split layout",
+         (ea, None, ii2, jj2, L - 13, 64, nm, None)),
+        (f"ragged L={L - 13} capacity=64 P={len(ii2)}, raw planes",
+         (raw, None, ii2, jj2, L - 13, 64)),
+    ]
+    rec = {"max_abs_err": 0}
+    for k, (name, args) in enumerate(cases):
+        got = kernels.mismatch_positions_kernel(*args)
+        torch.cuda.synchronize()
+        want = kernels.mismatch_positions_reference(*args)
+        err = int((got.long() - want.long()).abs().max())
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        counts = got[:, 0]
+        print(f"# mism_positions vs plain, {name}: table {tuple(got.shape)}, counts "
+              f"{int(counts.min())}..{int(counts.max())}, max |err| {err}")
+        if err:
+            fail(f"mism_positions disagrees with its plain version at {name}")
+        if k == 0:
+            if not np.array_equal(counts.cpu().numpy(), dvals[todo]):
+                fail("mism_positions counts differ from the sweep's distances")
+            ms = time_ms(lambda: kernels.mismatch_positions_kernel(*args), 10)
+            plain_ms = time_ms(lambda: kernels.mismatch_positions_reference(*args), 2)
+            print(f"# mism_positions at {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
+                  f"(median)")
+            P = len(ii)
+            used = len(torch.unique(torch.cat([ii, jj])))
+            out_bytes = P * (1 + cap) * 4
+            # the contract's bound reads each referenced sample once; the kernel
+            # has no reuse between pairs, so what it asks of the memory system
+            # is 10 words per 32 sites for every pair
+            # about 12 integer operations per word of a pair: 4 AND, 5 OR, NOT, POPC, ADD
+            ms_b, by = bound(used * 5 * W * 4 + 16 * P + out_bytes, 12 * P * W, PEAK_CUDA_CORE)
+            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=ms_b, bound_by=by)
+            print(f"# bound of mism_positions at {name}: {ms_b:.3f} ms by {by} ({used} distinct "
+                  f"samples read once); every pair's 10 words per 32 sites from device memory "
+                  f"would take {(P * 10 * W * 4 + out_bytes) / PEAK_BYTES * 1e3:.3f} ms")
+        elif not (int(counts.min()) < 64 < int(counts.max())):
+            fail(f"{name}: the capacity is not below some counts and above others")
+        del got, want
+    return rec
 
 
 def phase_sweeps(fasta: str, row_block: int, device):
     """pairsnp_stream through both engines, cold (fresh alignment object:
     compaction scan, layout and upload) and warm (resident), the warm runs
     taken in turns.  The popcount run is the popcount engine's main path:
-    its launch count is read around its cold sweep.  Returns that count."""
+    its launch count is read around its cold sweep.  Returns (that count, the
+    mismatch-position kernel's record from the resident layouts)."""
     import torch
 
     from tracs_tpu_torch.ops import kernels
@@ -354,7 +478,7 @@ def phase_sweeps(fasta: str, row_block: int, device):
     fresh = {m: PackedAlignment(packed.planes, packed.length, packed.names)
              for m in ("split", "popcount")}
     t_split, split_blocks = sweep(fresh["split"], "split")
-    kernels.SPLIT_GRAM_LAUNCHES = kernels.POPCOUNT_GRAM_LAUNCHES = 0
+    reset_counts()
     t_pc, pc_blocks = sweep(fresh["popcount"], "popcount")
     launches = kernels.POPCOUNT_GRAM_LAUNCHES
     print(f"# sweep cold (layout + upload): split {t_split:.3f} s, popcount {t_pc:.3f} s; "
@@ -377,7 +501,9 @@ def phase_sweeps(fasta: str, row_block: int, device):
     for method, ts in warm.items():
         print(f"# sweep warm {method}: median {float(np.median(ts)):.4f} s of "
               f"{', '.join(f'{t:.4f}' for t in ts)}")
-    return launches
+    # both engines' layouts of one alignment object: the split layout is
+    # resident on fresh["split"]; the raw planes follow at first use
+    return launches, phase_mism_positions(fresh["split"], split_blocks[0], device)
 
 
 def write_dates(path: str, n: int, cluster_size: int, seed: int) -> None:
@@ -408,7 +534,7 @@ def phase_meta(packed, fasta: str, cluster_size: int, row_block: int, seed: int,
     out = os.path.join(tmp, "dists_meta.csv")
     argv = ["distance", "--msa", fasta, "-o", out, "-D", "200", "--row-block", str(row_block),
             "--meta", dates]
-    wall, launches, fields, sha = _run_cli(argv, n, row_block, "distance --meta CLI", device)
+    wall, counts, fields, sha = _run_cli(argv, n, row_block, "distance --meta CLI", device)
     print(f"# --meta CSV: {len(fields)} rows, sha256 {sha}")
     if [f[:2] for f in fields] != [f[:2] for f in plain_fields]:
         fail("the --meta run's rows differ from the run without --meta")
@@ -437,7 +563,7 @@ def phase_meta(packed, fasta: str, cluster_size: int, row_block: int, seed: int,
           f"{err_scalar:.3e}; p0 vs CPU model {err_p0:.3e}, E(K) vs CPU model {err_ek:.3e}")
     if max(err_scalar, err_p0, err_ek) > 1e-9:
         fail("sampled --meta rows disagree with the scalar model or the CPU model at 1e-9")
-    return wall, launches, N, years
+    return wall, counts["split_gram"], N, years
 
 
 def phase_trans_dist(N, years, device):
@@ -464,6 +590,202 @@ def phase_trans_dist(N, years, device):
     print(f"# trans_dist reference goldens on the card: max |err| {err:.3e}")
     if not err < 1e-6:
         fail("trans_dist misses the reference goldens on the card")
+
+
+def host_filter(packed, i, j, d, chunk: int = 256) -> np.ndarray:
+    """Filtered distances of pairs (i, j) by the host bitset path on the
+    numpy planes: ``filter_recomb_batch(mismatch_words(...))``."""
+    from tracs_tpu_torch.ops.pairsnp import mismatch_words
+    from tracs_tpu_torch.ops.recomb import filter_recomb_batch
+
+    out = np.empty(len(i), dtype=np.int64)
+    for s in range(0, len(i), chunk):
+        e = s + chunk
+        out[s:e] = filter_recomb_batch(mismatch_words(packed, packed, i[s:e], j[s:e]),
+                                       d[s:e], packed.length)
+    return out
+
+
+def phase_filter(packed, fasta: str, row_block: int, seed: int, tmp: str, plain_fields,
+                 device):
+    """``distance --filter`` through the CLI on the card; returns the
+    mismatch-position kernel's launches in that run."""
+    import torch
+
+    from tracs_tpu_torch.ops import pairsnp as port
+
+    spent = [0.0]
+    real = port.filter_pairs
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(*args, **kwargs)
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    out = os.path.join(tmp, "dists_filter.csv")
+    argv = ["distance", "--msa", fasta, "-o", out, "-D", "200", "--row-block", str(row_block),
+            "--filter"]
+    port.filter_pairs = timed  # only to read the filter's share of the wall
+    try:
+        wall, counts, fields, sha = _run_cli(argv, packed.n_seqs, row_block,
+                                             "distance --filter CLI", device)
+    finally:
+        port.filter_pairs = real
+    print(f"# --filter CSV: {len(fields)} rows, sha256 {sha}; filter_pairs {spent[0]:.3f} s, "
+          f"{100 * spent[0] / wall:.2f}% of the wall")
+    if counts["mism_positions"] < 1:
+        fail("the --filter run did not launch the mismatch-position kernel")
+    same = (0, 1, 2, 3, 4, 5, 7, 8)
+    if [[f[k] for k in same] for f in fields] != [[f[k] for k in same] for f in plain_fields]:
+        fail("the --filter run's rows differ from the run without --filter outside the "
+             "filtered column")
+    i = np.array([int(f[0]) for f in fields], dtype=np.int64)
+    j = np.array([int(f[1]) for f in fields], dtype=np.int64)
+    d = np.array([int(f[3]) for f in fields], dtype=np.int64)
+    filt = np.array([int(f[6]) for f in fields], dtype=np.int64)
+    if not np.all((0 <= filt) & (filt <= d)):
+        fail("a filtered distance outside [0, SNP distance]")
+    rng = np.random.default_rng(seed + 5)
+    pick = rng.choice(len(fields), size=min(2000, len(fields)), replace=False)
+    want = host_filter(packed, i[pick], j[pick], d[pick])
+    if not np.array_equal(filt[pick], want):
+        fail("sampled --filter rows disagree with the host bitset path")
+    print(f"# --filter: {len(pick)} sampled rows equal the host bitset path; "
+          f"{int((filt < d).sum())} of {len(fields)} rows lost SNPs to the filter")
+    return counts["mism_positions"]
+
+
+def planted_alignment(n: int, L: int, seed: int):
+    """(PackedAlignment, has_tract [n] bool): n samples off one random base
+    genome, each with 20-60 scattered substitutions, every fourth with a
+    tract of 30 more within 2 kb."""
+    from tracs_tpu_torch.ops.packing import PackedAlignment, nibbles_to_planes
+
+    rng = np.random.default_rng(seed + 4)
+    codes = np.array([1, 2, 4, 8], dtype=np.uint8)
+    base = rng.integers(0, 4, size=L)
+    nib = np.repeat(codes[base][None, :], n, axis=0)
+    has_tract = np.arange(n) % 4 == 0
+    for k in range(n):
+        pos = rng.choice(L, size=int(rng.integers(20, 61)), replace=False)
+        if has_tract[k]:
+            start = int(rng.integers(0, L - 2000))
+            pos = np.union1d(pos, start + rng.choice(2000, size=30, replace=False))
+        nib[k, pos] = codes[(base[pos] + rng.integers(1, 4, size=len(pos))) % 4]
+    packed = PackedAlignment(planes=nibbles_to_planes(nib), length=L,
+                             names=[f"p{k}" for k in range(n)])
+    return packed, has_tract
+
+
+def phase_planted(L: int, seed: int, device):
+    """The planted recombination case through ``pairsnp_stream(filter=True)``
+    with compaction on."""
+    import torch
+
+    from tracs_tpu_torch.ops.pairsnp import INT32_MAX, _cached_compact, pairsnp_stream
+
+    n = PLANTED_N
+    packed, has_tract = planted_alignment(n, L, seed)
+    reset_counts()
+    t0 = time.perf_counter()
+    blocks = list(pairsnp_stream([packed], dist=INT32_MAX, filter=True, row_block=n // 2,
+                                 device=device))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    comp = _cached_compact(packed, packed)
+    if comp is None or comp[0].planes.shape[2] >= packed.planes.shape[2]:
+        fail("planted case: the compaction dropped no column, so no position map was in use")
+    rows, cols, d, filt = (np.concatenate([b[k] for b in blocks]) for k in (3, 4, 5, 6))
+    print(f"# planted: n={n} L={L}, {len(rows)} pairs in {wall:.3f} s, compacted "
+          f"{packed.planes.shape[2]} -> {comp[0].planes.shape[2]} words, split_gram launches "
+          f"{counts['split_gram']}, mism_positions launches {counts['mism_positions']}")
+    if len(rows) != n * (n - 1) // 2 or counts["mism_positions"] < 1:
+        fail("planted case: pairs missing, or the mismatch-position kernel was not launched")
+    tract = has_tract[rows] | has_tract[cols]
+    if not np.all(filt[tract] < d[tract]) or not np.all(filt <= d):
+        fail("planted case: a pair with a tract kept every SNP, or a filtered distance above d")
+    t0 = time.perf_counter()
+    want = host_filter(packed, rows, cols, d)
+    if not np.array_equal(filt, want):
+        fail("planted case: pairsnp_stream(filter=True) disagrees with the host bitset path")
+    lost = d - filt
+    print(f"# planted: every pair equals the host bitset path ({time.perf_counter() - t0:.1f} s "
+          f"on the host); {int(tract.sum())} pairs with a tract lost {int(lost[tract].min())}.."
+          f"{int(lost[tract].max())} SNPs, the others {int(lost[~tract].min())}.."
+          f"{int(lost[~tract].max())}")
+
+
+def phase_experiments(n: int, L: int, device, card, recs):
+    """The variant sweep through its entry point, then K1 and every variant
+    against its plain version at that path's own shape: the full n x n square
+    on the entry point's layout, exact.  The launch counts are read before
+    those comparisons.  Returns the launch counts of the entry point's run;
+    the variants' records in ``recs`` move to the full square (``ms``
+    the entry point's median, ``plain_ms`` one run of the plain version, the
+    bound of the square), their main-path-block times kept as ``block_ms``
+    and ``block_plain_ms``."""
+    from functools import partial
+
+    import torch
+
+    from tracs_tpu_torch.experiments import kernel_experiments
+    from tracs_tpu_torch.experiments.workload import make_clustered
+    from tracs_tpu_torch.ops import kernels
+    from tracs_tpu_torch.ops.pairsnp import _cached_split, _split_device
+
+    reset_counts()
+    t0 = time.perf_counter()
+    rows = kernel_experiments.main([str(n), str(L), "--device", "cuda"])
+    counts = read_counts()
+    print(f"# experiments entry point: {time.perf_counter() - t0:.1f} s in all")
+    for variant in kernels.SPLIT_GRAM_VARIANTS:
+        name = kernels.variant_name(*variant)
+        if counts[name] < 1:
+            fail(f"the experiments entry point never launched variant {name}")
+    if any(r["ok"] is False for r in rows) or len(rows) != 1 + len(kernels.SPLIT_GRAM_VARIANTS):
+        fail("the experiments entry point reported a mismatch or skipped a variant")
+    rows = {r["name"]: r for r in rows}
+
+    # the entry point's layout again (it keeps none), as kernel_experiments.run builds it
+    ea, nm, _ = _split_device(_cached_split(make_clustered(n, L)), device)
+    W = ea.shape[2]
+    shape = f"full square rb={n} n={n} W={W}"
+    want, plain_ms = {}, {}
+    for dot in ("b1", "s8", "bf16"):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want[dot] = kernels.split_gram_variant_reference(ea, nm, 0, n, 0, dot=dot)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms[dot] = start.elapsed_time(end)
+    fns = {"split_gram": (kernels.split_gram, "b1")}
+    for dot, tile, unpack in kernels.SPLIT_GRAM_VARIANTS:
+        fns[kernels.variant_name(dot, tile, unpack)] = (
+            partial(kernels.split_gram_variant, dot=dot, tile=tile, unpack=unpack), dot)
+    for kname, (fn, dot) in fns.items():
+        got = fn(ea, nm, 0, n, 0)
+        torch.cuda.synchronize()
+        err = [int((g.long() - w.long()).abs().max()) for g, w in zip(got, want[dot])]
+        print(f"# {kname} vs plain, {shape}: out {tuple(got[0].shape)}, max |err| {err}; "
+              f"kernel {rows[kname]['ms']:.3f} ms (the entry point's median), plain ({dot}) "
+              f"{plain_ms[dot]:.3f} ms (one run)")
+        if any(err):
+            fail(f"{kname} disagrees with its plain version at {shape}")
+        del got
+        recs[kname]["max_abs_err"] = [max(e, f) for e, f in zip(recs[kname]["max_abs_err"], err)]
+        if kname == "split_gram":
+            continue  # K1's main path is the distance run: its record stays at the block
+        rec = recs[kname]
+        rec.update(block_ms=rec["ms"], block_plain_ms=rec["plain_ms"], ms=rows[kname]["ms"],
+                   plain_ms=plain_ms[dot], **gram_bound(
+                       f"{kname} at {shape}", n, None, W, 0, n, 0, planes=5, products=5,
+                       popc=5, card=card,
+                       peak_ops=PEAK_BF16 if dot == "bf16" else PEAK_INT8))
+    return counts
 
 
 def main() -> None:
@@ -504,29 +826,54 @@ def main() -> None:
             if "registers" in line or "spill" in line or "smem" in line:
                 print(f"#   {line.strip()}")
 
-    errs = phase_kernels(device, args.seed)
+    props = torch.cuda.get_device_properties(0)
+    sm_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0])
+    card = {"sms": props.multi_processor_count, "sm_hz": sm_mhz * 1e6}
+    print(f"# {card['sms']} SMs, max SM clock {sm_mhz:.0f} MHz")
+
+    recs = phase_kernels(device, args.seed, card)
     with tempfile.TemporaryDirectory() as tmp:
         packed, fasta, cluster_size = _headline(args.n, args.length, args.seed, tmp)
         split_launches, fields = phase_slice(packed, fasta, cluster_size, ROW_BLOCK,
                                              args.seed, tmp, device)
-        pc_launches = phase_sweeps(fasta, ROW_BLOCK, device)
+        pc_launches, recs["mism_positions"] = phase_sweeps(fasta, ROW_BLOCK, device)
         _, _, N, years = phase_meta(packed, fasta, cluster_size, ROW_BLOCK, args.seed, tmp,
                                     fields, device)
-    phase_trans_dist(N, years, device)
+        phase_trans_dist(N, years, device)
+        mism_launches = phase_filter(packed, fasta, ROW_BLOCK, args.seed, tmp, fields, device)
+    del packed, fields
+    phase_planted(args.length, args.seed, device)
+    exp_counts = phase_experiments(args.n, args.length, device, card, recs)
 
-    def entry(name, kernel, replaces, launches, outputs):
-        out_errs, ms, plain_ms = errs[kernel]
-        return {"name": name, "route": "cuda", "source": f"tracs_tpu_torch/csrc/{kernel}.cu",
-                "replaces": f"tracs_tpu/ops/pallas_kernels.py:{replaces}",
-                "launches": launches, "max_abs_err": max(out_errs[k] for k in outputs),
-                "ms": ms, "plain_ms": plain_ms}
+    def entry(name, kernel, source, replaces, launches, outputs=None):
+        rec = dict(recs[kernel])
+        err = rec.pop("max_abs_err")
+        return {"name": name, "route": "cuda", "source": f"tracs_tpu_torch/csrc/{source}.cu",
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err if outputs is None else max(err[k] for k in outputs),
+                **rec, "library_ms": None}
 
+    from tracs_tpu_torch.ops import kernels as K
+
+    pallas = "tracs_tpu/ops/pallas_kernels.py"
     # K2 and K3 are one fused kernel: both entries carry its launch count and
-    # time, each with the error of its own output (matches, nunion)
+    # time, each with the error of its own output (matches, nunion).  No
+    # single PyTorch call computes any of these functions: library_ms is null.
     print(json.dumps({"kernels": [
-        entry("split_gram", "split_gram", 157, split_launches, (0, 1)),
-        entry("popcount_gram (K2 matches)", "popcount_gram", 45, pc_launches, (0,)),
-        entry("popcount_gram (K3 nunion)", "popcount_gram", 65, pc_launches, (1,)),
+        entry("split_gram", "split_gram", "split_gram", f"{pallas}:157", split_launches,
+              (0, 1)),
+        entry("popcount_gram (K2 matches)", "popcount_gram", "popcount_gram", f"{pallas}:45",
+              pc_launches, (0,)),
+        entry("popcount_gram (K3 nunion)", "popcount_gram", "popcount_gram", f"{pallas}:65",
+              pc_launches, (1,)),
+        *(entry(f"split_gram_variant {name}", name, "split_gram_mma",
+                "scripts/kernel_experiments.py:22", exp_counts[name], (0, 1))
+          for name in (K.variant_name(*v) for v in K.SPLIT_GRAM_VARIANTS)),
+        entry("mism_positions", "mism_positions", "mism_positions",
+              "tracs_tpu/ops/pairsnp.py:1501", mism_launches),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -308,7 +308,7 @@ def test_default_device_cuda_exits_nonzero_without_card(tmp_path, capsys):
     assert "CUDA" in str(exc.value.code) and "--device cpu" in str(exc.value.code)
 
 
-@pytest.mark.parametrize("flags,item", [(["--filter"], "item 2"), (["--mesh", "2x1"], "item 4")])
+@pytest.mark.parametrize("flags,item", [(["--filter", "--mesh", "auto"], "item 4"), (["--mesh", "2x1"], "item 4")])
 def test_unported_flags_raise(tmp_path, flags, item):
     with pytest.raises(NotImplementedError, match=item):
         port_cli.main(["distance", "--msa", os.path.join(DATA, "ambig.aln"),

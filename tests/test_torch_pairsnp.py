@@ -253,9 +253,9 @@ def test_unported_options_raise():
     rng = np.random.default_rng(10)
     _, p = _both(_seqs(rng, 3, 64))
     with pytest.raises(NotImplementedError):
-        list(port.pairsnp_stream([p], filter=True, device="cpu"))
-    with pytest.raises(NotImplementedError):
         list(port.pairsnp_stream([p], method="mxu", device="cpu"))
+    with pytest.raises(NotImplementedError):
+        list(port.pairsnp_stream([p], filter=True, method="mxu", device="cpu"))
 
 
 def test_cuda_device_without_card_raises():
@@ -270,12 +270,16 @@ def test_cuda_device_without_card_raises():
 
 
 def test_smoke_workload_matches_bench():
-    """chip_smoke.py's workload generator is bench.py's make_clustered,
-    array for array."""
+    """chip_smoke.py's workload generator (the package's
+    experiments/workload.py, of which the script keeps no copy) is
+    bench.py's make_clustered, array for array."""
     sys.path.insert(0, REPO)
     import bench
     import chip_smoke
 
-    got = chip_smoke.make_clustered(70, 4000, cluster_size=6, n_partial_cols=64)
+    from tracs_tpu_torch.experiments import workload
+
+    assert not hasattr(chip_smoke, "random_planes")
+    got = workload.make_clustered(70, 4000, cluster_size=6, n_partial_cols=64)
     want = bench.make_clustered(70, 4000, cluster_size=6, n_partial_cols=64)
     assert np.array_equal(got.planes, want.planes) and got.names == want.names

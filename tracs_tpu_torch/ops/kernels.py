@@ -11,6 +11,16 @@ the CUDA kernel ``csrc/split_gram.cu``; launches counted in
 over the raw planes, both from the one CUDA kernel
 ``csrc/popcount_gram.cu``; launches counted in ``POPCOUNT_GRAM_LAUNCHES``.
 
+``split_gram_variant`` — the same two grams as ``split_gram`` from the
+tensor-core kernels ``csrc/split_gram_mma.cu`` (``mma.sync`` on b1, int8 or
+bf16 operands, the H100 forms of the TPU's unpack-and-dot experiment
+kernels); launches counted per variant in ``SPLIT_GRAM_VARIANT_LAUNCHES``.
+
+``mismatch_positions_kernel`` — per pair of samples, the count and the
+ascending positions of the sites where the two share no allele, from the
+CUDA kernel ``csrc/mism_positions.cu`` (the recombination filter's device
+step); launches counted in ``MISM_POSITIONS_LAUNCHES``.
+
 On a CUDA tensor each wrapper launches its kernel (built for sm_90a at first
 use, runtime/build.py) and counts the launch; on a CPU tensor it returns its
 ``*_reference``, the plain exact version.  There is no fallback from one to
@@ -33,6 +43,36 @@ from tracs_tpu_torch.runtime.device import resolve_device, to_host
 SPLIT_GRAM_LAUNCHES = 0
 #: launches of the CUDA popcount-gram kernel in this process
 POPCOUNT_GRAM_LAUNCHES = 0
+#: launches of the CUDA mismatch-position kernel in this process
+MISM_POSITIONS_LAUNCHES = 0
+
+#: the tensor-core split-gram variants as (dot, tile, unpack): the operand
+#: type of the ``mma``, the block's square output tile, and for ``s8`` the
+#: routine that unpacks a word to int8 ("shift": bits j, j+8, j+16, j+24 by
+#: one shift and mask; "nibble": one nibble spread over 4 bytes by a multiply)
+SPLIT_GRAM_VARIANTS = (
+    ("b1", 64, None), ("b1", 128, None),
+    ("s8", 128, "shift"), ("s8", 128, "nibble"),
+    ("bf16", 128, None),
+)
+# the kernel's code for each (dot, unpack)
+_VARIANT_DOT_CODES = {("b1", None): 0, ("s8", "shift"): 1, ("s8", "nibble"): 2,
+                      ("bf16", None): 3}
+
+
+def variant_name(dot: str, tile: int, unpack: str | None = None) -> str:
+    """``b1-64``, ``s8-shift-128``, ...: the key of a variant's launch count."""
+    return f"{dot}-{unpack}-{tile}" if unpack else f"{dot}-{tile}"
+
+
+#: launches of each tensor-core split-gram variant in this process
+SPLIT_GRAM_VARIANT_LAUNCHES = {variant_name(*v): 0 for v in SPLIT_GRAM_VARIANTS}
+
+#: words between two flushes of the bf16 variant's f32 accumulators to int32.
+#: An exclusive-plane site adds at most 3 to a count (a 3-bit IUPAC code on
+#: both sides), so 3 * 32 * 131072 = 12,582,912 stays below 2^24, where f32
+#: stops holding every integer.
+_BF16_FLUSH_WORDS = 131072
 
 # words per chunk of the plain version: bounds the unpacked float64 operands
 _REFERENCE_BYTES = 512 << 20
@@ -110,34 +150,35 @@ def split_gram_reference(ea, nm, r0: int, rb: int, c0: int, eb=None, nmb=None):
     return (acc4 - accn).to(torch.int32), accn.to(torch.int32)
 
 
-def _kernel_entry(name: str, n_inputs: int):
+def _kernel_entry(name: str, argtypes):
     """C entry point ``tracs_<name>`` of the kernel library ``csrc/<name>.cu``,
-    built and typed on first use: ``n_inputs`` device pointers, W, r0, rb,
-    c0, m, two output pointers and the stream."""
+    built and typed on first use."""
     from tracs_tpu_torch.runtime.build import load_cuda_library
 
     fn = getattr(load_cuda_library(name), f"tracs_{name}")
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
-        fn.argtypes = (
-            [ctypes.c_void_p] * n_inputs + [ctypes.c_longlong] + [ctypes.c_int] * 4
-            + [ctypes.c_void_p] * 3
-        )
+        fn.argtypes = argtypes
     return fn
 
 
-def _launch(name: str, inputs, W: int, r0: int, rb: int, c0: int, m: int):
-    """Two int32 [rb, m] outputs of kernel ``name`` on the inputs' card and
-    PyTorch's current stream; raises if the launch is refused."""
+def _launch(name: str, inputs, W: int, r0: int, rb: int, c0: int, m: int, extra=()):
+    """Two int32 [rb, m] outputs of gram kernel ``name`` on the inputs' card
+    and PyTorch's current stream; raises if the launch is refused.  The entry
+    point takes the input pointers, W, r0, rb, c0, m, the ``extra`` ints, two
+    output pointers and the stream."""
     dev = inputs[0].device
     out = (torch.empty((rb, m), dtype=torch.int32, device=dev),
            torch.empty((rb, m), dtype=torch.int32, device=dev))
     if rb == 0 or m == 0:
         return out
-    fn = _kernel_entry(name, len(inputs))
+    fn = _kernel_entry(name, (
+        [ctypes.c_void_p] * len(inputs) + [ctypes.c_longlong]
+        + [ctypes.c_int] * (4 + len(extra)) + [ctypes.c_void_p] * 3
+    ))
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = fn(*(t.data_ptr() for t in inputs), W, r0, rb, c0, m,
+        rc = fn(*(t.data_ptr() for t in inputs), W, r0, rb, c0, m, *extra,
                 out[0].data_ptr(), out[1].data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
@@ -287,3 +328,196 @@ def snp_distance_popcount(a, b=None, *, device):
     matches, nunion = popcount_gram(pa, 0, a.n_seqs, 0, pb)
     L = a.length
     return to_host(L - matches).astype(np.int32), to_host(L - nunion).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core split-gram variants (K1')
+# ---------------------------------------------------------------------------
+
+def _check_variant(dot: str, tile: int, unpack: str | None) -> str | None:
+    """The unpack routine of a variant (``s8`` defaults to "shift"); raises
+    for a combination the kernel source does not build."""
+    if dot == "s8" and unpack is None:
+        unpack = "shift"
+    if (dot, tile, unpack) not in SPLIT_GRAM_VARIANTS:
+        raise ValueError(
+            f"no split-gram variant dot={dot!r} tile={tile!r} unpack={unpack!r}; "
+            f"built: {[variant_name(*v) for v in SPLIT_GRAM_VARIANTS]}")
+    return unpack
+
+
+def split_gram_variant_reference(ea, nm, r0: int, rb: int, c0: int, eb=None, nmb=None,
+                                 *, dot: str):
+    """Plain exact version of ``split_gram_variant``, repeating the
+    arithmetic of each operand type:
+
+    * ``b1``: ``split_gram_reference`` (bits contracted as bits);
+    * ``s8``: 0/1 int8 operands contracted with int32 accumulation
+      (``torch.mm`` of int8 returns int8 and wraps, so the operands are
+      widened first; CUDA has no int32 ``mm``, so there the contraction runs
+      in float64, exact);
+    * ``bf16``: operands 0.0 / 2.0 in ``torch.bfloat16`` (what the kernel
+      feeds its ``mma``), widened to float32 and contracted in float32 per
+      chunk of at most ``_BF16_FLUSH_WORDS`` words, each chunk's product
+      scaled by 1/4 and cast to int32 before it is added.  A bf16 ``torch.mm``
+      would return bf16, which is not exact above 256."""
+    if dot == "b1":
+        return split_gram_reference(ea, nm, r0, rb, c0, eb, nmb)
+    if dot not in ("s8", "bf16"):
+        raise ValueError(f"unknown dot {dot!r}")
+    eb, nmb, m = _operands(ea, nm, r0, rb, c0, eb, nmb)
+    a_e, a_n = ea[r0:r0 + rb], nm[r0:r0 + rb]
+    b_e, b_n = eb[c0:], nmb[c0:]
+    W = ea.shape[2]
+    if dot == "s8":
+        work = torch.int32 if ea.device.type == "cpu" else torch.float64
+
+        def operand(words, rows):
+            return _unpack_bits(words).to(torch.int8).reshape(rows, -1).to(work)
+
+        def product(xa, xb):
+            return (xa @ xb.T).to(torch.int32)
+        item = 8
+    else:
+        def operand(words, rows):
+            x = (_unpack_bits(words).to(torch.bfloat16) * 2.0).reshape(rows, -1)
+            return x.to(torch.float32)
+
+        def product(xa, xb):
+            return ((xa @ xb.T) * 0.25).to(torch.int32)
+        item = 4
+    acc4 = torch.zeros((rb, m), dtype=torch.int32, device=ea.device)
+    accn = torch.zeros((rb, m), dtype=torch.int32, device=ea.device)
+    chunk = max(1, _REFERENCE_BYTES // max(1, (rb + m) * 5 * 32 * item))
+    chunk = min(chunk, _BF16_FLUSH_WORDS)
+    for w0 in range(0, W, chunk):
+        w1 = min(W, w0 + chunk)
+        acc4 += product(operand(a_e[:, :, w0:w1], rb), operand(b_e[:, :, w0:w1], m))
+        accn += product(operand(a_n[:, w0:w1], rb), operand(b_n[:, w0:w1], m))
+    return acc4 - accn, accn
+
+
+def split_gram_variant(ea, nm, r0: int, rb: int, c0: int, eb=None, nmb=None, *,
+                       dot: str, tile: int, unpack: str | None = None):
+    """``split_gram``'s (g, gn) from a tensor-core variant of the kernel:
+    ``dot`` in ("b1", "s8", "bf16") is the operand type of the ``mma``,
+    ``tile`` the block's square output tile, ``unpack`` ("shift" or "nibble",
+    ``s8`` only) how a word becomes int8 values; ``SPLIT_GRAM_VARIANTS`` lists
+    what is built.  Same operands, checks and addressing as ``split_gram``.
+    CPU tensors take ``split_gram_variant_reference``; CUDA tensors launch
+    the variant's kernel or raise; no variant gives way to another kernel."""
+    unpack = _check_variant(dot, tile, unpack)
+    if ea.device.type == "cpu":
+        return split_gram_variant_reference(ea, nm, r0, rb, c0, eb, nmb, dot=dot)
+    eb, nmb, m = _operands(ea, nm, r0, rb, c0, eb, nmb)
+    _check_cuda(ea, "split_gram_variant", max(ea.shape[0], eb.shape[0]))
+    out = _launch("split_gram_mma", (ea, nm, eb, nmb), ea.shape[2], r0, rb, c0, m,
+                  extra=(_VARIANT_DOT_CODES[dot, unpack], tile, _BF16_FLUSH_WORDS))
+    if rb and m:
+        SPLIT_GRAM_VARIANT_LAUNCHES[variant_name(dot, tile, unpack)] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# mismatch positions (the recombination filter's device step)
+# ---------------------------------------------------------------------------
+
+def _mism_operands(pa, pb, ii, jj, length, capacity, ma, mb):
+    """Validated (pb, mb, ii, jj) of a mismatch-position call."""
+    if pb is None:
+        pb, mb = pa, ma
+    if (ma is None) != (mb is None):
+        raise ValueError("ma and mb are given together or not at all")
+    if ma is None:
+        _check_planes(pa, "A")
+        _check_planes(pb, "B")
+    else:
+        _check_layout(pa, ma, "A")
+        _check_layout(pb, mb, "B")
+    W = pa.shape[2]
+    if pb.shape[2] != W:
+        raise ValueError(f"A has {W} words, B has {pb.shape[2]}")
+    if not 0 <= length <= 32 * W or length >= 2**31:
+        raise ValueError(f"length {length} outside [0, {min(32 * W, 2**31 - 1)}]")
+    if capacity < 0:
+        raise ValueError(f"capacity {capacity} < 0")
+    ii = torch.as_tensor(ii, dtype=torch.int64).to(pa.device).contiguous()
+    jj = torch.as_tensor(jj, dtype=torch.int64).to(pa.device).contiguous()
+    if ii.dim() != 1 or ii.shape != jj.shape:
+        raise ValueError(f"pair indices must be two vectors of one length, got "
+                         f"{tuple(ii.shape)} and {tuple(jj.shape)}")
+    if len({t.device for t in (pa, pb) + (() if ma is None else (ma, mb))}) != 1:
+        raise ValueError("operands on several devices")
+    if ii.numel() and not (0 <= int(ii.min()) and int(ii.max()) < pa.shape[0]
+                           and 0 <= int(jj.min()) and int(jj.max()) < pb.shape[0]):
+        raise ValueError("a pair index lies outside the layouts' rows")
+    return pb, mb, ii, jj
+
+
+def mismatch_positions_reference(pa, pb, ii, jj, length: int, capacity: int,
+                                 ma=None, mb=None):
+    """Plain exact version of ``mismatch_positions_kernel``: gathers a chunk
+    of pairs, unpacks their mismatch words to one byte a site, drops the
+    sites at or past ``length`` and takes ``torch.nonzero`` (row-major, so
+    ascending within a pair); chunked so the unpacked sites stay under
+    ~512 MB."""
+    pb, mb, ii, jj = _mism_operands(pa, pb, ii, jj, length, capacity, ma, mb)
+    P, W = ii.numel(), pa.shape[2]
+    out = torch.full((P, 1 + capacity), -1, dtype=torch.int32, device=pa.device)
+    chunk = max(1, _REFERENCE_BYTES // max(1, 2 * 32 * W))
+    for s in range(0, P, chunk):
+        i, j = ii[s:s + chunk], jj[s:s + chunk]
+        a, b = pa[i], pb[j]
+        shared = (a[:, 0] & b[:, 0]) | (a[:, 1] & b[:, 1]) | (a[:, 2] & b[:, 2]) \
+            | (a[:, 3] & b[:, 3])
+        if ma is not None:
+            shared |= ma[i] | mb[j]
+        bits = _unpack_bits(~shared)[:, :length]  # [p, length], site order
+        pair, pos = torch.nonzero(bits, as_tuple=True)
+        counts = torch.bincount(pair, minlength=len(i))
+        out[s:s + len(i), 0] = counts.to(torch.int32)
+        rank = torch.arange(len(pos), device=pa.device) - (torch.cumsum(counts, 0) - counts)[pair]
+        keep = rank < capacity
+        out[s + pair[keep], 1 + rank[keep]] = pos[keep].to(torch.int32)
+    return out
+
+
+def mismatch_positions_kernel(pa, pb, ii, jj, length: int, capacity: int,
+                              ma=None, mb=None):
+    """int32 [P, 1 + capacity]: for pair p = (row ii[p] of A, row jj[p] of B)
+    the number of sites below ``length`` where the two samples share no
+    allele, then the first ``capacity`` such sites in ascending order, then
+    -1 (counterpart of tracs_tpu.ops.pairsnp._mism_positions_kernel, which
+    leaves the entries past the count unspecified).
+
+    pa, pb : int32 [n, 4, W] planes; ``pb`` None means ``pa`` (and ``ma``).
+    Without masks they are raw planes and a site is shared when
+    OR_x(a_x & b_x) is set.  With ``ma``/``mb`` (int32 [n, W] N masks) they
+    are the split layout's N-exclusive planes and
+    shared = OR_x(ea_x & eb_x) | na | nb.  The full resident layouts and the
+    pair index vectors go in; no gathered copy is made.  CPU tensors take
+    ``mismatch_positions_reference``; CUDA tensors launch the kernel or
+    raise."""
+    global MISM_POSITIONS_LAUNCHES
+    if pa.device.type == "cpu":
+        return mismatch_positions_reference(pa, pb, ii, jj, length, capacity, ma, mb)
+    pb, mb, ii, jj = _mism_operands(pa, pb, ii, jj, length, capacity, ma, mb)
+    _check_cuda(pa, "mismatch_positions_kernel", max(pa.shape[0], pb.shape[0]))
+    P = ii.numel()
+    out = torch.empty((P, 1 + capacity), dtype=torch.int32, device=pa.device)
+    if P == 0:
+        return out
+    fn = _kernel_entry("mism_positions", (
+        [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 + [ctypes.c_int]
+        + [ctypes.c_void_p] * 2
+    ))
+    with torch.cuda.device(pa.device):
+        stream = torch.cuda.current_stream(pa.device).cuda_stream
+        rc = fn(pa.data_ptr(), None if ma is None else ma.data_ptr(),
+                pb.data_ptr(), None if mb is None else mb.data_ptr(),
+                ii.data_ptr(), jj.data_ptr(), P, pa.shape[2], length, capacity,
+                out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"mism_positions kernel launch failed: CUDA error {rc}")
+    MISM_POSITIONS_LAUNCHES += 1
+    return out

@@ -26,6 +26,12 @@ the kernel ``popcount_gram`` (K2 + K3 in one pass): D = L - matches,
 NN = L - nunion, with no split layout and no correction gram.  Same sweep
 schedule, extraction and emission order as the split path.
 
+Recombination filter (``filter=True``).  Each block's survivors go through
+ops/recomb.py::filter_pairs: the kernel ``mismatch_positions_kernel`` reads
+the engine's resident layout and returns every pair's mismatch positions,
+and the host runs the windowed binomial test on them in original genome
+coordinates (the compaction's position map translates them).
+
 Every result is an exact integer and equals the ``tracs_tpu`` value bit for
 bit (tests/test_torch_pairsnp.py).
 """
@@ -41,6 +47,7 @@ from tracs_tpu_torch.ops.kernels import (
     _as_words,
     _subset_products,
     _unpack_bits,
+    mismatch_positions_kernel,
     popcount_gram,
     split_gram,
 )
@@ -52,6 +59,7 @@ from tracs_tpu_torch.ops.packing import (
     partial_site_positions,
     split_alignment,
 )
+from tracs_tpu_torch.ops.recomb import filter_pairs
 from tracs_tpu_torch.runtime.device import resolve_device, to_host
 
 INT32_MAX = 2**31 - 1
@@ -64,6 +72,9 @@ _PARTIAL_SIGNS = [-1.0] * 6 + [1.0] * 4
 
 # bytes of unpacked float64 operands per chunk of the correction gram
 _PARTIAL_CHUNK_BYTES = 256 << 20
+
+# bytes of one launch's [pairs, 1 + capacity] int32 position table
+_MISM_TABLE_BYTES = 256 << 20
 
 _NOT_PORTED = "not ported to tracs_tpu_torch yet; see ROADMAP.md"
 
@@ -284,6 +295,61 @@ def _check_method(method: str) -> str:
     return "popcount" if method == "popcount" else "split"
 
 
+def mismatch_positions_device(
+    a: PackedAlignment, b: PackedAlignment, pairs_i, pairs_j, capacity: int,
+    *, device: str | torch.device, method: str = "split",
+):
+    """(counts [n_pairs] int64, positions [n_pairs, capacity] int64) of the
+    sites where the two samples of each pair share no allele, ascending,
+    from the layout ``method``'s engine keeps on ``device``: the split
+    layout (N-exclusive planes and N masks) or, for ``popcount``, the raw
+    planes.  Entries past a pair's count hold -1.  One kernel launch per
+    ``_MISM_TABLE_BYTES`` of position table: the kernel reads the resident
+    layout through the pair indices and needs no other buffer."""
+    engine = _check_method(method)
+    device = resolve_device(device)
+    if engine == "split":
+        sa, sb = _split_pair(a, b)
+        pa, ma, _ = _split_device(sa, device)
+        pb, mb = (None, None) if sb is sa else _split_device(sb, device)[:2]
+    else:
+        pa, ma = _planes_device(a, device), None
+        pb, mb = (None if b is a else _planes_device(b, device)), None
+    n = len(pairs_i)
+    ii = torch.from_numpy(np.asarray(pairs_i, dtype=np.int64)).to(device)
+    jj = torch.from_numpy(np.asarray(pairs_j, dtype=np.int64)).to(device)
+    counts = np.empty(n, dtype=np.int64)
+    positions = np.empty((n, capacity), dtype=np.int64)
+    chunk = max(1, _MISM_TABLE_BYTES // (4 * (1 + capacity)))
+    for s in range(0, n, chunk):
+        e = min(n, s + chunk)
+        table = to_host(mismatch_positions_kernel(
+            pa, pb, ii[s:e], jj[s:e], a.length, capacity, ma, mb))
+        counts[s:e] = table[:, 0]
+        positions[s:e] = table[:, 1:]
+    return counts, positions
+
+
+def mismatch_words(a: PackedAlignment, b: PackedAlignment, pairs_i, pairs_j) -> np.ndarray:
+    """Per-pair mismatch bitsets on the host, uint32 [n_pairs, W]: a bit is
+    set where the two samples share no allele; bits at or past the length
+    are cleared.  The filter's path for pairs with more mismatches than the
+    device route's capacity."""
+    pa = a.planes[np.asarray(pairs_i, dtype=np.int64)]
+    pb = b.planes[np.asarray(pairs_j, dtype=np.int64)]
+    shared = (
+        (pa[:, 0] & pb[:, 0])
+        | (pa[:, 1] & pb[:, 1])
+        | (pa[:, 2] & pb[:, 2])
+        | (pa[:, 3] & pb[:, 3])
+    )
+    mism = ~shared
+    tail_bits = a.planes.shape[2] * 32 - a.length
+    if tail_bits:
+        mism[:, -1] &= np.uint32(0xFFFFFFFF >> tail_bits)
+    return mism
+
+
 def snp_distance_dense(
     a: PackedAlignment,
     b: PackedAlignment | None = None,
@@ -337,11 +403,10 @@ def pairsnp_stream(
     ``start_row`` resumes at a row-block boundary.  ``compact`` drops
     alignment columns that cannot change any result (bit-identical output).
     ``method`` picks the engine (``auto``/``split`` or ``popcount``); both
-    yield the same arrays.  ``filt`` is zero-filled: the recombination
-    filter is not ported yet.
+    yield the same arrays.  ``filter`` fills ``filt`` with the
+    recombination-filtered distance of each emitted pair (ops/recomb.py);
+    without it ``filt`` is zero-filled.
     """
-    if filter:
-        raise NotImplementedError(f"the recombination filter (--filter) is {_NOT_PORTED}")
     engine = _check_method(method)
     device = resolve_device(device)
     if len(fasta) < 1 or len(fasta) > 2:
@@ -361,13 +426,16 @@ def pairsnp_stream(
         col_offset = 0
         triangle = True
 
-    # kernels run on the compacted a_k/b_k; names stay in original space
+    # kernels run on the compacted a_k/b_k; names, the filter's genome
+    # length and its SNP coordinates stay in original space
+    length = a.length
+    pos_map = None
     nn_off = 0
     a_k, b_k = a, b
     if compact:
         comp = _cached_compact(a, b)
         if comp is not None:
-            a_k, b_k, _pos_map, nn_off = comp
+            a_k, b_k, pos_map, nn_off = comp
             if b is a:
                 b_k = a_k
     if engine == "split":
@@ -388,8 +456,13 @@ def pairsnp_stream(
         )
         if nn_off:
             nvals = nvals + nn_off
-        filt = np.zeros(len(rows_l), dtype=np.int64)
-        yield r0, r1, names, rows_l + r0, cols + col_offset, dvals, filt, nvals
+        rows = rows_l + r0
+        if filter and len(rows):
+            filt = filter_pairs(a_k, b_k, rows, cols, dvals, length, device=device,
+                                method=engine, position_map=pos_map)
+        else:
+            filt = np.zeros(len(rows), dtype=np.int64)
+        yield r0, r1, names, rows, cols + col_offset, dvals, filt, nvals
 
 
 def pairsnp(
@@ -407,7 +480,7 @@ def pairsnp(
     in row-major order.  Returns (rows, cols, distances, seq_names,
     filt_distances, n_compared_sites) — Python lists up to 2^22 surviving
     pairs, int64 numpy arrays above that.  ``n_threads`` is accepted for API
-    parity; the filtered column is zero-filled."""
+    parity; the filtered column is zero-filled unless ``filter`` is set."""
     chunks = []  # per-block (rows, cols, d, filt, nn) numpy tuples
     names = None
     for _r0, _r1, names, rows, cols, dvals, filt, nvals in pairsnp_stream(

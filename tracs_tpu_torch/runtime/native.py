@@ -1,7 +1,7 @@
 """ctypes loader for the native C++ host library ``src/tracs_native.cpp``
 (counterpart of tracs_tpu/runtime/native.py, limited to the entry points
-the ``distance`` stage uses: FASTA packing, split-layout statistics and
-CSV row formatting).
+the ``distance`` stage uses: FASTA packing, split-layout statistics, the
+recombination filter's window passes and CSV row formatting).
 
 The library is built with g++ into the git-ignored ``build/native/`` at
 first use (runtime/build.py).  Every entry point returns None when the
@@ -51,6 +51,8 @@ def get_lib():
 
 
 def _configure(lib) -> None:
+    u8p = np.ctypeslib.ndpointer(dtype=np.uint8, flags="C_CONTIGUOUS")
+    i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
     u32p = np.ctypeslib.ndpointer(dtype=np.uint32, flags="C_CONTIGUOUS")
     i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
 
@@ -72,6 +74,23 @@ def _configure(lib) -> None:
         ctypes.c_void_p,                             # filt|NULL
         i64p, ctypes.c_char_p, ctypes.c_int64,       # nn, ref, ref_len
         ctypes.c_char_p, ctypes.c_int64,             # out, cap
+    ]
+
+    lib.tn_window_stats.restype = None
+    lib.tn_window_stats.argtypes = [
+        i64p, ctypes.c_int64,          # pos, n_snps
+        i64p, ctypes.c_int64,          # seg_bounds, n_pairs
+        i64p, i32p, i64p,              # w, count out, span out
+    ]
+
+    lib.tn_filter_windows.restype = None
+    lib.tn_filter_windows.argtypes = [
+        i64p, ctypes.c_int64,          # pos, n_snps
+        i64p, ctypes.c_int64,          # seg_bounds, n_pairs
+        i64p,                          # w
+        u8p, i64p, i64p,               # tables, tab_off, tab_width
+        ctypes.c_int64,                # cap
+        i64p, u8p,                     # kept out, ovf_mark out
     ]
 
     lib.tn_split_stats.restype = None
@@ -204,3 +223,43 @@ def native_split_stats(planes):
         ge2.reshape(-1), b0.reshape(-1), b1.reshape(-1), partial_or,
     )
     return excl, nmask, cnt_n, partial_or
+
+
+def native_window_stats(pos, seg_bounds, w):
+    """Per-SNP windowed (count, span) for the recombination filter: a
+    two-pointer sweep per pair segment.  Returns (int32 count, int64 span)
+    arrays, or None when the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    pos = np.ascontiguousarray(pos, dtype=np.int64)
+    seg_bounds = np.ascontiguousarray(seg_bounds, dtype=np.int64)
+    w = np.ascontiguousarray(w, dtype=np.int64)
+    count = np.empty(len(pos), dtype=np.int32)
+    span = np.empty(len(pos), dtype=np.int64)
+    lib.tn_window_stats(pos, len(pos), seg_bounds, len(seg_bounds) - 1, w, count, span)
+    return count, span
+
+
+def native_filter_windows(pos, seg_bounds, w, tables, tab_off, tab_width, cap):
+    """The recombination filter's whole window pass: two-pointer (count,
+    span) per SNP with the keep decision read from per-pair boolean tables
+    and kept counts summed per pair.  Returns (int64 kept[n_pairs], uint8
+    ovf_mark[n_snps]) where marked SNPs had window counts above ``cap``
+    (counted as kept; the caller resolves them); None when the native
+    library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    pos = np.ascontiguousarray(pos, dtype=np.int64)
+    seg_bounds = np.ascontiguousarray(seg_bounds, dtype=np.int64)
+    w = np.ascontiguousarray(w, dtype=np.int64)
+    tables = np.ascontiguousarray(tables, dtype=np.uint8)
+    tab_off = np.ascontiguousarray(tab_off, dtype=np.int64)
+    tab_width = np.ascontiguousarray(tab_width, dtype=np.int64)
+    n_pairs = len(seg_bounds) - 1
+    kept = np.empty(n_pairs, dtype=np.int64)
+    ovf = np.zeros(len(pos), dtype=np.uint8)
+    lib.tn_filter_windows(pos, len(pos), seg_bounds, n_pairs, w,
+                          tables, tab_off, tab_width, int(cap), kept, ovf)
+    return kept, ovf

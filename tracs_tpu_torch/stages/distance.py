@@ -8,8 +8,11 @@ the filtered column holds 0, byte for byte what ``tracs_tpu`` writes for the
 same invocation.  With ``--meta`` (a CSV of sample name and ISO sampling
 date) the transmission model (models/transcluster.py) fills them on
 ``--device``, ``-K`` drops the pairs whose expected K exceeds it, and the
-filtered column holds NA.  ``--filter`` and a ``--mesh`` other than ``off``
-raise NotImplementedError, naming the ROADMAP.md item that will port them.
+filtered column holds NA.  ``--filter`` runs the recombination filter
+(ops/recomb.py): the filtered distance fills its column, also with
+``--meta``, where it replaces the raw distance as the model's input.  A
+``--mesh`` other than ``off`` raises NotImplementedError, naming the
+ROADMAP.md item that will port it.
 """
 
 from __future__ import annotations
@@ -89,7 +92,7 @@ def distance_parser(parser):
     snpdist.add_argument(
         "--filter", dest="recomb_filter",
         help="Filter out regions with unusually high SNP distances often "
-             "caused by HGT (not ported yet)",
+             "caused by HGT",
         action="store_true", default=False,
     )
 
@@ -148,11 +151,6 @@ def distance_parser(parser):
 
 
 def _reject_unported(args) -> None:
-    if args.recomb_filter:
-        raise NotImplementedError(
-            "--filter needs the recombination filter, not ported to "
-            "tracs_tpu_torch yet (ROADMAP.md, 'Modules to port', item 2)"
-        )
     if args.mesh is not None and args.mesh.strip().lower() != "off":
         raise NotImplementedError(
             f"--mesh {args.mesh}: multi-GPU sweeps are not ported to "
@@ -200,8 +198,8 @@ def _format_rows(names, rows, cols, dvals, filt, nn, ref, trans=None,
                  blob_cache=None) -> str:
     """CSV text of the emitted pairs (native writer, Python if it is absent).
     ``trans`` = (date difference, p0, expected K) fills the transmission
-    columns and writes NA in the filtered one; without it those three
-    columns are NA."""
+    columns; without it those three columns are NA.  ``filt`` None writes NA
+    in the filtered column."""
     if len(rows) == 0:
         return ""
     if trans is None:
@@ -213,23 +211,28 @@ def _format_rows(names, rows, cols, dvals, filt, nn, ref, trans=None,
                 for i, j, d, f, c in zip(rows, cols, dvals, filt, nn)
             )
         return txt
-    txt = native_format_rows(names, rows, cols, dvals, nn, ref, *trans, blob_cache=blob_cache)
+    txt = native_format_rows(names, rows, cols, dvals, nn, ref, *trans, filt=filt,
+                             blob_cache=blob_cache)
     if txt is None:
+        filt = ["NA"] * len(rows) if filt is None else filt
         txt = "".join(
-            f"{names[i]},{names[j]},{float(t)},{int(d)},{float(p)},{float(e)},NA,{c},{ref}\n"
-            for i, j, d, c, t, p, e in zip(rows, cols, dvals, nn, *trans)
+            f"{names[i]},{names[j]},{float(t)},{int(d)},{float(p)},{float(e)},{f},{c},{ref}\n"
+            for i, j, d, f, c, t, p, e in zip(rows, cols, dvals, filt, nn, *trans)
         )
     return txt
 
 
-def _transmission_rows(args, names, rows, cols, dvals, nn, ref, trans, blob_cache=None):
+def _transmission_rows(args, names, rows, cols, dvals, filt, nn, ref, trans,
+                       blob_cache=None):
     """CSV text of the pairs that -K keeps (expected K <= K; all without
-    -K), with their transmission columns ``trans`` = (years, p0, eK)."""
+    -K), with their transmission columns ``trans`` = (years, p0, eK).  The
+    filtered column holds ``filt`` on a --filter run and NA otherwise."""
     keep = (np.arange(len(rows)) if args.trans_threshold is None
             else np.nonzero(args.trans_threshold >= trans[2])[0])
-    rows, cols, dvals, nn, *trans = (np.asarray(x)[keep]
-                                      for x in (rows, cols, dvals, nn, *trans))
-    return _format_rows(names, rows, cols, dvals, None, nn, ref, trans, blob_cache)
+    rows, cols, dvals, filt, nn, *trans = (np.asarray(x)[keep]
+                                            for x in (rows, cols, dvals, filt, nn, *trans))
+    return _format_rows(names, rows, cols, dvals, filt if args.recomb_filter else None,
+                        nn, ref, trans, blob_cache)
 
 
 def distance(args):
@@ -261,7 +264,8 @@ def distance(args):
             logging.info("Calculating pairwise snp distances for %s", msa)
             rows, cols, dvals, names, filt, nn = pairsnp(
                 [a, db] if db is not None else [a],
-                n_threads=args.n_cpu, dist=args.snp_threshold, device=device,
+                n_threads=args.n_cpu, dist=args.snp_threshold,
+                filter=args.recomb_filter, device=device,
             )
             ref = _ref_name(msa)
             logging.info("Saving distances for %s", msa)
@@ -269,13 +273,15 @@ def distance(args):
                 outfile.write(_format_rows(names, rows, cols, dvals, filt, nn, ref))
                 continue
             logging.info("Inferring transmission probabilities for %s", msa)
+            # with --filter the filtered distance is the model's input
             p0, eK, years = calculate_trans_prob(
-                [rows, cols, dvals], dates, K=100, lamb=args.clock_rate,
+                [rows, cols, filt if args.recomb_filter else dvals], dates, K=100,
+                lamb=args.clock_rate,
                 beta=args.trans_rate, samplenames=names, precision=args.precision,
                 device=device,
             )
-            outfile.write(_transmission_rows(args, names, rows, cols, dvals, nn, ref,
-                                             (years, p0, eK)))
+            outfile.write(_transmission_rows(args, names, rows, cols, dvals, filt, nn,
+                                             ref, (years, p0, eK)))
 
 
 def _distance_streaming(args, device, dates, packed=None, db=None):
@@ -319,7 +325,8 @@ def _distance_streaming(args, device, dates, packed=None, db=None):
             years_of = None  # per MSA: its samples' dates, filled lazily
             for r0, r1, names, rows, cols, dvals, filt, nn in pairsnp_stream(
                 [a, db] if db is not None else [a], dist=args.snp_threshold,
-                row_block=args.row_block, start_row=start_row, device=device,
+                filter=args.recomb_filter, row_block=args.row_block,
+                start_row=start_row, device=device,
             ):
                 with phase("block rows [%d,%d)" % (r0, r1)):
                     if cache is None or len(rows) == 0:
@@ -329,9 +336,11 @@ def _distance_streaming(args, device, dates, packed=None, db=None):
                         if years_of is None:
                             years_of = _PairYears(dates, names)
                         years = years_of(rows, cols)
-                        log_p0, eK = cache.lookup(dvals, years)
-                        txt = _transmission_rows(args, names, rows, cols, dvals, nn, ref,
-                                                 (years, np.exp(log_p0), eK), blob_cache)
+                        log_p0, eK = cache.lookup(filt if args.recomb_filter else dvals,
+                                                  years)
+                        txt = _transmission_rows(args, names, rows, cols, dvals, filt, nn,
+                                                 ref, (years, np.exp(log_p0), eK),
+                                                 blob_cache)
                     outfile.write(txt)
                     outfile.flush()
                     # atomic cursor update: a kill mid-write leaves the old one
