@@ -10,12 +10,22 @@ Phases (each one passes or the script exits non-zero):
 0. the card's name and power limit, from nvidia-smi;
 1. the build of every kernel from the sources in the checkout (one nvcc per
    source, all started together, sm_90a), with its seconds and ptxas report;
+   then the tensor cores' issue rates for b1 and int8 operands
+   (``tracs_tpu_torch.experiments.tensor_rate``): the data sheet names no b1
+   peak, so the bounds below take 8 x int8's, and the run fails unless the
+   card's b1 ``wgmma`` rate is measured within 10% of that;
 2. each kernel against its plain PyTorch version on the card, exact equality,
-   at a ragged shape, a rectangle with r0 > 0 and c0 > 0, and the main-path
-   shape rb=1024 x n=4096 x W=31250, with the median ms of both:
-   ``split_gram`` (K1), every tensor-core variant of ``split_gram_variant``
-   (K1', on K1's inputs, so their times stand beside K1's) and
-   ``popcount_gram`` (K2 + K3);
+   at two ragged shapes (word counts that are no multiple of the 16-word
+   chunk, rows and columns that are no multiple of a tile), a rectangle with
+   r0 > 0 and c0 > 0, and the main-path shape rb=1024 x n=4096 x W=31250,
+   with the median ms of both: ``split_gram`` (K1), every tensor-core variant
+   of ``split_gram_variant`` (K1', on K1's inputs, so their times stand
+   beside K1's) and ``popcount_gram`` (K2 + K3).  The split layouts carry the
+   card's word pitch (``pad_layout``: zero words up to a multiple of 4).
+   Then K1 at the four blocks of the main path's sweep (rb=1024 against the
+   column suffixes m=4096, 3072, 2048, 1024), exact against its plain
+   version, timed as the launcher runs them (the word axis cut into parts
+   where whole tiles would leave SMs idle) and with the cut forced off;
 3. the distance slice through the normal entry point
    (``tracs_tpu_torch.cli.main(["distance", ...])``) on the headline
    workload: n=4096 samples x 1 Mb in clusters of 21, 2048 partial-IUPAC
@@ -57,8 +67,7 @@ Phases (each one passes or the script exits non-zero):
    full square, the shape their own path gives them (their block times stay
    beside them as ``block_ms`` and ``block_plain_ms``).
 
-The whole run takes about twice what it took before phases 7 to 9 existed;
-no earlier phase was cut for them.
+No phase was cut when later ones were added.
 
 The line before the last is a JSON object describing each kernel (its
 launches on its main path, its error and times against its plain version, and
@@ -86,8 +95,9 @@ import numpy as np
 
 #: row block of the distance run: the JAX package's headline setting
 ROW_BLOCK = 1024
-#: the kernel sources, built from csrc/<name>.cu
-KERNELS = ("split_gram", "popcount_gram", "split_gram_mma", "mism_positions")
+#: the kernel sources, built from csrc/<name>.cu; the last is the yardstick
+#: of phase 1, not a kernel of any path
+KERNELS = ("split_gram", "popcount_gram", "split_gram_mma", "mism_positions", "tensor_rate")
 #: the transmission model's defaults (tracs distance --clock_rate/--trans_rate/--precision)
 LAMB, BETA, PRECISION = 1e-3 * 29903, 73.0, 0.01
 
@@ -95,6 +105,14 @@ LAMB, BETA, PRECISION = 1e-3 * 29903, 73.0, 0.01
 #: published dense peaks of one H100 SXM (NVIDIA's data sheet): tensor-core
 #: int8 and bf16 operations a second, and device-memory bytes a second
 PEAK_INT8, PEAK_BF16, PEAK_BYTES = 1979e12, 989e12, 3.35e12
+#: single-bit (AND + POPC) tensor-core operations a second.  The data sheet
+#: names no such rate; a b1 instruction covers 8 times the sites of the int8
+#: one of the same shape and issues as fast (wgmma m64n128k256 b1 against
+#: m64n128k32 s8: 15.8 POP/s against 1.97 POP/s on an H100 at 700 W, measured
+#: by tracs_tpu_torch/experiments/tensor_rate.py), so the peak is 8 x int8's
+PEAK_B1 = 8 * PEAK_INT8
+#: the tensor cores' peak for the operand type of a split-gram kernel
+PEAK_BY_DOT = {"b1": PEAK_B1, "s8": PEAK_INT8, "bf16": PEAK_BF16}
 #: integer operations a second outside the tensor cores: the data sheet's
 #: 67 TFLOP/s of float32 counts a fused multiply-add as two
 PEAK_CUDA_CORE = 33.5e12
@@ -120,7 +138,9 @@ def gram_bound(what: str, na: int, nb, W: int, r0: int, rb: int, c0: int, *, pla
     row read once (``planes`` words per 32 sites) and both int32 outputs
     written once, against the operations of the cheaper of the two routes
     that compute the function: ``products`` bit-products per site pair as
-    multiply-adds at the tensor cores' ``peak_ops``, or ``popc`` POPC per word
+    multiply-adds at the tensor cores' ``peak_ops`` (the peak of the operand
+    type the kernel feeds them; single-bit for a kernel on the CUDA cores,
+    whose function the b1 instructions compute too), or ``popc`` POPC per word
     pair on the CUDA cores (16 a clock on each SM at the card's highest SM
     clock).  Prints both routes' times on a comment line."""
     m = (na if nb is None else nb) - c0
@@ -229,12 +249,68 @@ def _random_words(device, seed: int):
     return words
 
 
+def phase_tensor_rate():
+    """The premise of the b1 bounds: ``PEAK_B1`` is 8 x the data sheet's int8
+    peak because a b1 instruction covers 8 times the sites of an int8 one and
+    issues as fast.  Measures both and fails if the card says otherwise."""
+    from tracs_tpu_torch.experiments import tensor_rate
+
+    rows = {r["name"]: r for r in tensor_rate.run(5000)}
+    b1, s8 = rows["wgmma.m64n128k256.b1.and.popc"], rows["wgmma.m64n128k32.s8"]
+    print(f"# tensor cores: b1 wgmma {b1['tops']:.1f} TOP/s, int8 wgmma {s8['tops']:.1f} TOP/s "
+          f"(data sheet {PEAK_INT8 / 1e12:.0f}); the bounds take {PEAK_B1 / 1e12:.0f} TOP/s "
+          f"for b1")
+    if not 0.9 * PEAK_B1 <= b1["tops"] * 1e12 <= 1.1 * PEAK_B1:
+        fail(f"the measured b1 wgmma rate, {b1['tops']:.1f} TOP/s, is not within 10% of the "
+             f"{PEAK_B1 / 1e12:.0f} TOP/s the bounds assume")
+
+
 #: name, A rows, B rows (None: self), W, r0, rb, c0
 KERNEL_CASES = [
     ("ragged n=37 W=17", 37, None, 17, 0, 37, 0),
     ("rectangle 37x11 r0=5 c0=3", 48, 14, 17, 5, 37, 3),
+    ("ragged n=300 W=1001 r0=100 rb=150 c0=29", 300, None, 1001, 100, 150, 29),
     ("main path rb=1024 n=4096 W=31250", 4096, None, 31250, 0, 1024, 0),
 ]
+
+
+def k1_sweep_blocks(args, n: int, W: int, row_block: int, card, plain, check):
+    """K1 at every row block of the main path's sweep (rows [r0, r0 + rb)
+    against the column suffix [r0, n)) on the layout ``args``: exact against
+    ``plain``, the median ms with the launcher's own cut of the word axis and
+    with the cut forced off.  Returns one record per block."""
+    import torch
+
+    from tracs_tpu_torch.ops import kernels
+
+    ea, nm = args[:2]
+    blocks = []
+    for r0 in range(0, n, row_block):
+        rb, m = min(row_block, n - r0), n - r0
+        name = f"sweep block r0={r0} rb={rb} m={m} W={W}"
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = plain(ea, nm, r0, rb, r0)
+        end.record()
+        got = kernels.split_gram(ea, nm, r0, rb, r0)
+        torch.cuda.synchronize()
+        check("split_gram", name, got, want)
+        del got, want
+        ms = time_ms(lambda: kernels.split_gram(ea, nm, r0, rb, r0), 10)
+        kernels._SPLIT_GRAM_WORD_SPLITS = 1
+        try:
+            whole_ms = time_ms(lambda: kernels.split_gram(ea, nm, r0, rb, r0), 10)
+        finally:
+            kernels._SPLIT_GRAM_WORD_SPLITS = 0
+        rec = {"m": m, "ms": ms, "whole_tiles_ms": whole_ms, "plain_ms": start.elapsed_time(end),
+               **gram_bound(f"split_gram at {name}", n, None, W, r0, rb, r0, planes=5,
+                            products=5, popc=5, card=card, peak_ops=PEAK_B1)}
+        print(f"# split_gram at {name}: kernel {ms:.3f} ms, with the word axis uncut "
+              f"{whole_ms:.3f} ms, plain {rec['plain_ms']:.3f} ms (one run), "
+              f"{100 * rec['bound_ms'] / ms:.1f}% of the bound")
+        blocks.append(rec)
+    return blocks
 
 
 def phase_kernels(device, seed: int, card):
@@ -243,7 +319,8 @@ def phase_kernels(device, seed: int, card):
     the variants of one operand type share its plain version, and K1 shares
     the b1 one.  Returns {kernel: {max_abs_err (of each output), ms,
     plain_ms, bound_ms, bound_by}}, the times and bounds at the main-path
-    shape."""
+    shape; K1's record also holds ``sweep_blocks``, its four blocks of the
+    main path's sweep."""
     from functools import partial
 
     import torch
@@ -267,9 +344,9 @@ def phase_kernels(device, seed: int, card):
             fail(f"{kname} disagrees with its plain version at {name}")
 
     for name, na, nb, W, r0, rb, c0 in KERNEL_CASES:
-        timed = W == 31250
-        b = (None, None) if nb is None else (words(nb, 4, W), words(nb, W))
-        args = (words(na, 4, W), words(na, W), r0, rb, c0) + b
+        timed = name.startswith("main path")
+        b = (None, None) if nb is None else kernels.pad_layout(words(nb, 4, W), words(nb, W))
+        args = kernels.pad_layout(words(na, 4, W), words(na, W)) + (r0, rb, c0) + b
         want, plain_ms = {}, {}
         for dot, plain in plains.items():
             want[dot] = plain(*args)
@@ -286,8 +363,12 @@ def phase_kernels(device, seed: int, card):
                 out[kname].update(ms=ms, plain_ms=plain_ms[dot], **gram_bound(
                     f"{kname} at {name}", na, nb, W, r0, rb, c0, planes=5, products=5,
                     popc=5, card=card,
-                    peak_ops=PEAK_BF16 if dot == "bf16" else PEAK_INT8))
-        del args, b, got, want
+                    peak_ops=PEAK_BY_DOT[dot]))
+        del got, want
+        if timed:
+            out["split_gram"]["sweep_blocks"] = k1_sweep_blocks(
+                args, na, W, ROW_BLOCK, card, plains["b1"], check)
+        del args, b
         torch.cuda.empty_cache()
 
         args = (words(na, 4, W), r0, rb, c0, None if nb is None else words(nb, 4, W))
@@ -303,7 +384,7 @@ def phase_kernels(device, seed: int, card):
             out["popcount_gram"].update(ms=ms, plain_ms=plain, **gram_bound(
                 f"popcount_gram at {name}", na, nb, W, r0, rb, c0, planes=4, products=16,
                 popc=2, card=card,
-                peak_ops=PEAK_INT8))
+                peak_ops=PEAK_B1))
         del args, got
         torch.cuda.empty_cache()
     return out
@@ -751,7 +832,7 @@ def phase_experiments(n: int, L: int, device, card, recs):
 
     # the entry point's layout again (it keeps none), as kernel_experiments.run builds it
     ea, nm, _ = _split_device(_cached_split(make_clustered(n, L)), device)
-    W = ea.shape[2]
+    W = (L + 31) // 32   # the work; the layout's pitch, ea.shape[2], pads it to a multiple of 4
     shape = f"full square rb={n} n={n} W={W}"
     want, plain_ms = {}, {}
     for dot in ("b1", "s8", "bf16"):
@@ -784,7 +865,7 @@ def phase_experiments(n: int, L: int, device, card, recs):
                    plain_ms=plain_ms[dot], **gram_bound(
                        f"{kname} at {shape}", n, None, W, 0, n, 0, planes=5, products=5,
                        popc=5, card=card,
-                       peak_ops=PEAK_BF16 if dot == "bf16" else PEAK_INT8))
+                       peak_ops=PEAK_BY_DOT[dot]))
     return counts
 
 
@@ -834,6 +915,7 @@ def main() -> None:
     card = {"sms": props.multi_processor_count, "sm_hz": sm_mhz * 1e6}
     print(f"# {card['sms']} SMs, max SM clock {sm_mhz:.0f} MHz")
 
+    phase_tensor_rate()
     recs = phase_kernels(device, args.seed, card)
     with tempfile.TemporaryDirectory() as tmp:
         packed, fasta, cluster_size = _headline(args.n, args.length, args.seed, tmp)

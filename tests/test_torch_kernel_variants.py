@@ -117,6 +117,22 @@ def test_variant_reference_equals_split_gram_reference(dot):
     assert all(torch.equal(a, b) for a, b in zip(got, want))
 
 
+@pytest.mark.parametrize("W", [1, 3, 4, 5, 17])
+@pytest.mark.parametrize("variant", VARIANTS, ids=VARIANT_IDS)
+def test_variant_on_padded_layout_matches_unpadded(variant, W):
+    """Zero words up to the card's pitch add nothing to any variant's grams,
+    which equal K1's on the unpadded layout."""
+    dot, tile, unpack = variant
+    rng = np.random.default_rng(17 * W)
+    a = tuple(_words(x) for x in _layout(rng, 13, W))
+    b = tuple(_words(x) for x in _layout(rng, 9, W))
+    want = kernels.split_gram(*a, 2, 10, 1, *b)
+    pa, pb = kernels.pad_layout(*a), kernels.pad_layout(*b)
+    assert pa[0].shape[2] == kernels.padded_words(W)
+    got = kernels.split_gram_variant(*pa, 2, 10, 1, *pb, dot=dot, tile=tile, unpack=unpack)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
 @pytest.mark.parametrize("dot", ["s8", "bf16"])
 def test_variant_reference_chunking_is_exact(monkeypatch, dot):
     """One-word chunks, and for bf16 a flush every word, give the same grams
@@ -266,7 +282,8 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "na,nb,W,r0,rb,c0",
-    [(37, None, 17, 0, 37, 0), (48, 14, 17, 5, 37, 3), (300, None, 1000, 100, 130, 64)],
+    [(37, None, 17, 0, 37, 0), (48, 14, 17, 5, 37, 3), (300, None, 1000, 100, 130, 64),
+     (700, None, 301, 0, 300, 60)],   # 3 x 5 tiles of 128: clusters with blocks past the edge
 )
 @pytest.mark.parametrize("variant", VARIANTS, ids=VARIANT_IDS)
 def test_variant_cuda_matches_plain(cuda_device, variant, na, nb, W, r0, rb, c0):
@@ -278,8 +295,8 @@ def test_variant_cuda_matches_plain(cuda_device, variant, na, nb, W, r0, rb, c0)
         return torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
                              device=cuda_device, generator=gen)
 
-    ea, nm = words(na, 4, W), words(na, W)
-    eb, nmb = (None, None) if nb is None else (words(nb, 4, W), words(nb, W))
+    ea, nm = kernels.pad_layout(words(na, 4, W), words(na, W))
+    eb, nmb = (None, None) if nb is None else kernels.pad_layout(words(nb, 4, W), words(nb, W))
     name = kernels.variant_name(dot, tile, unpack)
     before = kernels.SPLIT_GRAM_VARIANT_LAUNCHES[name]
     g, gn = kernels.split_gram_variant(ea, nm, r0, rb, c0, eb, nmb, dot=dot, tile=tile,
@@ -317,6 +334,42 @@ def test_variant_cuda_single_bit_walk(cuda_device, variant):
             *(t.to(cuda_device) for t in (eb, nmb)), dot=dot, tile=tile, unpack=unpack)
         want_g = torch.zeros((16, 8), dtype=torch.int32)
         want_gn = torch.zeros((16, 8), dtype=torch.int32)
+        if x < 4:
+            want_g[i, j] = 1
+        else:
+            want_g[i, j], want_gn[i, j] = -1, 1
+        assert torch.equal(g.cpu(), want_g) and torch.equal(gn.cpu(), want_gn), (p, i, j, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r0,c0", [(0, 0), (70, 130)])
+def test_b1_128_cuda_single_bit_walk_over_a_whole_tile(cuda_device, r0, c0):
+    """The ``wgmma`` variant's shared-memory descriptor layout and accumulator
+    fragment: one set bit on each side walked through every word and bit of a
+    16-word chunk (both k256 steps, all four 16-byte pieces) and every row and
+    column of a whole 128 x 128 tile (both warpgroups, every core matrix),
+    through all five planes."""
+    W, T = 16, 128
+    na, nb = r0 + T, c0 + T
+    for p in range(W * 32 * 2):
+        w, b = divmod(p % (W * 32), 32)
+        i, j, x = (p * 5 + p // 128) % T, (p * 3 + p // 64) % T, p % 5   # plane 4 is the N mask
+        ea = torch.zeros((na, 4, W), dtype=torch.int32)
+        nm = torch.zeros((na, W), dtype=torch.int32)
+        eb = torch.zeros((nb, 4, W), dtype=torch.int32)
+        nmb = torch.zeros((nb, W), dtype=torch.int32)
+        bit = int(np.uint32(1 << b).view(np.int32))
+        other = int(np.uint32(1 << (b ^ 1)).view(np.int32))
+        j2 = c0 + (j + 1) % T
+        if x < 4:
+            ea[r0 + i, x, w], eb[c0 + j, x, w], eb[j2, x, w] = bit, bit, other
+        else:
+            nm[r0 + i, w], nmb[c0 + j, w], nmb[j2, w] = bit, bit, other
+        g, gn = kernels.split_gram_variant(
+            *(t.to(cuda_device) for t in (ea, nm)), r0, T, c0,
+            *(t.to(cuda_device) for t in (eb, nmb)), dot="b1", tile=128)
+        want_g = torch.zeros((T, T), dtype=torch.int32)
+        want_gn = torch.zeros((T, T), dtype=torch.int32)
         if x < 4:
             want_g[i, j] = 1
         else:

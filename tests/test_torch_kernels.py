@@ -148,6 +148,74 @@ def test_split_gram_rejects_bad_inputs(case):
         kernels.split_gram(**args)
 
 
+# -- the card layout's word pitch --
+
+PITCH_WORDS = [1, 3, 4, 5, 17]
+
+
+@pytest.mark.parametrize("W", PITCH_WORDS)
+def test_pad_layout_pads_with_zero_words(W):
+    rng = np.random.default_rng(W)
+    e = _words(rng.integers(0, 2**32, size=(5, 4, W), dtype=np.uint32))
+    nm = _words(rng.integers(0, 2**32, size=(5, W), dtype=np.uint32))
+    pe, pn = kernels.pad_layout(e, nm)
+    Wp = kernels.padded_words(W)
+    assert Wp % kernels.LAYOUT_WORD_MULTIPLE == 0 and 0 <= Wp - W < kernels.LAYOUT_WORD_MULTIPLE
+    assert pe.shape == (5, 4, Wp) and pn.shape == (5, Wp)
+    assert pe.is_contiguous() and pn.is_contiguous()
+    assert torch.equal(pe[:, :, :W], e) and torch.equal(pn[:, :W], nm)
+    assert not pe[:, :, W:].any() and not pn[:, W:].any()
+    if Wp == W:
+        assert pe is e and pn is nm  # nothing is copied
+
+
+@pytest.mark.parametrize("W", PITCH_WORDS)
+def test_split_gram_on_padded_layout_matches_unpadded_and_pallas(W):
+    """Zero words up to the card's pitch add nothing: the grams of the padded
+    layout equal those of the unpadded one and Pallas K1's (interpret)."""
+    pytest.importorskip("jax")
+    from tracs_tpu.ops.packing import pack_sequences as jax_pack
+    from tracs_tpu.ops.packing import split_alignment as jax_split
+    from tracs_tpu.ops.pallas_kernels import split_gram_pallas
+
+    rng = np.random.default_rng(100 + W)
+    L = 32 * W - 7
+    qa, qb = _seqs(rng, 19, L), _seqs(rng, 7, L)
+    ja, jb = jax_split(jax_pack(qa)), jax_split(jax_pack(qb))
+    gp, gnp = split_gram_pallas(ja.excl, ja.nmask, jb.excl, jb.nmask, interpret=True)
+
+    sa, sb = split_alignment(pack_sequences(qa)), split_alignment(pack_sequences(qb))
+    a, b = (_words(sa.excl), _words(sa.nmask)), (_words(sb.excl), _words(sb.nmask))
+    assert a[0].shape[2] == W
+    want = kernels.split_gram(*a, 3, 11, 2, *b)
+    got = kernels.split_gram(*kernels.pad_layout(*a), 3, 11, 2, *kernels.pad_layout(*b))
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert np.array_equal(got[0].numpy(), gp[3:14, 2:])
+    assert np.array_equal(got[1].numpy(), gnp[3:14, 2:])
+
+
+@pytest.mark.parametrize("W", PITCH_WORDS)
+def test_check_layout_pitch_rule(W):
+    """Off the CPU the gram wrappers refuse a word pitch that is not a
+    multiple of LAYOUT_WORD_MULTIPLE, with a message that names the remedy;
+    CPU tensors of any width go to the plain version.  (``meta`` tensors stand
+    in for the card here: the rule reads only the device type and the shape.)"""
+    e = torch.zeros((6, 4, W), dtype=torch.int32)
+    nm = torch.zeros((6, W), dtype=torch.int32)
+    kernels._check_layout(e, nm, "A", pitch=True)
+    kernels.split_gram(e, nm, 0, 6, 0)
+    kernels._check_layout(e.to("meta"), nm.to("meta"), "A")  # the rule is the gram kernels'
+    if W % kernels.LAYOUT_WORD_MULTIPLE:
+        for call in (lambda: kernels._check_layout(e.to("meta"), nm.to("meta"), "A", pitch=True),
+                     lambda: kernels.split_gram(e.to("meta"), nm.to("meta"), 0, 6, 0),
+                     lambda: kernels.split_gram_variant(e.to("meta"), nm.to("meta"), 0, 6, 0,
+                                                        dot="b1", tile=128)):
+            with pytest.raises(ValueError, match=r"multiple of 4.*pad_layout"):
+                call()
+    else:
+        kernels._check_layout(e.to("meta"), nm.to("meta"), "A", pitch=True)
+
+
 # -- torch behaviours the port is built around (probed on torch 2.13 CPU) --
 
 def test_trap_int8_mm_wraps():
@@ -196,24 +264,99 @@ def test_trap_int32_cumsum_promotes():
 
 # -- on the card --
 
+def _cuda_words(device, seed):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def words(*shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32, device=device,
+                             generator=gen)
+    return words
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize(
     "na,nb,W,r0,rb,c0",
-    [(37, None, 17, 0, 37, 0), (48, 14, 17, 5, 37, 3), (300, None, 1000, 100, 130, 64)],
+    [(37, None, 17, 0, 37, 0), (48, 14, 17, 5, 37, 3), (300, None, 1000, 100, 130, 64),
+     (700, None, 301, 0, 300, 60)],
 )
 def test_split_gram_cuda_matches_plain(cuda_device, na, nb, W, r0, rb, c0):
-    gen = torch.Generator(device=cuda_device)
-    gen.manual_seed(na * W)
-
-    def words(*shape):
-        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
-                             device=cuda_device, generator=gen)
-
-    ea, nm = words(na, 4, W), words(na, W)
-    eb, nmb = (None, None) if nb is None else (words(nb, 4, W), words(nb, W))
+    words = _cuda_words(cuda_device, na * W)
+    ea, nm = kernels.pad_layout(words(na, 4, W), words(na, W))
+    eb, nmb = (None, None) if nb is None else kernels.pad_layout(words(nb, 4, W), words(nb, W))
     before = kernels.SPLIT_GRAM_LAUNCHES
     g, gn = kernels.split_gram(ea, nm, r0, rb, c0, eb, nmb)
     torch.cuda.synchronize()
     assert kernels.SPLIT_GRAM_LAUNCHES == before + 1
     g0, gn0 = kernels.split_gram_reference(ea, nm, r0, rb, c0, eb, nmb)
     assert torch.equal(g, g0) and torch.equal(gn, gn0)
+
+
+@pytest.mark.cuda
+def test_split_gram_cuda_refuses_an_unpadded_layout(cuda_device):
+    words = _cuda_words(cuda_device, 1)
+    ea, nm = words(9, 4, 17), words(9, 17)
+    before = kernels.SPLIT_GRAM_LAUNCHES
+    with pytest.raises(ValueError, match="pad_layout"):
+        kernels.split_gram(ea, nm, 0, 9, 0)
+    assert kernels.SPLIT_GRAM_LAUNCHES == before
+    # 16-byte alignment of the storage is part of the rule
+    flat = words(9 * 4 * 20 + 1)
+    with pytest.raises(ValueError, match="pad_layout"):
+        kernels.split_gram(flat[1:].view(9, 4, 20), words(9, 20), 0, 9, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r0,c0", [(0, 0), (70, 130)])
+def test_split_gram_cuda_single_bit_walk(cuda_device, r0, c0):
+    """One set bit on each side walked through every word and bit of a
+    16-word chunk and every row and column of a whole 128 x 128 tile, through
+    all five planes.  A bit that a lane stages to the wrong row, files under
+    the wrong k slot or accumulates into another warp's sub-tile lands in
+    another output or meets no partner."""
+    W, T = 16, 128
+    na, nb = r0 + T, c0 + T
+    for p in range(W * 32 * 2):
+        w, b = divmod(p % (W * 32), 32)
+        i, j, x = (p * 5 + p // 128) % T, (p * 3 + p // 64) % T, p % 5   # plane 4 is the N mask
+        ea = torch.zeros((na, 4, W), dtype=torch.int32)
+        nm = torch.zeros((na, W), dtype=torch.int32)
+        eb = torch.zeros((nb, 4, W), dtype=torch.int32)
+        nmb = torch.zeros((nb, W), dtype=torch.int32)
+        bit = int(np.uint32(1 << b).view(np.int32))
+        other = int(np.uint32(1 << (b ^ 1)).view(np.int32))
+        j2 = c0 + (j + 1) % T
+        if x < 4:
+            ea[r0 + i, x, w], eb[c0 + j, x, w], eb[j2, x, w] = bit, bit, other
+        else:
+            nm[r0 + i, w], nmb[c0 + j, w], nmb[j2, w] = bit, bit, other
+        g, gn = kernels.split_gram(
+            *(t.to(cuda_device) for t in (ea, nm)), r0, T, c0,
+            *(t.to(cuda_device) for t in (eb, nmb)))
+        want_g = torch.zeros((T, T), dtype=torch.int32)
+        want_gn = torch.zeros((T, T), dtype=torch.int32)
+        if x < 4:
+            want_g[i, j] = 1
+        else:
+            want_g[i, j], want_gn[i, j] = -1, 1
+        assert torch.equal(g.cpu(), want_g) and torch.equal(gn.cpu(), want_gn), (p, i, j, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("na,nb,W,r0,rb,c0", [(300, None, 1000, 100, 130, 64),
+                                               (150, 260, 2052, 0, 150, 3)])
+def test_split_gram_cuda_word_splits_are_bit_identical(cuda_device, monkeypatch, na, nb, W, r0,
+                                                       rb, c0):
+    """Narrow blocks cut the word axis into parts that add their sums with
+    integer atomics: whatever the number of parts (forced here; 0 is the
+    launcher's own choice) and however often it is run, the tensors are the
+    same and equal the plain version."""
+    words = _cuda_words(cuda_device, na + W)
+    ea, nm = words(na, 4, W), words(na, W)
+    eb, nmb = (None, None) if nb is None else (words(nb, 4, W), words(nb, W))
+    want = kernels.split_gram_reference(ea, nm, r0, rb, c0, eb, nmb)
+    for splits in (0, 1, 2, 3, 7, 7, 10**6):
+        monkeypatch.setattr(kernels, "_SPLIT_GRAM_WORD_SPLITS", splits)
+        got = kernels.split_gram(ea, nm, r0, rb, c0, eb, nmb)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1]), splits

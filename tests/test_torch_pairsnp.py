@@ -129,6 +129,33 @@ def test_derive_split_planes_matches_host_layout():
     assert np.array_equal(nm.numpy().view(np.uint32), sa.nmask)
 
 
+@pytest.mark.parametrize("W", [1, 3, 4, 5, 17])
+def test_split_device_pads_the_word_pitch(W):
+    """The resident split layout gets the card's word pitch: the host
+    layout's words, then zero words up to a multiple of 4; the blocks computed
+    from it equal tracs_tpu's."""
+    from tracs_tpu_torch.ops import kernels
+
+    rng = np.random.default_rng(50 + W)
+    L = 32 * W - 9
+    j, p = _both(_seqs(rng, 9, L))
+    sa = split_alignment(p)
+    assert sa.excl.shape[2] == W
+    ea, nm, pt = port._split_device(sa, CPU)
+    Wp = kernels.padded_words(W)
+    assert Wp % 4 == 0 and W <= Wp < W + 4
+    assert ea.shape == (9, 4, Wp) and nm.shape == (9, Wp)
+    assert ea.is_contiguous() and nm.is_contiguous()
+    assert np.array_equal(ea.numpy().view(np.uint32)[:, :, :W], sa.excl)
+    assert np.array_equal(nm.numpy().view(np.uint32)[:, :W], sa.nmask)
+    assert not ea[:, :, W:].any() and not nm[:, W:].any()
+    assert np.array_equal(pt.numpy().view(np.uint32), sa.partial)  # its own axis: not padded
+    assert port._split_device(sa, CPU)[0] is ea  # cached, padded once
+    D, NN = port.snp_distance_dense(p, device="cpu")
+    Dj, NNj = jref.snp_distance_dense(j)
+    assert np.array_equal(D, np.asarray(Dj)) and np.array_equal(NN, np.asarray(NNj))
+
+
 def test_ambig_golden_matches_reference():
     path = os.path.join(DATA, "ambig.aln")
     got = port.pairsnp([path], dist=10, device="cpu")

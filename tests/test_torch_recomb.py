@@ -284,6 +284,33 @@ def test_mismatch_positions_device_matches_reference(jx, method, db):
     assert c0.max() > 32 and p1[valid].max() < L
 
 
+@pytest.mark.parametrize("W", [1, 3, 4, 5, 17])
+def test_mismatch_positions_on_padded_layout_match_reference(jx, W):
+    """The split layout's pitch is padded with zero words, where no N is set
+    and nothing is shared: the kernel's length mask keeps those sites out, so
+    counts and positions equal tracs_tpu's, and the plain version on a
+    hand-padded layout equals the unpadded one."""
+    rng = np.random.default_rng(60 + W)
+    alphabet = np.array(list("ACGTMRWSYKVHDBN-"))
+    L = 32 * W - 3
+    ja, pa = _both(jx, ["".join(rng.choice(alphabet, size=L)) for _ in range(6)])
+    ii, jj = rng.integers(0, 6, size=17), rng.integers(0, 6, size=17)
+    cap = 32 * W
+    c0, p0 = jx.pairsnp.mismatch_positions_device(ja, ja, ii, jj, cap)
+    c1, p1 = port.mismatch_positions_device(pa, pa, ii, jj, cap, device="cpu", method="split")
+    ea, nm, _ = port._split_device(port._split_pair(pa, None)[0], torch.device("cpu"))
+    assert ea.shape[2] == kernels.padded_words(W) and ea.shape[2] * 32 >= L
+    valid = np.arange(cap)[None, :] < c0[:, None]
+    assert np.array_equal(c1, c0) and np.array_equal(p1[valid], p0[valid])
+    assert (p1[~valid] == -1).all() and (p1 < L).all()
+
+    e, m = _word_tensors(rng, 6, W)
+    want = kernels.mismatch_positions_reference(e, None, ii, jj, L, cap, m, None)
+    pe, pm = kernels.pad_layout(e, m)
+    got = kernels.mismatch_positions_kernel(pe, None, ii, jj, L, cap, pm, None)
+    assert torch.equal(got, want)
+
+
 def test_mismatch_positions_device_chunks_its_table(jx, monkeypatch):
     rng = np.random.default_rng(12)
     _, p = _both(jx, _mutated_seqs(rng, 6, 900))

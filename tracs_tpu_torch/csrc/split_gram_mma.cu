@@ -10,41 +10,95 @@
 //     gn[i][j] = sum_w popc(nA[r0+i][w] & nB[c0+j][w])                 (Gn)
 //     g [i][j] = sum_w sum_x popc(eA[r0+i][x][w] & eB[c0+j][x][w]) - gn  (G4 - Gn)
 //
-// bit for bit what K1 writes, but the inner product runs as warp-level
-// ``mma.sync`` operations.  The variants differ in the operand type:
+// bit for bit what K1 writes.  The variants differ in the instruction and
+// the operand type of the inner product:
 //
-//   b1    mma.m16n8k256 .b1 .and.popc straight on the packed words: the
-//         AND + POPC of K1 done by the tensor core, nothing unpacked.
-//   s8    every word unpacked in registers to 0/1 int8, mma.m16n8k32 .s8
+//   b1    AND + POPC straight on the packed words, nothing unpacked.  At the
+//         128 x 128 tile it is Hopper's own matrix instruction,
+//         wgmma.mma_async.m64n128k256 .b1 .and.popc with both operands read
+//         from shared memory; at the 64 x 64 tile warp-level
+//         mma.sync.m16n8k256 .b1 .and.popc.
+//   s8    every word unpacked in registers to 0/1 int8, mma.sync.m16n8k32 .s8
 //         with int32 accumulation.  Two unpack routines: "shift" takes bits
 //         j, j+8, j+16, j+24 of a word with one shift and one mask per
 //         register; "nibble" spreads one 4-bit nibble over the 4 bytes of a
 //         register with a multiply (the byte-view form).
-//   bf16  every word unpacked to bf16 operands, mma.m16n8k16 .bf16 with f32
-//         accumulation.  A set bit becomes 2.0 (bit pattern 0x4000, a single
-//         bit, so the unpack is one shift and one mask): the accumulators
-//         hold 4 * count, exact while count < 2^24, and are scaled by 1/4 and
-//         added to the int32 output every ``flush_words`` words, before any
-//         partial count can reach 2^24.
+//   bf16  every word unpacked to bf16 operands, mma.sync.m16n8k16 .bf16 with
+//         f32 accumulation.  A set bit becomes 2.0 (bit pattern 0x4000, a
+//         single bit, so the unpack is one shift and one mask): the
+//         accumulators hold 4 * count, exact while count < 2^24, and are
+//         scaled by 1/4 and added to the int32 output every ``flush_words``
+//         words, before any partial count can reach 2^24.
 //
-// Design.  A block owns a BM x BN output tile (64 x 64 or 128 x 128) and
-// walks the word axis in chunks of 16 words staged in shared memory, 5
-// planes (4 exclusive planes + the N mask) of BM A rows and BN B rows.  Each
-// warp owns a 32 x 32 sub-tile: 2 x 4 mma tiles of 16 x 8, for both grams,
-// 64 accumulator registers a thread.  The sum over sites does not depend on
-// the order of the sites, so any assignment of bits to the k slots of a
-// fragment is right as long as the A and B operands use the same one; the
-// unpack routines use that freedom.  Rows past the block, columns past n_b
-// and words past W are staged as zero, which adds nothing to either gram,
-// and only the stores mask the ragged tile edge.
+// Design of the mma.sync variants (b1 at 64 x 64, s8, bf16).  A block owns a
+// BM x BN output tile and walks the word axis in chunks of 16 words staged in
+// shared memory with plain 4-byte loads, 5 planes (4 exclusive planes + the N
+// mask) of BM A rows and BN B rows, two barriers a chunk.  Each warp owns a
+// 32 x 32 sub-tile: 2 x 4 mma tiles of 16 x 8, for both grams, 64 accumulator
+// registers a thread.  The sum over sites does not depend on the order of the
+// sites, so any assignment of bits to the k slots of a fragment is right as
+// long as the A and B operands use the same one; the unpack routines use that
+// freedom.
+//
+// Design of the wgmma variant (b1 at 128 x 128).  A block of two consumer
+// warpgroups, 64 rows x 128 columns each with both grams in registers (2 x 64
+// int32 a thread; 154 registers in all, no spills), and one more warp whose
+// first thread issues the copies.  The copies are TMA tensor loads
+// (cp.async.bulk.tensor): a box of rows x 32 words of one plane lands in
+// shared memory as rows of 128 B in the 128-byte swizzle, the K-major layout
+// the instruction's matrix descriptor names with layout type 1 and a stride
+// offset of 1,024 B between 8-row groups; a k256 step is 32 bytes on along
+// the row.  The ring has 6 slots of one plane's A and B tile each (32 KB): a
+// slot's full mbarrier counts the bytes of its boxes, the consumers wait on
+// it, issue the slot's four wgmma, keep that group in flight while they wait
+// for the one before, and then arrive on that earlier slot's empty mbarrier,
+// on which the loader waits before it refills the slot.  No thread computes
+// an address or touches the data on its way in, rows of 128 B are whole L2
+// lines, and what a box reads past the layout's last row or word arrives as
+// zeros.  The tensor maps are made by the launcher on every call through
+// libcuda's cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPoint so
+// that the build links nothing but the runtime, and passed as
+// __grid_constant__ arguments.  Fed by the 16-byte cp.async ring of csrc/split_gram.cu the same
+// wgmma loop was slower than K1: 8 warps keep fewer copies in flight than
+// K1's 16.
+//
+// Clusters.  At 128 x 128 tiles 41 GB cross from L2 to shared memory per
+// rb=1024 x n=4096 x 1 Mb block, and that traffic, not the tensor cores,
+// bounds a block that copies its own tiles.  So the grid is launched in
+// clusters of 2 x 2 blocks, 256 x 256 outputs: the two blocks of a cluster
+// row share their A tile and the two of a cluster column their B tile, each
+// block copies half of each with a multicast TMA load that writes the box
+// into both blocks' shared memory and completes on both blocks' barriers, and
+// half as many bytes leave L2.  A slot is then refilled only when every block
+// that reads the copy has released it: a consumer warp arrives on the empty
+// barrier of its own block and of the two others (mapa + a remote
+// mbarrier.arrive), and a cluster barrier at both ends keeps a block from
+// touching another's barriers before they exist or after it has gone.  The
+// grid is rounded up to whole clusters; a block past the last tile copies
+// and multiplies zeros.  A barrier that never completes traps after 2^22
+// polls instead of hanging the card.
+//
+// In every variant rows past the block, columns past n_b and words past W are
+// staged as zero, which adds nothing to either gram, and only the stores mask
+// the ragged tile edge.
 //
 // What bounds it on an H100.  The work is 5 bit-products per site and output
 // (rb * m * 32 W * 5 multiply-adds), a matrix product far above the card's
 // bytes-per-operation line; the least time is that work at the tensor cores'
 // dense int8 rate.  The s8 and bf16 variants spend 2 integer operations per
-// unpacked register besides, on the CUDA cores; b1 spends none.
+// unpacked register besides, on the CUDA cores, and with b1 at 64 x 64 their
+// synchronous staging leaves the tensor cores idle while a chunk loads.  The
+// wgmma variant is bound by what arrives in shared memory: a block on its own
+// copies at about 4.5 TB/s from L2 (9 ms for the rb=1024 x n=4096 x 1 Mb
+// block), a 2 x 2 cluster takes 6 ms, and larger clusters no less, because
+// every SM still takes in its 32 KB a slot (41 GB a block in all, near 7
+// TB/s); its wgmma alone would take 2.7 ms (NVIDIA H100 80GB HBM3, 700 W;
+// experiments/tensor_rate.py measures 15.8 POP/s for b1 wgmma, 8 times the
+// int8 rate: an instruction takes the same time in both types).  A larger
+// tile per SM is what would move it.
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -321,11 +375,343 @@ int launch(const void* ea, const void* nma, const void* eb, const void* nmb,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// b1 at 128 x 128: wgmma from shared memory, fed by TMA through an mbarrier ring
+// ---------------------------------------------------------------------------
+
+constexpr int kWgTile = 128;               // output rows and columns per block
+constexpr int kWgConsumers = 256;          // two warpgroups of 64 rows
+constexpr int kWgThreads = kWgConsumers + 32;   // and the warp that issues the copies
+constexpr int kWgKW = 32;                  // words of a staged row: 128 B, four k256 steps
+constexpr int kWgTileBytes = kWgTile * kWgKW * 4;      // one side of a slot: 16,384
+constexpr int kWgSlotBytes = 2 * kWgTileBytes;         // A rows, then B rows, of one plane
+constexpr int kWgSlots = 6;                // slots in the ring
+constexpr int kWgSmemBytes = kWgSlots * kWgSlotBytes + 1024;   // + room to align to 1,024 B
+// a cluster of kWgCX x kWgCY blocks shares its copies: a block copies
+// 1 / kWgCX of its A tile for all blocks of its cluster row (they share the
+// rows) and 1 / kWgCY of its B tile for all blocks of its cluster column
+constexpr int kWgCX = 2;
+constexpr int kWgCY = 2;
+constexpr int kWgPartA = kWgTile / kWgCX;      // rows of the A tile a block copies
+constexpr int kWgPartB = kWgTile / kWgCY;      // rows of the B tile a block copies
+constexpr int kWgPeers = kWgCX + kWgCY - 1;    // blocks that read a block's copies, itself included
+constexpr unsigned kWgSpinLimit = 1u << 22;   // polls of a barrier before the kernel gives up
+
+struct WgmmaMaps {
+  CUtensorMap ea, na, eb, nb;   // [n, 4, W] planes and [n, W] masks of the two layouts
+};
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
+
+// one arrive, by the threads for which ``pred`` holds, on the barrier at this
+// block's address ``bar`` in block ``rank`` of the cluster
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t bar, uint32_t rank, bool pred) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      ".reg .b32 remote;\n"
+      "setp.ne.b32 p, %2, 0;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "@p mbarrier.arrive.shared::cluster.b64 _, [remote];\n"
+      "}\n"
+      :: "r"(bar), "r"(rank), "r"((int)pred) : "memory");
+}
+
+// every thread of every block of the cluster arrives and waits
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n"
+               "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// waits for the phase of parity ``parity`` to complete; a barrier that never
+// completes (a fault in the ring) traps instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (unsigned spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (spins > kWgSpinLimit) __trap();
+  }
+}
+
+// one box of a plane's tile from global memory to the shared memory of every
+// block of the cluster named in ``mask``, at this block's addresses ``dst``
+// and ``bar`` in each of them; completes on each block's own barrier
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int word, int plane, int row, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4, %5}], [%2], %6;\n"
+      :: "r"(dst), "l"(map), "r"(bar), "r"(word), "r"(plane), "r"(row), "h"(mask) : "memory");
+}
+
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int word, int row, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%3, %4}], [%2], %5;\n"
+      :: "r"(dst), "l"(map), "r"(bar), "r"(word), "r"(row), "h"(mask) : "memory");
+}
+
+// the matrix descriptor of a K-major operand tile in the 128-byte swizzle:
+// rows of 128 B, 8-row groups 1,024 B apart (the stride offset, in units of
+// 16 bytes; the leading offset is not used in this mode), layout type 1
+__device__ __forceinline__ uint64_t wgmma_desc(uint32_t smem_addr) {
+  return (uint64_t)((smem_addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
+}
+
+#define TRACS_R8(d, o)                                                              \
+  "+r"(d[o]), "+r"(d[o + 1]), "+r"(d[o + 2]), "+r"(d[o + 3]), "+r"(d[o + 4]),       \
+      "+r"(d[o + 5]), "+r"(d[o + 6]), "+r"(d[o + 7])
+
+// d[64] += A (64 rows x 256 bits) AND-POPC B (128 rows x 256 bits), both from
+// shared memory; thread t of the warpgroup holds, in d[i], row
+// 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (t % 4) + i % 2
+__device__ __forceinline__ void wgmma_b1(int (&d)[64], uint64_t desc_a, uint64_t desc_b) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k256.s32.b1.b1.and.popc "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n"
+      "}\n"
+      : TRACS_R8(d, 0), TRACS_R8(d, 8), TRACS_R8(d, 16), TRACS_R8(d, 24), TRACS_R8(d, 32),
+        TRACS_R8(d, 40), TRACS_R8(d, 48), TRACS_R8(d, 56)
+      : "l"(desc_a), "l"(desc_b), "r"(1)
+      : "memory");
+}
+
+// pins the accumulators between the asynchronous products and their readers
+__device__ __forceinline__ void wgmma_fence_operand(int (&d)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(d[i]) :: "memory");
+}
+
+__global__ void __cluster_dims__(kWgCX, kWgCY, 1) __launch_bounds__(kWgThreads, 1)
+split_gram_wgmma_kernel(const __grid_constant__ WgmmaMaps maps, int64_t W, int r0, int rb,
+                        int c0, int m, int32_t* __restrict__ g, int32_t* __restrict__ gn) {
+  // the ring: slot s holds [A rows | B rows][128 rows][128 B] of one plane of
+  // one chunk, every tile at a multiple of 1,024 B (the swizzle's period)
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * kWgSlots];   // full[s], then empty[s]
+  const uint32_t ring = ((uint32_t)__cvta_generic_to_shared(smem_raw) + 1023u) & ~1023u;
+  const uint32_t bar0 = (uint32_t)__cvta_generic_to_shared(bars);
+  auto full = [&](int s) { return bar0 + 8 * s; };
+  auto empty = [&](int s) { return bar0 + 8 * (kWgSlots + s); };
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int wg = warp >> 2;                 // warpgroup: rows [64 wg, 64 wg + 64)
+  const int row0 = blockIdx.y * kWgTile;
+  const int col0 = blockIdx.x * kWgTile;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kWgSlots; ++s) {
+      mbar_init(full(s), 1);                  // the loader's arrive; the copies add bytes
+      mbar_init(empty(s), kWgPeers * kWgConsumers / 32);   // one arrive a warp of every reader
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  cluster_sync();   // no block touches a barrier of another before it exists
+
+  // this block's place in its cluster, and the blocks that share its rows
+  // (the cluster row) and its columns (the cluster column), as rank masks
+  uint32_t cx, cy;
+  asm("mov.u32 %0, %%cluster_ctaid.x;\n" : "=r"(cx));
+  asm("mov.u32 %0, %%cluster_ctaid.y;\n" : "=r"(cy));
+  const uint16_t row_mask = (uint16_t)(((1u << kWgCX) - 1u) << (cy * kWgCX));
+  uint16_t col_mask = 0;
+#pragma unroll
+  for (int j = 0; j < kWgCY; ++j) col_mask |= (uint16_t)(1u << (cx + kWgCX * j));
+
+  // item i of the walk is plane i % 5 of chunk i / 5 and lives in slot i % kWgSlots
+  const int n_chunks = (int)((W + kWgKW - 1) / kWgKW);
+  const int n_items = n_chunks * kPlanes;
+  auto load = [&](int item) {   // the loader thread only
+    const int p = item % kPlanes, word = (item / kPlanes) * kWgKW, s = item % kWgSlots;
+    // this block's part of each tile, to the same place in every reader
+    const uint32_t dst_a = ring + s * kWgSlotBytes + cx * kWgPartA * kWgKW * 4;
+    const uint32_t dst_b = ring + s * kWgSlotBytes + kWgTileBytes + cy * kWgPartB * kWgKW * 4;
+    const int row_a = r0 + row0 + cx * kWgPartA, row_b = c0 + col0 + cy * kWgPartB;
+    mbar_expect_tx(full(s), kWgSlotBytes);   // its own parts and the other blocks'
+    if (p < 4) {
+      tma_load_3d(dst_a, &maps.ea, full(s), word, p, row_a, row_mask);
+      tma_load_3d(dst_b, &maps.eb, full(s), word, p, row_b, col_mask);
+    } else {
+      tma_load_2d(dst_a, &maps.na, full(s), word, row_a, row_mask);
+      tma_load_2d(dst_b, &maps.nb, full(s), word, row_b, col_mask);
+    }
+  };
+
+  if (warp == kWgConsumers / 32) {
+    // the loader: one thread fills every slot once, then refills a slot as
+    // soon as the warpgroups of every block that reads its copies have read it
+    if (lane == 0) {
+      for (int item = 0; item < n_items; ++item) {
+        if (item >= kWgSlots)
+          mbar_wait(empty(item % kWgSlots), ((item - kWgSlots) / kWgSlots) & 1);
+        load(item);
+      }
+    }
+    cluster_sync();   // as below
+    return;
+  }
+
+  int acc4[64], accn[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    acc4[i] = 0;
+    accn[i] = 0;
+  }
+
+  // the loop is unrolled over the planes so that the accumulator of an item
+  // is known at compile time
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p) {
+      const int item = chunk * kPlanes + p;
+      const int s = item % kWgSlots;
+      mbar_wait(full(s), (item / kWgSlots) & 1);
+
+      wgmma_fence_operand(acc4);
+      wgmma_fence_operand(accn);
+      asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+      const uint32_t a0 = ring + s * kWgSlotBytes + wg * 64 * kWgKW * 4;
+      const uint32_t b0 = ring + s * kWgSlotBytes + kWgTileBytes;
+#pragma unroll
+      for (int k = 0; k < kWgKW / 8; ++k) {
+        // a k256 step is 32 bytes on along the swizzled row
+        if (p < 4)
+          wgmma_b1(acc4, wgmma_desc(a0 + 32 * k), wgmma_desc(b0 + 32 * k));
+        else
+          wgmma_b1(accn, wgmma_desc(a0 + 32 * k), wgmma_desc(b0 + 32 * k));
+      }
+      asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+
+      // the item before this one has been read: its slot goes back to the loader
+      asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+      if (item > 0) {
+        const uint32_t bar = empty((item - 1) % kWgSlots);
+#pragma unroll
+        for (int j = 0; j < kWgCX; ++j) mbar_arrive_cluster(bar, cy * kWgCX + j, lane == 0);
+#pragma unroll
+        for (int j = 0; j < kWgCY; ++j)
+          mbar_arrive_cluster(bar, cx + kWgCX * j, lane == 0 && j != cy);
+      }
+    }
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wgmma_fence_operand(acc4);
+  wgmma_fence_operand(accn);
+
+  const int r_base = row0 + wg * 64 + (warp & 3) * 16 + (lane >> 2);
+  const int c_base = col0 + 2 * (lane & 3);
+#pragma unroll
+  for (int i = 0; i < 64; ++i) {
+    const int r = r_base + 8 * ((i >> 1) & 1);
+    const int c = c_base + 8 * (i >> 2) + (i & 1);
+    if (r >= rb || c >= m) continue;
+    const int64_t o = (int64_t)r * m + c;
+    gn[o] = accn[i];
+    g[o] = acc4[i] - accn[i];
+  }
+  // no block leaves while another may still copy into it or arrive on its barriers
+  cluster_sync();
+}
+
+#undef TRACS_R8
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the tensor map of a layout's planes ([n, 4, W], rank 3) or masks ([n, W],
+// rank 2) with a box of ``box_rows`` rows x 128 B of one plane in the
+// 128-byte swizzle; what a box reads past the tensor's edge arrives as zeros
+int encode_map(EncodeTiledFn encode, CUtensorMap* map, const void* base, long long W,
+               long long n, bool planes, int box_rows) {
+  const cuuint64_t dims3[3] = {(cuuint64_t)W, 4, (cuuint64_t)n};
+  const cuuint64_t strides3[2] = {(cuuint64_t)W * 4, (cuuint64_t)W * 16};
+  const cuuint32_t box3[3] = {kWgKW, 1, (cuuint32_t)box_rows};
+  const cuuint64_t dims2[2] = {(cuuint64_t)W, (cuuint64_t)n};
+  const cuuint64_t strides2[1] = {(cuuint64_t)W * 4};
+  const cuuint32_t box2[2] = {kWgKW, (cuuint32_t)box_rows};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  const CUresult rc = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT32, planes ? 3 : 2, const_cast<void*>(base),
+      planes ? dims3 : dims2, planes ? strides3 : strides2, planes ? box3 : box2, ones,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+int launch_wgmma(const void* ea, const void* nma, const void* eb, const void* nmb,
+                 long long W, int r0, int rb, int c0, int m, void* g, void* gn, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (W % 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (W == 0) {   // no site: both grams are zero, and a tensor map cannot be empty
+    const size_t bytes = (size_t)rb * m * sizeof(int32_t);
+    cudaError_t err = cudaMemsetAsync(g, 0, bytes, st);
+    if (err == cudaSuccess) err = cudaMemsetAsync(gn, 0, bytes, st);
+    return static_cast<int>(err);
+  }
+  // the maps end at the block's last row and at n_b = c0 + m: what a box
+  // reads past them arrives as zeros
+  const long long n_a = (long long)r0 + rb, n_b = (long long)c0 + m;
+  // libcuda's encoder, reached through the runtime: the build links nothing else
+  static EncodeTiledFn encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    encode = reinterpret_cast<EncodeTiledFn>(fn);
+  }
+  WgmmaMaps maps;
+  int rc;
+  if ((rc = encode_map(encode, &maps.ea, ea, W, n_a, true, kWgPartA))) return rc;
+  if ((rc = encode_map(encode, &maps.na, nma, W, n_a, false, kWgPartA))) return rc;
+  if ((rc = encode_map(encode, &maps.eb, eb, W, n_b, true, kWgPartB))) return rc;
+  if ((rc = encode_map(encode, &maps.nb, nmb, W, n_b, false, kWgPartB))) return rc;
+  cudaError_t err = cudaFuncSetAttribute(
+      split_gram_wgmma_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kWgSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // whole clusters: a block past the last tile copies and computes zeros
+  const int tiles_n = (m + kWgTile - 1) / kWgTile, tiles_m = (rb + kWgTile - 1) / kWgTile;
+  const dim3 grid((tiles_n + kWgCX - 1) / kWgCX * kWgCX, (tiles_m + kWgCY - 1) / kWgCY * kWgCY);
+  split_gram_wgmma_kernel<<<grid, kWgThreads, kWgSmemBytes, st>>>(
+      maps, static_cast<int64_t>(W), r0, rb, c0, m, static_cast<int32_t*>(g),
+      static_cast<int32_t*>(gn));
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C entry point, loaded with ctypes (tracs_tpu_torch/ops/kernels.py).
 //
 // ea, nma, eb, nmb, W, r0, rb, c0, m, g, gn, stream : as tracs_split_gram
+//               (b1 at tile 128 needs its W a multiple of 4 and 16-byte
+//               aligned pointers, TMA's rule for strides and addresses; the
+//               others take any W)
 // dot         : 0 = b1, 1 = s8 (shift unpack), 2 = s8 (nibble unpack), 3 = bf16
 // tile        : rows and columns of a block's output tile
 // flush_words : bf16 only: words between two flushes of the f32 accumulators
@@ -344,7 +730,8 @@ extern "C" int tracs_split_gram_mma(const void* ea, const void* nma, const void*
 #define TRACS_LAUNCH(DOT, T) \
   return launch<DOT, T, T>(ea, nma, eb, nmb, W, r0, rb, c0, m, fc, g, gn, stream)
   if (dot == kB1 && tile == 64) TRACS_LAUNCH(kB1, 64);
-  if (dot == kB1 && tile == 128) TRACS_LAUNCH(kB1, 128);
+  if (dot == kB1 && tile == 128)
+    return launch_wgmma(ea, nma, eb, nmb, W, r0, rb, c0, m, g, gn, stream);
   if (dot == kS8Shift && tile == 128) TRACS_LAUNCH(kS8Shift, 128);
   if (dot == kS8Nibble && tile == 128) TRACS_LAUNCH(kS8Nibble, 128);
   if (dot == kBF16 && tile == 128) TRACS_LAUNCH(kBF16, 128);

@@ -2,9 +2,9 @@
 ``scripts/kernel_experiments.py``).
 
 Builds the headline clustered alignment, puts its split layout on the
-device, and runs the main-path kernel ``split_gram`` (K1, AND + POPC on the
-CUDA cores) and every tensor-core variant of ``split_gram_variant`` over the
-full n x n square.  Each variant's ``(g, gn)`` must equal K1's bit for bit.
+device, and runs the main-path kernel ``split_gram`` (K1, b1 ``mma.sync`` fed
+by a ``cp.async`` ring) and every tensor-core variant of
+``split_gram_variant`` over the full n x n square.  Each variant's ``(g, gn)`` must equal K1's bit for bit.
 Prints, per kernel, the median milliseconds of 3 runs after a warm-up (CUDA
 events; the host clock on the CPU, where the plain versions run), pairs/s
 and ``OK`` or ``MISMATCH``, and exits non-zero on any mismatch or launch

@@ -3,8 +3,8 @@
 
 ``split_gram`` — the split-decomposition grams of a row block against a
 column suffix, ``g = G4 - Gn`` and ``gn = Gn`` (see ops/pairsnp.py), from
-the CUDA kernel ``csrc/split_gram.cu``; launches counted in
-``SPLIT_GRAM_LAUNCHES``.
+the CUDA kernel ``csrc/split_gram.cu`` (b1 ``mma.sync`` on the packed words,
+fed by a ``cp.async`` ring); launches counted in ``SPLIT_GRAM_LAUNCHES``.
 
 ``popcount_gram`` — the popcount engine: match counts
 ``sum popc(OR_x(a_x & b_x))`` and N-union counts ``sum popc(N_a | N_b)``
@@ -12,9 +12,10 @@ over the raw planes, both from the one CUDA kernel
 ``csrc/popcount_gram.cu``; launches counted in ``POPCOUNT_GRAM_LAUNCHES``.
 
 ``split_gram_variant`` — the same two grams as ``split_gram`` from the
-tensor-core kernels ``csrc/split_gram_mma.cu`` (``mma.sync`` on b1, int8 or
-bf16 operands, the H100 forms of the TPU's unpack-and-dot experiment
-kernels); launches counted per variant in ``SPLIT_GRAM_VARIANT_LAUNCHES``.
+tensor-core kernels ``csrc/split_gram_mma.cu`` (``wgmma`` on b1 operands for
+``b1-128``, ``mma.sync`` on b1, int8 or bf16 operands for the others: the
+H100 forms of the TPU's unpack-and-dot experiment kernels); launches counted
+per variant in ``SPLIT_GRAM_VARIANT_LAUNCHES``.
 
 ``mismatch_positions_kernel`` — per pair of samples, the count and the
 ascending positions of the sites where the two share no allele, from the
@@ -27,7 +28,12 @@ use, runtime/build.py) and counts the launch; on a CPU tensor it returns its
 the other.
 
 Layouts: packed words are ``int32`` tensors holding the bits of the uint32
-planes; the kernel reads them as ``uint32``.
+planes; the kernel reads them as ``uint32``.  The kernels that read the split
+layout ([n, 4, W] planes and [n, W] masks) copy it to shared memory 16 bytes
+at a time, so on the card its word pitch ``W`` is a multiple of
+``LAYOUT_WORD_MULTIPLE`` and its storage 16-byte aligned: ``pad_layout`` adds
+the zero words, which add nothing to either gram, and a CUDA layout that
+breaks the rule is refused, not copied.
 """
 
 from __future__ import annotations
@@ -77,6 +83,18 @@ _BF16_FLUSH_WORDS = 131072
 # words per chunk of the plain version: bounds the unpacked float64 operands
 _REFERENCE_BYTES = 512 << 20
 
+#: the word pitch of a split layout on the card is a multiple of this: 4 words
+#: are the 16 bytes of one ``cp.async`` piece, and TMA takes only strides that
+#: are multiples of 16 bytes
+LAYOUT_WORD_MULTIPLE = 4
+
+#: parts into which ``split_gram``'s kernel cuts the word axis, each part a
+#: block of its own that adds its sums to the outputs with integer atomics
+#: (any order gives the same integers).  0: the launcher chooses from the
+#: number of output tiles and the card's SM count, so that a narrow block
+#: still fills the card; the card-only tests force other values.
+_SPLIT_GRAM_WORD_SPLITS = 0
+
 
 def _as_words(a: np.ndarray) -> torch.Tensor:
     """uint32 numpy words as an int32 CPU tensor of the same bits."""
@@ -94,7 +112,27 @@ def _unpack_bits(words: torch.Tensor) -> torch.Tensor:
     return ((b.unsqueeze(-1) >> shifts) & 1).reshape(*words.shape[:-1], -1)
 
 
-def _check_layout(e: torch.Tensor, nm: torch.Tensor, what: str) -> None:
+def padded_words(W: int) -> int:
+    """The word pitch the card's split layout gives ``W`` words."""
+    return -(-W // LAYOUT_WORD_MULTIPLE) * LAYOUT_WORD_MULTIPLE
+
+
+def pad_layout(e: torch.Tensor, nm: torch.Tensor):
+    """(e, nm) of a split layout ([n, 4, W] planes, [n, W] masks) with zero
+    words appended up to a pitch of ``padded_words(W)``, on the tensors' own
+    device; the tensors themselves when they already have that pitch.  Zero
+    words add nothing to either gram and are past every site."""
+    pad = padded_words(e.shape[-1]) - e.shape[-1]
+    if pad == 0:
+        return e, nm
+    return torch.nn.functional.pad(e, (0, pad)), torch.nn.functional.pad(nm, (0, pad))
+
+
+def _check_layout(e: torch.Tensor, nm: torch.Tensor, what: str, *,
+                  pitch: bool = False) -> None:
+    """Raises unless (e, nm) is a split layout; with ``pitch`` also unless, off
+    the CPU, it keeps the gram kernels' rule: a word pitch that is a multiple
+    of ``LAYOUT_WORD_MULTIPLE`` and 16-byte aligned storage."""
     if e.dtype != torch.int32 or nm.dtype != torch.int32:
         raise TypeError(f"{what}: packed words must be int32, got {e.dtype}/{nm.dtype}")
     if e.dim() != 3 or e.shape[1] != 4 or nm.dim() != 2:
@@ -105,6 +143,15 @@ def _check_layout(e: torch.Tensor, nm: torch.Tensor, what: str) -> None:
                          f"{tuple(e.shape)}")
     if not (e.is_contiguous() and nm.is_contiguous()):
         raise ValueError(f"{what}: tensors must be contiguous")
+    if not pitch or e.device.type == "cpu":
+        return
+    aligned = e.device.type != "cuda" or not (e.data_ptr() % 16 or nm.data_ptr() % 16)
+    if e.shape[2] % LAYOUT_WORD_MULTIPLE or not aligned:
+        raise ValueError(
+            f"{what}: on the card a split layout needs a word pitch that is a multiple of "
+            f"{LAYOUT_WORD_MULTIPLE} and 16-byte aligned storage (the kernels copy it 16 "
+            f"bytes at a time), got {e.shape[2]} words; pad it once with "
+            f"tracs_tpu_torch.ops.kernels.pad_layout(e, nm) and keep the result")
 
 
 def _operands(ea, nm, r0, rb, c0, eb, nmb):
@@ -113,8 +160,8 @@ def _operands(ea, nm, r0, rb, c0, eb, nmb):
         raise ValueError("eb and nmb are given together or not at all")
     if eb is None:
         eb, nmb = ea, nm
-    _check_layout(ea, nm, "A")
-    _check_layout(eb, nmb, "B")
+    _check_layout(ea, nm, "A", pitch=True)
+    _check_layout(eb, nmb, "B", pitch=True)
     if eb.shape[2] != ea.shape[2]:
         raise ValueError(f"A has {ea.shape[2]} words, B has {eb.shape[2]}")
     devices = {t.device for t in (ea, nm, eb, nmb)}
@@ -200,13 +247,16 @@ def split_gram(ea, nm, r0: int, rb: int, c0: int, eb=None, nmb=None):
     masks.  ``eb``/``nmb`` default to ``ea``/``nm`` (the self all-pairs
     sweep); they are given for a query-vs-db rectangle.  The full
     device-resident layouts go in; no block is copied.  CPU tensors take
-    ``split_gram_reference``; CUDA tensors launch the kernel or raise."""
+    ``split_gram_reference``; CUDA tensors launch the kernel or raise: their
+    word pitch must be a multiple of ``LAYOUT_WORD_MULTIPLE`` (``pad_layout``
+    makes it one; the wrapper pads nothing itself)."""
     global SPLIT_GRAM_LAUNCHES
     if ea.device.type == "cpu":
         return split_gram_reference(ea, nm, r0, rb, c0, eb, nmb)
     eb, nmb, m = _operands(ea, nm, r0, rb, c0, eb, nmb)
     _check_cuda(ea, "split_gram", max(ea.shape[0], eb.shape[0]))
-    out = _launch("split_gram", (ea, nm, eb, nmb), ea.shape[2], r0, rb, c0, m)
+    out = _launch("split_gram", (ea, nm, eb, nmb), ea.shape[2], r0, rb, c0, m,
+                  extra=(_SPLIT_GRAM_WORD_SPLITS,))
     if rb and m:
         SPLIT_GRAM_LAUNCHES += 1
     return out
@@ -400,10 +450,12 @@ def split_gram_variant_reference(ea, nm, r0: int, rb: int, c0: int, eb=None, nmb
 def split_gram_variant(ea, nm, r0: int, rb: int, c0: int, eb=None, nmb=None, *,
                        dot: str, tile: int, unpack: str | None = None):
     """``split_gram``'s (g, gn) from a tensor-core variant of the kernel:
-    ``dot`` in ("b1", "s8", "bf16") is the operand type of the ``mma``,
-    ``tile`` the block's square output tile, ``unpack`` ("shift" or "nibble",
-    ``s8`` only) how a word becomes int8 values; ``SPLIT_GRAM_VARIANTS`` lists
-    what is built.  Same operands, checks and addressing as ``split_gram``.
+    ``dot`` in ("b1", "s8", "bf16") is the operand type of the ``mma``
+    (``wgmma`` for b1 at tile 128, ``mma.sync`` otherwise), ``tile`` the
+    block's square output tile, ``unpack`` ("shift" or "nibble", ``s8`` only)
+    how a word becomes int8 values; ``SPLIT_GRAM_VARIANTS`` lists what is
+    built.  Same operands, checks (the word pitch on the card included) and
+    addressing as ``split_gram``.
     CPU tensors take ``split_gram_variant_reference``; CUDA tensors launch
     the variant's kernel or raise; no variant gives way to another kernel."""
     unpack = _check_variant(dot, tile, unpack)

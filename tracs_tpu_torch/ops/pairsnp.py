@@ -48,6 +48,7 @@ from tracs_tpu_torch.ops.kernels import (
     _subset_products,
     _unpack_bits,
     mismatch_positions_kernel,
+    padded_words,
     popcount_gram,
     split_gram,
 )
@@ -89,10 +90,16 @@ def _derive_split_planes(planes: torch.Tensor):
 def _split_device(sa: SplitAlignment, device: torch.device):
     """(excl, nmask, partial) of a SplitAlignment on ``device``, cached on it.
     The 4 raw planes cross to the device once and excl/nmask are derived
-    there; the raw upload is freed after the derive."""
+    there; the raw upload is freed after the derive.  excl and nmask get the
+    word pitch ``padded_words(W)``: the raw planes are padded with zero words
+    on the device, which derive to zero words of both, so a plane row starts
+    on a 16-byte boundary whatever the sequence length."""
     cache = getattr(sa, "_dev_cache", None)
     if cache is None or cache[0] != device:
         planes = _as_words(sa.src.planes).to(device)
+        pad = padded_words(planes.shape[2]) - planes.shape[2]
+        if pad:
+            planes = torch.nn.functional.pad(planes, (0, pad))
         ea, nm = _derive_split_planes(planes)
         del planes
         pt = _as_words(sa.partial).to(device)
@@ -305,7 +312,9 @@ def mismatch_positions_device(
     layout (N-exclusive planes and N masks) or, for ``popcount``, the raw
     planes.  Entries past a pair's count hold -1.  One kernel launch per
     ``_MISM_TABLE_BYTES`` of position table: the kernel reads the resident
-    layout through the pair indices and needs no other buffer."""
+    layout through the pair indices and needs no other buffer.  The zero
+    words that pad the split layout's pitch lie at and past ``a.length``,
+    where the kernel reports nothing."""
     engine = _check_method(method)
     device = resolve_device(device)
     if engine == "split":
