@@ -20,12 +20,13 @@ Phases (each one passes or the script exits non-zero):
    r0 > 0 and c0 > 0, and the main-path shape rb=1024 x n=4096 x W=31250,
    with the median ms of both: ``split_gram`` (K1), every tensor-core variant
    of ``split_gram_variant`` (K1', on K1's inputs, so their times stand
-   beside K1's) and ``popcount_gram`` (K2 + K3).  The split layouts carry the
-   card's word pitch (``pad_layout``: zero words up to a multiple of 4).
-   Then K1 at the four blocks of the main path's sweep (rb=1024 against the
-   column suffixes m=4096, 3072, 2048, 1024), exact against its plain
-   version, timed as the launcher runs them (the word axis cut into parts
-   where whole tiles would leave SMs idle) and with the cut forced off;
+   beside K1's) and ``popcount_gram`` (K2 + K3).  The split layouts and the
+   raw planes carry the card's word pitch (``pad_layout``, ``pad_planes``:
+   zero words up to a multiple of 4).  Then K1 and ``popcount_gram`` at the
+   four blocks of the main path's sweep (rb=1024 against the column suffixes
+   m=4096, 3072, 2048, 1024), exact against their plain versions, timed as
+   the launchers run them (the word axis cut into parts where whole tiles
+   would leave SMs idle) and with the cut forced off;
 3. the distance slice through the normal entry point
    (``tracs_tpu_torch.cli.main(["distance", ...])``) on the headline
    workload: n=4096 samples x 1 Mb in clusters of 21, 2048 partial-IUPAC
@@ -274,16 +275,18 @@ KERNEL_CASES = [
 ]
 
 
-def k1_sweep_blocks(args, n: int, W: int, row_block: int, card, plain, check):
-    """K1 at every row block of the main path's sweep (rows [r0, r0 + rb)
-    against the column suffix [r0, n)) on the layout ``args``: exact against
-    ``plain``, the median ms with the launcher's own cut of the word axis and
-    with the cut forced off.  Returns one record per block."""
+def sweep_blocks(kname: str, call, plain, splits_attr: str, n: int, W: int, row_block: int,
+                 card, check, **work):
+    """A gram kernel at every row block of the main path's sweep (rows
+    [r0, r0 + rb) against the column suffix [r0, n)): ``call(r0, rb)`` exact
+    against ``plain(r0, rb)``, the median ms with the launcher's own cut of
+    the word axis and with the cut forced off (``splits_attr`` of ops/kernels
+    set to 1).  ``work`` goes to ``gram_bound``.  Returns one record per
+    block."""
     import torch
 
     from tracs_tpu_torch.ops import kernels
 
-    ea, nm = args[:2]
     blocks = []
     for r0 in range(0, n, row_block):
         rb, m = min(row_block, n - r0), n - r0
@@ -291,22 +294,22 @@ def k1_sweep_blocks(args, n: int, W: int, row_block: int, card, plain, check):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        want = plain(ea, nm, r0, rb, r0)
+        want = plain(r0, rb)
         end.record()
-        got = kernels.split_gram(ea, nm, r0, rb, r0)
+        got = call(r0, rb)
         torch.cuda.synchronize()
-        check("split_gram", name, got, want)
+        check(kname, name, got, want)
         del got, want
-        ms = time_ms(lambda: kernels.split_gram(ea, nm, r0, rb, r0), 10)
-        kernels._SPLIT_GRAM_WORD_SPLITS = 1
+        ms = time_ms(lambda: call(r0, rb), 10)
+        setattr(kernels, splits_attr, 1)
         try:
-            whole_ms = time_ms(lambda: kernels.split_gram(ea, nm, r0, rb, r0), 10)
+            whole_ms = time_ms(lambda: call(r0, rb), 10)
         finally:
-            kernels._SPLIT_GRAM_WORD_SPLITS = 0
+            setattr(kernels, splits_attr, 0)
         rec = {"m": m, "ms": ms, "whole_tiles_ms": whole_ms, "plain_ms": start.elapsed_time(end),
-               **gram_bound(f"split_gram at {name}", n, None, W, r0, rb, r0, planes=5,
-                            products=5, popc=5, card=card, peak_ops=PEAK_B1)}
-        print(f"# split_gram at {name}: kernel {ms:.3f} ms, with the word axis uncut "
+               **gram_bound(f"{kname} at {name}", n, None, W, r0, rb, r0, card=card,
+                            peak_ops=PEAK_B1, **work)}
+        print(f"# {kname} at {name}: kernel {ms:.3f} ms, with the word axis uncut "
               f"{whole_ms:.3f} ms, plain {rec['plain_ms']:.3f} ms (one run), "
               f"{100 * rec['bound_ms'] / ms:.1f}% of the bound")
         blocks.append(rec)
@@ -319,8 +322,8 @@ def phase_kernels(device, seed: int, card):
     the variants of one operand type share its plain version, and K1 shares
     the b1 one.  Returns {kernel: {max_abs_err (of each output), ms,
     plain_ms, bound_ms, bound_by}}, the times and bounds at the main-path
-    shape; K1's record also holds ``sweep_blocks``, its four blocks of the
-    main path's sweep."""
+    shape; K1's and ``popcount_gram``'s records also hold ``sweep_blocks``,
+    their four blocks of the main path's sweep."""
     from functools import partial
 
     import torch
@@ -366,12 +369,18 @@ def phase_kernels(device, seed: int, card):
                     peak_ops=PEAK_BY_DOT[dot]))
         del got, want
         if timed:
-            out["split_gram"]["sweep_blocks"] = k1_sweep_blocks(
-                args, na, W, ROW_BLOCK, card, plains["b1"], check)
+            ea, nm = args[:2]
+            out["split_gram"]["sweep_blocks"] = sweep_blocks(
+                "split_gram", lambda r0, rb: kernels.split_gram(ea, nm, r0, rb, r0),
+                lambda r0, rb: plains["b1"](ea, nm, r0, rb, r0), "_SPLIT_GRAM_WORD_SPLITS",
+                na, W, ROW_BLOCK, card, check, planes=5, products=5, popc=5)
+            del ea, nm
         del args, b
         torch.cuda.empty_cache()
 
-        args = (words(na, 4, W), r0, rb, c0, None if nb is None else words(nb, 4, W))
+        # the raw planes at the card's pitch, as ops/pairsnp.py uploads them
+        args = (kernels.pad_planes(words(na, 4, W)), r0, rb, c0,
+                None if nb is None else kernels.pad_planes(words(nb, 4, W)))
         got = kernels.popcount_gram(*args)
         torch.cuda.synchronize()
         check("popcount_gram", name, got, kernels.popcount_gram_reference(*args))
@@ -379,12 +388,19 @@ def phase_kernels(device, seed: int, card):
             ms = time_ms(lambda: kernels.popcount_gram(*args), 10)
             plain = time_ms(lambda: kernels.popcount_gram_reference(*args), 3)
             print(f"# popcount_gram at {name}: kernel {ms:.3f} ms, plain {plain:.3f} ms (median)")
-            # as a matrix product the two counts are 16 bit-products: the 15
-            # plane subsets of the inclusion-exclusion and the N gram
+            # as a matrix product the two counts are 15 bit-products, the 15
+            # plane subsets of the inclusion-exclusion: the N gram that nunion
+            # needs is the 4-plane subset's gram, not a 16th
+            work = dict(planes=4, products=15, popc=2)
             out["popcount_gram"].update(ms=ms, plain_ms=plain, **gram_bound(
-                f"popcount_gram at {name}", na, nb, W, r0, rb, c0, planes=4, products=16,
-                popc=2, card=card,
-                peak_ops=PEAK_B1))
+                f"popcount_gram at {name}", na, nb, W, r0, rb, c0, card=card,
+                peak_ops=PEAK_B1, **work))
+            pa = args[0]
+            out["popcount_gram"]["sweep_blocks"] = sweep_blocks(
+                "popcount_gram", lambda r0, rb: kernels.popcount_gram(pa, r0, rb, r0),
+                lambda r0, rb: kernels.popcount_gram_reference(pa, r0, rb, r0),
+                "_POPCOUNT_GRAM_WORD_SPLITS", na, W, ROW_BLOCK, card, check, **work)
+            del pa
         del args, got
         torch.cuda.empty_cache()
     return out
@@ -479,6 +495,9 @@ def phase_mism_positions(packed, block, device):
     ea, nm, _ = _split_device(_split_pair(a_k, None)[0], device)
     raw = _planes_device(a_k, device)
     n, L, W = a_k.n_seqs, a_k.length, ea.shape[2]
+    if raw.shape[2] != W or W % kernels.LAYOUT_WORD_MULTIPLE:
+        fail(f"the resident raw planes have {raw.shape[2]} words a row and the split layout "
+             f"{W}: both should carry the card's pitch")
     rows, cols, dvals = block[3], block[4], block[5]
     todo = dvals > 1
     ii = torch.from_numpy(rows[todo]).to(device)
@@ -492,7 +511,7 @@ def phase_mism_positions(packed, block, device):
          (ea, None, ii, jj, L, cap, nm, None)),
         (f"ragged L={L - 13} capacity=64 P={len(ii2)}, split layout",
          (ea, None, ii2, jj2, L - 13, 64, nm, None)),
-        (f"ragged L={L - 13} capacity=64 P={len(ii2)}, raw planes",
+        (f"ragged L={L - 13} capacity=64 P={len(ii2)}, raw planes at pitch {raw.shape[2]}",
          (raw, None, ii2, jj2, L - 13, 64)),
     ]
     rec = {"max_abs_err": 0}

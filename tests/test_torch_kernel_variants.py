@@ -392,3 +392,26 @@ def test_bf16_cuda_flushes_exactly(cuda_device, monkeypatch, flush_words):
     torch.cuda.synchronize()
     g0, gn0 = kernels.split_gram_reference(ea, nm, 3, 140, 7)
     assert torch.equal(g, g0) and torch.equal(gn, gn0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("W", [4, 20, 36])
+@pytest.mark.parametrize("variant", VARIANTS, ids=VARIANT_IDS)
+def test_variant_cuda_words_end_inside_a_chunk(cuda_device, variant, W):
+    """Word counts that end after the first 16-byte piece of a 16-word chunk
+    (the pieces past them are copied as zeros), on layouts padded from W - 1
+    words so that the last staged word is a pad word."""
+    dot, tile, unpack = variant
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(W)
+
+    def words(*shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
+                             device=cuda_device, generator=gen)
+
+    ea, nm = kernels.pad_layout(words(140, 4, W - 1), words(140, W - 1))
+    assert ea.shape[2] == W
+    g, gn = kernels.split_gram_variant(ea, nm, 3, 131, 5, dot=dot, tile=tile, unpack=unpack)
+    torch.cuda.synchronize()
+    g0, gn0 = kernels.split_gram_variant_reference(ea, nm, 3, 131, 5, dot=dot)
+    assert torch.equal(g, g0) and torch.equal(gn, gn0)

@@ -185,6 +185,87 @@ def test_popcount_gram_rejects_bad_inputs(case):
         kernels.popcount_gram(**args)
 
 
+# -- the card's pitch: raw planes padded with zero words --
+
+PAD_WORDS = [1, 3, 4, 5, 17]
+
+
+def _random_planes(rng, n, W):
+    return kernels._as_words(rng.integers(0, 2**32, size=(n, 4, W), dtype=np.uint32))
+
+
+@pytest.mark.parametrize("W", PAD_WORDS)
+def test_popcount_gram_on_padded_planes_matches_unpadded(W):
+    """Zero words up to the card's pitch share no allele and hold no N: they
+    add nothing to either count."""
+    rng = np.random.default_rng(29 * W)
+    pa, pb = _random_planes(rng, 13, W), _random_planes(rng, 9, W)
+    want = kernels.popcount_gram(pa, 2, 10, 1, pb)
+    qa, qb = kernels.pad_planes(pa), kernels.pad_planes(pb)
+    assert qa.shape[2] == qb.shape[2] == kernels.padded_words(W)
+    assert (qa is pa) == (W % kernels.LAYOUT_WORD_MULTIPLE == 0)
+    got = kernels.popcount_gram(qa, 2, 10, 1, qb)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.parametrize("W", PAD_WORDS)
+def test_popcount_stream_on_padded_planes_matches_unpadded(monkeypatch, W):
+    """The resident raw planes carry the card's pitch on every device; the
+    sweep yields what it yields on planes at their own pitch."""
+    rng = np.random.default_rng(31 * W)
+    L = 32 * W - 5
+    seqs = _seqs(rng, 11, L)
+    kw = dict(dist=L // 2, row_block=4, device="cpu", method="popcount", compact=False)
+    p = pack_sequences(seqs)
+    got = list(port.pairsnp_stream([p], **kw))
+    assert p._dev_planes[1].shape[2] == kernels.padded_words(W)
+    monkeypatch.setattr(port, "pad_planes", lambda planes: planes)
+    q = pack_sequences(seqs)
+    want = list(port.pairsnp_stream([q], **kw))
+    assert q._dev_planes[1].shape[2] == W
+    assert sum(len(b[3]) for b in want) > 0
+    _assert_streams_equal(got, want)
+
+
+@pytest.mark.parametrize("W", PAD_WORDS)
+def test_mismatch_positions_on_padded_raw_planes_match_unpadded(W):
+    """Raw planes with null masks: a zero pad word reads as 32 mismatching
+    sites, and only the length keeps them out of the table.  Lengths that end
+    inside a word (no multiple of 32, none of 128) and at the last word's end."""
+    rng = np.random.default_rng(37 * W)
+    pa = _random_planes(rng, 7, W)
+    qa = kernels.pad_planes(pa)
+    ii, jj = [0, 1, 2, 6, 3], [1, 2, 5, 0, 3]
+    for L in sorted({32 * W - 5, 32 * W, max(1, 32 * W - 33)}):
+        want = kernels.mismatch_positions_kernel(pa, None, ii, jj, L, 40)
+        got = kernels.mismatch_positions_kernel(qa, None, ii, jj, L, 40)
+        assert torch.equal(got, want), L
+        assert int(want[:, 0].max()) > 0 and int(want[:, 1:].max()) < L
+    if qa is not pa:  # past the length the pad does show: the mask is what hides it
+        more = kernels.mismatch_positions_kernel(qa, None, ii, jj, 32 * qa.shape[2], 40)
+        assert torch.all(more[:, 0] >= want[:, 0] + 32 * (qa.shape[2] - W))
+
+
+@pytest.mark.parametrize("side", ["A", "B"])
+def test_popcount_gram_refuses_unpadded_planes_off_the_cpu(side):
+    """A CUDA-typed operand at a pitch the kernel's 16-byte copies cannot take
+    is refused, with the helper that pads it named; a padded one gets past
+    that check (and then fails only for lack of a card)."""
+    bad = torch.zeros((6, 4, 5), dtype=torch.int32, device="meta")
+    good = torch.zeros((6, 4, 8), dtype=torch.int32, device="meta")
+    args = (bad, 0, 6, 0, None) if side == "A" else (good, 0, 6, 0, bad)
+    with pytest.raises(ValueError, match=r"pad_planes\(p\)"):
+        kernels.popcount_gram(*args)
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        kernels.popcount_gram(good, 0, 6, 0)
+
+
+def test_popcount_gram_word_limit_keeps_int32_exact():
+    """8 subsets of one sign, 32 sites a word: the kernel's int32 sums hold
+    every count below the wrapper's word limit."""
+    assert 8 * 32 * (kernels._POPCOUNT_GRAM_MAX_WORDS - 1) < 2**31
+
+
 # -- the popcount engine of pairsnp against JAX's and the split engine --
 
 @pytest.mark.parametrize("row_block", [1, 3, 7, 100])
@@ -302,8 +383,8 @@ def test_popcount_gram_cuda_matches_plain(cuda_device, na, nb, W, r0, rb, c0):
         return torch.randint(-2**31, 2**31, shape, dtype=torch.int32,
                              device=cuda_device, generator=gen)
 
-    pa = words(na, 4, W)
-    pb = None if nb is None else words(nb, 4, W)
+    pa = kernels.pad_planes(words(na, 4, W))
+    pb = None if nb is None else kernels.pad_planes(words(nb, 4, W))
     before = kernels.POPCOUNT_GRAM_LAUNCHES
     got = kernels.popcount_gram(pa, r0, rb, c0, pb)
     torch.cuda.synchronize()
@@ -321,3 +402,97 @@ def test_popcount_stream_cuda_launches_once_per_block(cuda_device):
                                    dist=700))
     assert kernels.POPCOUNT_GRAM_LAUNCHES == before + 5
     _assert_streams_equal(got, port.pairsnp_stream([p], row_block=16, device="cpu", dist=700))
+
+
+def _codes_planes(codes, W):
+    """int32 [n, 4, W] planes of samples that hold the 4-bit code codes[k] at
+    every site."""
+    out = np.zeros((len(codes), 4, W), dtype=np.uint32)
+    for k, code in enumerate(codes):
+        for x in range(4):
+            if code >> x & 1:
+                out[k, x] = 0xFFFFFFFF
+    return kernels._as_words(out)
+
+
+@pytest.mark.cuda
+def test_popcount_gram_cuda_every_subset_and_sign_decides(cuda_device):
+    """Sites that carry 1, 2, 3 and 4 set planes on either side: row S holds
+    code S everywhere, so matches[S, T] is every site or none by S & T, and
+    every one of the 15 subset grams, with its sign, decides some entry; N
+    (code 15) alone counts for nunion."""
+    W, codes = 20, list(range(1, 16))
+    rng = np.random.default_rng(41)
+    mixed = rng.integers(1, 16, size=(9, 32 * W))   # and every code at random sites
+    planes = np.zeros((9, 4, W), dtype=np.uint32)
+    for x in range(4):
+        bits = (mixed >> x & 1).astype(np.uint32).reshape(9, W, 32)
+        planes[:, x] = (bits << np.arange(32, dtype=np.uint32)).sum(axis=2, dtype=np.uint32)
+    pa = torch.cat([_codes_planes(codes, W), kernels._as_words(planes)])
+    matches, nunion = kernels.popcount_gram(pa.to(cuda_device), 0, len(pa), 0)
+    want = kernels.popcount_gram_reference(pa, 0, len(pa), 0)
+    assert torch.equal(matches.cpu(), want[0]) and torch.equal(nunion.cpu(), want[1])
+    S = torch.tensor(codes)
+    assert torch.equal(matches.cpu()[:15, :15], ((S[:, None] & S[None, :]) != 0).int() * 32 * W)
+    assert torch.equal(nunion.cpu()[:15, :15],
+                       ((S[:, None] == 15) | (S[None, :] == 15)).int() * 32 * W)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r0,c0", [(0, 0), (70, 130)])
+def test_popcount_gram_cuda_single_bit_walk_over_a_whole_tile(cuda_device, r0, c0):
+    """The fragment layout, the swapped halves of the staged rows and the row
+    counts: one set bit on each side walked through every word and bit of a
+    16-word chunk and every row and column of a 128 x 128 span of outputs (one
+    128 x 64 tile and its neighbour), in one plane or, every fifth step, in
+    all four (an N)."""
+    W, T = 16, 128
+    na, nb = r0 + T, c0 + T
+    for p in range(W * 32 * 2):
+        w, b = divmod(p % (W * 32), 32)
+        i, j, x = (p * 5 + p // 128) % T, (p * 3 + p // 64) % T, p % 5   # x = 4: all planes
+        pa = torch.zeros((na, 4, W), dtype=torch.int32)
+        pb = torch.zeros((nb, 4, W), dtype=torch.int32)
+        bit = int(np.uint32(1 << b).view(np.int32))
+        other = int(np.uint32(1 << (b ^ 1)).view(np.int32))
+        j2 = c0 + (j + 1) % T
+        planes = slice(0, 4) if x == 4 else x
+        pa[r0 + i, planes, w], pb[c0 + j, planes, w], pb[j2, planes, w] = bit, bit, other
+        matches, nunion = kernels.popcount_gram(pa.to(cuda_device), r0, T, c0, pb.to(cuda_device))
+        want_m = torch.zeros((T, T), dtype=torch.int32)
+        want_u = torch.zeros((T, T), dtype=torch.int32)
+        want_m[i, j] = 1
+        if x == 4:   # N on row i, on column j and (another site) on column j2
+            want_u[i, :] += 1
+            want_u[:, j] += 1
+            want_u[:, (j + 1) % T] += 1
+            want_u[i, j] -= 1
+        assert torch.equal(matches.cpu(), want_m) and torch.equal(nunion.cpu(), want_u), (p, i, j, x)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 3, 7, 10**6])
+def test_popcount_gram_cuda_word_axis_cuts_are_exact(cuda_device, monkeypatch, splits):
+    """The word axis cut into parts that add to zeroed outputs, their share of
+    the row counts included: the same integers whatever the cut."""
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(splits % 1000)
+    pa = torch.randint(-2**31, 2**31, (200, 4, 1004), dtype=torch.int32, device=cuda_device,
+                       generator=gen)
+    pa[:, :, 1001:] = 0
+    monkeypatch.setattr(kernels, "_POPCOUNT_GRAM_WORD_SPLITS", splits)
+    got = kernels.popcount_gram(pa, 30, 150, 17)
+    torch.cuda.synchronize()
+    want = kernels.popcount_gram_reference(pa, 30, 150, 17)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_popcount_gram_cuda_refuses_unpadded_and_too_wide(cuda_device):
+    with pytest.raises(ValueError, match="pad_planes"):
+        kernels.popcount_gram(torch.zeros((4, 4, 5), dtype=torch.int32, device=cuda_device),
+                              0, 4, 0)
+    wide = torch.zeros((1, 4, kernels._POPCOUNT_GRAM_MAX_WORDS), dtype=torch.int32,
+                       device=cuda_device)
+    with pytest.raises(ValueError, match="int32 sums"):
+        kernels.popcount_gram(wide, 0, 1, 0)

@@ -1,5 +1,5 @@
 // Popcount engine on Hopper (sm_90a): match and N-union counts straight from
-// the raw packed planes, both in one pass.
+// the raw packed planes, both in one pass, on the b1 tensor cores.
 //
 // Replaces tracs_tpu/ops/pallas_kernels.py::_shared_kernel (K2) and
 // ::_union_kernel (K3), and with them the XLA twin _gram_popcount of
@@ -12,163 +12,529 @@
 //
 // where a, b are the 4 raw allele planes [n, 4, W] (IUPAC codes set several
 // bits, N sets all four), packed 32 sites per uint32 word, and
-// N = p0 & p1 & p2 & p3 is the N mask.
+// N = p0 & p1 & p2 & p3 is the N mask.  W, the planes' word pitch, is a
+// multiple of 4 and the storage 16-byte aligned (the caller checks).
 //
 // Design.  The TPU kernels run as two grids over a [TI, TJ, WC] popcount
-// intermediate in VMEM; here one kernel does both on the CUDA cores and
-// nothing is materialised.  Each 256-thread block owns a 64 x 64 output tile
-// and walks the word axis in chunks of 16 words: the chunk's 64 A rows and
-// 64 B rows are staged in shared memory as 5 planes each (the 4 raw planes
-// and the N mask, derived from them while staging, so no N-mask array
-// exists in device memory), and each thread accumulates a 4 x 4 sub-tile of
-// both counts in registers.  Rows past the block, columns past n_b and words
-// past W load as zero: a zero word shares no bit and has N = 0, so it adds
-// nothing, and the store masks the ragged tile edge.
+// intermediate in VMEM, on the vector unit.  An OR of ANDs is no matrix
+// product, but by inclusion-exclusion over the OR it is a signed sum of 15:
+// with a_S = AND_{x in S} a_x for the 15 non-empty subsets S of the planes,
 //
-// What bounds it on an H100.  Per word pair the tile does 4 AND + 3 OR (the
-// OR-of-ANDs folds into 4 LOP3), 1 OR for the union, 2 POPC and 2 IADD.
-// POPC issues at 16 per clock per SM, a quarter of the LOP3/IADD rate, so
-// the 2 POPC (1/8 clock per word pair per SM) and the ~7 ALU operations
-// (~1/9 clock) cost about the same: the kernel is bound by the integer
-// pipes, not by bytes, since a 64-row tile reuses every staged word 64
-// times.  Against the split-gram kernel (5 POPC per word pair) it does 2.5x
-// fewer POPC but only ~1.4x fewer ALU operations, and it measured 1.9x
-// faster (98.6 vs 188.3 ms for a 1024 x 4096 x 31250-word block on an H100
-// SXM at 700 W, about 63% of the POPC issue rate), with 100 registers a
-// thread against split_gram's 64.
+//     matches = sum_S (-1)^(|S|+1) sum_w popc(a_S & b_S)
+//     nunion  = cnt_N(a) + cnt_N(b) - sum_w popc(a_ACGT & b_ACGT)
+//
+// and each of the 15 AND + POPC grams of a 16 x 8 output tile over 256 sites
+// is one tensor-core instruction on packed words,
+// mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc.  Only the 4 raw
+// planes are staged; a thread forms the subset operands in registers from the
+// plane fragments it holds (one LOP3 each: an AND of up to three registers),
+// so no derived plane exists in shared or device memory.  The instruction
+// only adds, so there are three accumulator sets: the subsets of odd size,
+// the pairs, and the 4-plane subset, which nunion needs alone:
+// matches = odd - pairs - quad.
+//
+// A 256-thread block owns a 128 x 64 output tile; each of its 8 warps owns a
+// 32 x 32 sub-tile (2 x 4 mma tiles, 3 x 32 accumulator registers a thread;
+// 212 registers in all, no spills, one block an SM).  Three accumulator sets
+// of a 128 x 128 tile would take 49,152 of an SM's 65,536 registers and leave
+// none for the fragments, hence the narrower tile; the wide warp tile keeps
+// the ANDs down (16 operand registers a subset for 8 mma).
+//
+// Staging.  The block walks the word axis in chunks of 32 words (four k256
+// steps) through a ring of two stages in shared memory, each the 4 planes of
+// 128 A rows and 64 B rows (98,304 B).  The copies are TMA tensor loads
+// (cp.async.bulk.tensor): a box of rows x 32 words of one plane lands as rows
+// of 128 B in the 128-byte swizzle, eight boxes a chunk, issued by the
+// block's first thread; no other thread computes an address or touches the
+// data on its way in, rows of 128 B are whole L2 lines, and what a box reads
+// past the operand's last row or word arrives as zeros (a zero word shares
+// no allele and has N = 0, so it adds nothing; only the stores mask the
+// ragged tile edge).  A stage's full mbarrier counts the bytes of its boxes;
+// every warp waits on it, runs the stage's 480 mma, and arrives on the
+// stage's empty mbarrier, on which the first thread waits before it refills
+// the stage with the chunk two on: there is no block-wide barrier in the
+// loop, so the warps drift apart by up to a chunk and the tensor cores are
+// not left idle while the slowest one arrives.  A barrier that never
+// completes traps after 2^22 polls instead of hanging the card.  The tensor
+// maps are made by the launcher on every call through libcuda's
+// cuTensorMapEncodeTiled, reached with cudaGetDriverEntryPoint so that the
+// build links nothing but the runtime, and passed as __grid_constant__
+// arguments.  (The same loop fed by a 16-byte cp.async ring with one
+// __syncthreads() a chunk took 28 ms for the block below instead of 21.)
+//
+// Fragments.  The sum over sites does not depend on which k slot a site lands
+// in, as long as the A and the B operand use the same assignment, and which
+// staged row plays which row of a fragment is free as long as the stores
+// follow.  Holding all four k256 steps of all four planes would take 192
+// registers, so a thread (grp = lane / 4, tig = lane % 4) takes one step at a
+// time: 8 bytes of the step's 32 bytes of a staged row with one load, the two
+// k halves of that mma.  Fragment row g of a group of 8 is staged row
+// 2 (g % 4) + g / 4: the 4 rows a half-warp loads from then differ in the
+// address bits the swizzle mixes in, and its 8-byte loads fall on all 32
+// banks once.
+//
+// Row counts.  cnt_N(a) and cnt_N(b) come from the fragments too: the
+// 4-plane operand of an A row is spread over the 4 threads of a group, each
+// POPCs its words once, and the warps of a tile row (tile column) take turns
+// by chunk, so every staged word of the N mask is counted exactly once a
+// block; the sums meet in shared memory before the stores.
+//
+// Narrow blocks.  The all-pairs sweep calls this kernel with rb = 1024 and a
+// shrinking column suffix: 512, 384, 256, then 128 tiles on 132 SMs that
+// hold one block each, 97% of whole waves, so the four calls take times in
+// proportion.  For other shapes the launcher cuts the word axis into s parts
+// as csrc/split_gram.cu does, one block per (tile, part), and the parts add
+// their sums (their share of the row counts included) to zeroed outputs with
+// integer atomicAdd: bit-identical whatever s is.
+//
+// Range.  The odd accumulator sums 8 subsets of at most 32 bits a word:
+// 256 W < 2^31 needs W < 2^23 words (268 M sites); the caller refuses more.
+//
+// What bounds it on an H100.  By operations it is 15 bit-products a site
+// pair, 7.9 ms for the rb=1024 x n=4096 x 1 Mb block at the card's b1 peak
+// (12.2 ms at the rate mma.sync reaches), far above the bytes-per-operation
+// line.  Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// (experiments/split_gram_probe.py): the whole kernel 21 ms for that block;
+// its copies alone take about half of that and now hide behind the rest; the
+// fragment loads, ANDs and mma without the copies take as long as the whole
+// kernel, and about a fifth less with the ANDs left out.  So the warps' own
+// instruction stream bounds it: per k256 step a warp issues 120 mma, 176 AND
+// (LOP3) to form their operands and 32 shared-memory loads, and the ANDs and
+// the mma do not overlap fully.  Fewer ANDs an mma would need a larger warp
+// tile, which the three accumulator sets do not leave registers for.
 
 #include <cstdint>
+#include <cuda.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kBM = 64;      // output rows per block
+constexpr int kBM = 128;     // output rows per block
 constexpr int kBN = 64;      // output columns per block
-constexpr int kKW = 16;      // words per staged chunk
-constexpr int kTM = 4;       // output rows per thread
-constexpr int kTN = 4;       // output columns per thread
-constexpr int kPlanes = 5;   // 4 raw planes + the derived N mask
-constexpr int kThreadsX = kBN / kTN;              // 16
-constexpr int kThreadsY = kBM / kTM;              // 16
-constexpr int kThreads = kThreadsX * kThreadsY;   // 256
-// +1 word of padding per (word, plane) row of the staged tiles, against
-// shared-memory bank conflicts of the staging stores (word index fastest)
-constexpr int kPadRows = kBM + 1;
+constexpr int kKW = 32;      // words per staged chunk: a row of 128 B, four k256 steps
+constexpr int kPlanes = 4;   // the raw planes; the subsets are formed in registers
+constexpr int kStages = 2;   // chunk buffers in the ring
+constexpr int kMT = 2;       // 16-row mma tiles per warp (32 rows)
+constexpr int kNT = 4;       // 8-column mma tiles per warp (32 columns)
+constexpr int kWarpsN = kBN / (8 * kNT);                          // warps across a tile: 2
+constexpr int kWarpsM = kBM / (16 * kMT);                         // warps down a tile: 4
+constexpr int kThreads = kWarpsM * kWarpsN * 32;                  // 256
+constexpr int kTileBytesA = kBM * kKW * 4;                        // one plane's A rows: 16,384
+constexpr int kTileBytesB = kBN * kKW * 4;                        // one plane's B rows: 8,192
+constexpr int kPlaneBytes = kTileBytesA + kTileBytesB;
+constexpr int kStageBytes = kPlanes * kPlaneBytes;                // 98,304
+constexpr int kSmemBytes = kStages * kStageBytes + 1024;          // + room to align to 1,024 B
+constexpr int kMaxSplits = 16;      // most parts of the word axis
+constexpr int kMinSplitChunks = 1024 / kKW;   // fewest chunks a part is worth
+constexpr unsigned kSpinLimit = 1u << 22;     // polls of a barrier before the kernel gives up
 
-// Stages word w of the 4 planes of ``row`` and their N mask into
-// tile[k][0..4][r]; a row or word outside the operand stages zeros.
-__device__ __forceinline__ void stage_word(
-    const uint32_t* __restrict__ p, bool valid, int64_t row, int64_t W,
-    int64_t w, int k, int r, uint32_t (*tile)[kPlanes][kPadRows]) {
-  uint32_t v0 = 0u, v1 = 0u, v2 = 0u, v3 = 0u;
-  if (valid) {
-    const uint32_t* base = p + row * 4 * W + w;
-    v0 = base[0];
-    v1 = base[W];
-    v2 = base[2 * W];
-    v3 = base[3 * W];
-  }
-  tile[k][0][r] = v0;
-  tile[k][1][r] = v1;
-  tile[k][2][r] = v2;
-  tile[k][3][r] = v3;
-  tile[k][4][r] = v0 & v1 & v2 & v3;
+static_assert(kKW == 32, "a staged row is the 128 bytes of the swizzle");
+static_assert(kStages >= 2 && kSmemBytes <= 227 * 1024, "the ring fits an SM");
+static_assert(kTileBytesA % 1024 == 0 && kTileBytesB % 1024 == 0,
+              "every tile starts at a multiple of the swizzle's period");
+static_assert((kWarpsM & (kWarpsM - 1)) == 0 && (kWarpsN & (kWarpsN - 1)) == 0,
+              "the warps take turns at the row counts by chunk & (warps - 1)");
+
+struct PlaneMaps {
+  CUtensorMap a, b;   // the [n, 4, W] planes of the two operands
+};
+
+__device__ __forceinline__ void mma_b1(int (&d)[4], const uint32_t (&a)[4],
+                                       const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
-__global__ void __launch_bounds__(kThreads)
-popcount_gram_kernel(const uint32_t* __restrict__ pa, const uint32_t* __restrict__ pb,
-                     int64_t W, int r0, int rb, int c0, int m,
-                     int32_t* __restrict__ matches, int32_t* __restrict__ nunion) {
-  __shared__ uint32_t As[kKW][kPlanes][kPadRows];
-  __shared__ uint32_t Bs[kKW][kPlanes][kPadRows];
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
+}
 
-  const int tx = threadIdx.x % kThreadsX;
-  const int ty = threadIdx.x / kThreadsX;
-  const int row0 = blockIdx.y * kBM;  // first local output row of the tile
-  const int col0 = blockIdx.x * kBN;  // first local output column of the tile
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               :: "r"(bar), "r"(bytes) : "memory");
+}
 
-  int accm[kTM][kTN];
-  int accu[kTM][kTN];
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
+}
+
+// waits for the phase of parity ``parity`` to complete; a barrier that never
+// completes (a fault in the ring) traps instead of hanging the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  for (unsigned spins = 0;; ++spins) {
+    uint32_t done;
+    asm volatile(
+        "{\n"
+        ".reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n"
+        "}\n"
+        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+    if (done) return;
+    if (spins > kSpinLimit) __trap();
+  }
+}
+
+// one box (rows x 128 B of one plane) from global to this block's shared
+// memory; completes, with its bytes, on the mbarrier ``bar``
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                            int word, int plane, int row) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5}], [%2];\n"
+      :: "r"(dst), "l"(map), "r"(bar), "r"(word), "r"(plane), "r"(row) : "memory");
+}
+
+// the AND of the registers of x whose plane is in subset S (a bit mask)
+template <int S>
+__device__ __forceinline__ uint32_t subset_and(uint32_t x0, uint32_t x1, uint32_t x2,
+                                               uint32_t x3) {
+  uint32_t v = 0xFFFFFFFFu;
+  if constexpr (S & 1) v &= x0;
+  if constexpr (S & 2) v &= x1;
+  if constexpr (S & 4) v &= x2;
+  if constexpr (S & 8) v &= x3;
+  return v;
+}
+
+// the accumulator set of subset S: 0 odd size, 1 pairs, 2 the 4-plane subset
+template <int S>
+constexpr int kSubsetSet =
+    ((S & 1) + ((S >> 1) & 1) + ((S >> 2) & 1) + ((S >> 3) & 1)) == 2 ? 1 : S == 15 ? 2 : 0;
+
+// One k256 step of subset S: the operands from the plane fragments ra (rows
+// grp and grp + 8 of each mma tile; .x and .y the two k halves) and rb, then
+// the warp's mma into the subset's accumulator set.  For the 4-plane subset,
+// the N mask, also the popcounts of the operands this warp is due to count.
+template <int S>
+__device__ __forceinline__ void subset_step(int (&acc)[3][kMT][kNT][4],
+                                            const uint2 (&ra)[kPlanes][kMT][2],
+                                            const uint2 (&rb)[kPlanes][kNT],
+                                            bool count_a, bool count_b,
+                                            int (&cnt_a)[kMT][2], int (&cnt_b)[kNT]) {
+  uint32_t a[kMT][4], b[kNT][2];
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
+  for (int i = 0; i < kMT; ++i) {
+    a[i][0] = subset_and<S>(ra[0][i][0].x, ra[1][i][0].x, ra[2][i][0].x, ra[3][i][0].x);
+    a[i][1] = subset_and<S>(ra[0][i][1].x, ra[1][i][1].x, ra[2][i][1].x, ra[3][i][1].x);
+    a[i][2] = subset_and<S>(ra[0][i][0].y, ra[1][i][0].y, ra[2][i][0].y, ra[3][i][0].y);
+    a[i][3] = subset_and<S>(ra[0][i][1].y, ra[1][i][1].y, ra[2][i][1].y, ra[3][i][1].y);
+  }
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      accm[i][j] = 0;
-      accu[i][j] = 0;
+  for (int j = 0; j < kNT; ++j) {
+    b[j][0] = subset_and<S>(rb[0][j].x, rb[1][j].x, rb[2][j].x, rb[3][j].x);
+    b[j][1] = subset_and<S>(rb[0][j].y, rb[1][j].y, rb[2][j].y, rb[3][j].y);
+  }
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) mma_b1(acc[kSubsetSet<S>][i][j], a[i], b[j]);
+  if constexpr (S == 15) {
+    if (count_a) {
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) {
+        cnt_a[i][0] += __popc(a[i][0]) + __popc(a[i][2]);
+        cnt_a[i][1] += __popc(a[i][1]) + __popc(a[i][3]);
+      }
+    }
+    if (count_b) {
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) cnt_b[j] += __popc(b[j][0]) + __popc(b[j][1]);
     }
   }
+}
 
-  for (int64_t k0 = 0; k0 < W; k0 += kKW) {
-    // stage the chunk: index = (row, word) with the word fastest, so a warp
-    // reads 64-byte runs of consecutive words of each plane
-    for (int idx = threadIdx.x; idx < kBM * kKW; idx += kThreads) {
-      const int k = idx % kKW;
-      const int r = idx / kKW;
-      const int64_t w = k0 + k;
-      stage_word(pa, w < W && row0 + r < rb, (int64_t)r0 + row0 + r, W, w, k, r, As);
-      stage_word(pb, w < W && col0 + r < m, (int64_t)c0 + col0 + r, W, w, k, r, Bs);
+__global__ void __launch_bounds__(kThreads, 1)
+popcount_gram_kernel(const __grid_constant__ PlaneMaps maps, int64_t W, int r0, int rb, int c0,
+                     int m, int part_chunks, int32_t* __restrict__ matches,
+                     int32_t* __restrict__ nunion) {
+  // the ring: stage s holds, plane by plane, [A rows | B rows][128 B] of one
+  // chunk, every tile at a multiple of 1,024 B (the swizzle's period)
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ __align__(8) uint64_t bars[2 * kStages];   // full[s], then empty[s]
+  __shared__ int row_cnt[kBM];   // N sites of the tile's A rows, this block's words
+  __shared__ int col_cnt[kBN];   // and of its B rows
+  const uint32_t pad = (1024u - ((uint32_t)__cvta_generic_to_shared(smem_raw) & 1023u)) & 1023u;
+  const uint8_t* ring = smem_raw + pad;
+  const uint32_t ring_addr = (uint32_t)__cvta_generic_to_shared(ring);
+  const uint32_t bar0 = (uint32_t)__cvta_generic_to_shared(bars);
+  auto full = [&](int s) { return bar0 + 8 * s; };
+  auto empty = [&](int s) { return bar0 + 8 * (kStages + s); };
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int row0 = blockIdx.y * kBM;
+  const int col0 = blockIdx.x * kBN;
+
+  // this block's part of the word axis, in chunks
+  const int n_chunks = (int)((W + kKW - 1) / kKW);
+  const int chunk0 = blockIdx.z * part_chunks;
+  const int chunk1 = min(n_chunks, chunk0 + part_chunks);
+
+  if (threadIdx.x < kBM) row_cnt[threadIdx.x] = 0;
+  if (threadIdx.x < kBN) col_cnt[threadIdx.x] = 0;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full(s), 1);                    // the copying thread's arrive; the copies add bytes
+      mbar_init(empty(s), kThreads / 32);       // one arrive a warp
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-#pragma unroll 2
-    for (int k = 0; k < kKW; ++k) {
-      uint32_t a[kPlanes][kTM], b[kPlanes][kTN];
+  // the copies of one chunk into its stage, by the block's first thread.
+  // What a box reads past the operand's last row or word arrives as zeros.
+  auto load = [&](int chunk) {
+    const int s = (chunk - chunk0) % kStages;
+    mbar_expect_tx(full(s), kStageBytes);
+    const uint32_t dst = ring_addr + s * kStageBytes;
+#pragma unroll
+    for (int p = 0; p < kPlanes; ++p) {
+      tma_load_3d(dst + p * kPlaneBytes, &maps.a, full(s), chunk * kKW, p, r0 + row0);
+      tma_load_3d(dst + p * kPlaneBytes + kTileBytesA, &maps.b, full(s), chunk * kKW, p,
+                  c0 + col0);
+    }
+  };
+  if (threadIdx.x == 0)
+    for (int chunk = chunk0; chunk < min(chunk1, chunk0 + kStages); ++chunk) load(chunk);
+
+  const int grp = lane >> 2;   // row of a 16x8 tile's A fragment, column of its B fragment
+  const int tig = lane & 3;    // k slot of the fragments, column pair of the accumulator
+  const int wy = warp / kWarpsN, wx = warp % kWarpsN;
+  const int wm = wy * 16 * kMT;   // the warp's rows inside the block tile
+  const int wn = wx * 8 * kNT;    // the warp's columns inside the block tile
+
+  // Which staged row plays row ``grp`` of a fragment is free, as long as the
+  // stores follow: fragment row (column) g of a group of 8 is staged row
+  // perm(g) = 2 (g % 4) + g / 4, so that the 4 rows a half-warp loads from
+  // differ in the bits the swizzle mixes into the address and its 8-byte
+  // loads fall on all 32 banks once.  Piece q (16 bytes) of staged row r lies
+  // at piece q ^ (r % 8): the 128-byte swizzle of the tensor maps.
+  auto perm = [](int g) { return 2 * (g & 3) + (g >> 2); };
+  const int prow = perm(grp);
+  const int frag_a = (wm + prow) * (kKW * 4) + 8 * (tig & 1);
+  const int frag_b = kTileBytesA + (wn + prow) * (kKW * 4) + 8 * (tig & 1);
+
+  int acc[3][kMT][kNT][4];   // odd-size subsets, pairs, the 4-plane subset
+#pragma unroll
+  for (int s = 0; s < 3; ++s)
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int j = 0; j < kNT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[s][i][j][e] = 0;
+  int cnt_a[kMT][2] = {}, cnt_b[kNT] = {};
+
+  for (int chunk = chunk0; chunk < chunk1; ++chunk) {
+    const int it = chunk - chunk0, s = it % kStages;
+    // the stage of the chunk before this one is refilled, kStages chunks on,
+    // as soon as every warp has read it
+    if (threadIdx.x == 0 && it >= 1 && chunk - 1 + kStages < chunk1) {
+      mbar_wait(empty((it - 1) % kStages), ((it - 1) / kStages) & 1);
+      load(chunk - 1 + kStages);
+    }
+    __syncwarp();
+    mbar_wait(full(s), (it / kStages) & 1);
+    const uint8_t* cur = ring + s * kStageBytes;
+    // the warps that share this warp's A rows (B rows) take turns by chunk
+    const bool count_a = wx == (chunk & (kWarpsN - 1));
+    const bool count_b = wy == (chunk & (kWarpsM - 1));
+#pragma unroll
+    for (int ks = 0; ks < kKW / 8; ++ks) {
+      // the thread's 8 bytes of the k256 step: the two k halves of its mma
+      const int piece = ((2 * ks + (tig >> 1)) ^ prow) * 16;
+      uint2 ra[kPlanes][kMT][2], rbv[kPlanes][kNT];
 #pragma unroll
       for (int p = 0; p < kPlanes; ++p) {
+        const uint8_t* Ap = cur + p * kPlaneBytes + frag_a + piece;
+        const uint8_t* Bp = cur + p * kPlaneBytes + frag_b + piece;
 #pragma unroll
-        for (int i = 0; i < kTM; ++i) a[p][i] = As[k][p][ty + kThreadsY * i];
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) b[p][j] = Bs[k][p][tx + kThreadsX * j];
-      }
-#pragma unroll
-      for (int i = 0; i < kTM; ++i) {
-#pragma unroll
-        for (int j = 0; j < kTN; ++j) {
-          const uint32_t shared = (a[0][i] & b[0][j]) | (a[1][i] & b[1][j]) |
-                                  (a[2][i] & b[2][j]) | (a[3][i] & b[3][j]);
-          accm[i][j] += __popc(shared);
-          accu[i][j] += __popc(a[4][i] | b[4][j]);
+        for (int i = 0; i < kMT; ++i) {
+          ra[p][i][0] = *reinterpret_cast<const uint2*>(Ap + (i * 16) * (kKW * 4));
+          ra[p][i][1] = *reinterpret_cast<const uint2*>(Ap + (i * 16 + 8) * (kKW * 4));
         }
+#pragma unroll
+        for (int j = 0; j < kNT; ++j)
+          rbv[p][j] = *reinterpret_cast<const uint2*>(Bp + (j * 8) * (kKW * 4));
       }
+      // the 15 subsets, in an order in which each shares planes with the last
+      subset_step<1>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+      subset_step<3>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+      subset_step<2>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+      subset_step<6>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+      subset_step<7>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+      subset_step<5>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+      subset_step<4>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+      subset_step<12>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+      subset_step<13>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+      subset_step<15>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+      subset_step<14>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+      subset_step<10>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+      subset_step<11>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+      subset_step<9>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+      subset_step<8>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
     }
-    __syncthreads();
+    // this warp has read the stage: it may be filled again
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty(s));
   }
 
+  // the row counts: a row's words lie with the 4 threads of its group
 #pragma unroll
-  for (int i = 0; i < kTM; ++i) {
-    const int r = row0 + ty + kThreadsY * i;
-    if (r >= rb) continue;
+  for (int i = 0; i < kMT; ++i)
 #pragma unroll
-    for (int j = 0; j < kTN; ++j) {
-      const int c = col0 + tx + kThreadsX * j;
-      if (c >= m) continue;
-      const int64_t o = (int64_t)r * m + c;
-      matches[o] = accm[i][j];
-      nunion[o] = accu[i][j];
+    for (int h = 0; h < 2; ++h) {
+      int v = cnt_a[i][h];
+      v += __shfl_xor_sync(0xFFFFFFFFu, v, 1);
+      v += __shfl_xor_sync(0xFFFFFFFFu, v, 2);
+      if (tig == 0 && v) atomicAdd(&row_cnt[wm + i * 16 + 8 * h + prow], v);
+    }
+#pragma unroll
+  for (int j = 0; j < kNT; ++j) {
+    int v = cnt_b[j];
+    v += __shfl_xor_sync(0xFFFFFFFFu, v, 1);
+    v += __shfl_xor_sync(0xFFFFFFFFu, v, 2);
+    if (tig == 0 && v) atomicAdd(&col_cnt[wn + j * 8 + prow], v);
+  }
+  __syncthreads();
+
+  const bool add = gridDim.z > 1;
+#pragma unroll
+  for (int i = 0; i < kMT; ++i)
+#pragma unroll
+    for (int j = 0; j < kNT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        // accumulator element e: fragment row grp + 8 (e / 2), fragment column
+        // 2 tig + e % 2, each the staged row perm() gives it
+        const int lr = wm + i * 16 + 8 * (e >> 1) + prow;
+        const int lc = wn + j * 8 + perm(2 * tig + (e & 1));
+        const int r = row0 + lr, c = col0 + lc;
+        if (r >= rb || c >= m) continue;
+        const int64_t o = (int64_t)r * m + c;
+        const int quad = acc[2][i][j][e];
+        const int vm = acc[0][i][j][e] - acc[1][i][j][e] - quad;
+        const int vu = row_cnt[lr] + col_cnt[lc] - quad;
+        if (add) {
+          atomicAdd(matches + o, vm);
+          atomicAdd(nunion + o, vu);
+        } else {
+          matches[o] = vm;
+          nunion[o] = vu;
+        }
+      }
+}
+
+// parts of the word axis for ``tiles`` output tiles on ``sms`` SMs (one block
+// an SM): the smallest s that minimises ceil(tiles * s / sms) / s, the sweep's
+// time in units of one whole tile, while a part keeps kMinSplitChunks chunks
+int choose_splits(long long tiles, int sms, int n_chunks) {
+  int best = 1;
+  double best_cost = (double)((tiles + sms - 1) / sms);
+  for (int s = 2; s <= kMaxSplits && n_chunks / s >= kMinSplitChunks; ++s) {
+    const double cost = (double)((tiles * s + sms - 1) / sms) / s;
+    if (cost < best_cost * 0.98) {
+      best = s;
+      best_cost = cost;
     }
   }
+  return best;
+}
+
+using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// the tensor map of the first ``n`` rows of [.., 4, W] planes with a box of
+// ``box_rows`` rows x 128 B of one plane in the 128-byte swizzle; what a box
+// reads past the tensor's edge arrives as zeros
+int encode_map(EncodeTiledFn encode, CUtensorMap* map, const void* base, long long W,
+               long long n, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)W, 4, (cuuint64_t)n};
+  const cuuint64_t strides[2] = {(cuuint64_t)W * 4, (cuuint64_t)W * 16};
+  const cuuint32_t box[3] = {kKW, 1, (cuuint32_t)box_rows};
+  const cuuint32_t ones[3] = {1, 1, 1};
+  const CUresult rc = encode(
+      map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 3, const_cast<void*>(base), dims, strides, box, ones,
+      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
-
 // C entry point, loaded with ctypes (tracs_tpu_torch/ops/kernels.py).
 //
 // pa : A planes, [n_a, 4, W] uint32, contiguous
 // pb : B planes, [n_b, 4, W] uint32, contiguous
+// W  : words of a plane row, a multiple of 4 below 2^23; both pointers
+//      16-byte aligned
 // rows [r0, r0+rb) of A against rows [c0, c0+m) of B, where m = n_b - c0
+// word_splits : parts of the word axis; 0 = chosen here from the tile count
+//               and the card's SM count
 // matches, nunion : int32 [rb, m] outputs, contiguous
 // stream : the cudaStream_t to launch on
 //
-// Returns cudaGetLastError() after the launch (0 = cudaSuccess).  The
-// caller checks every bound; the kernel does not synchronise.
+// Returns the first CUDA error of the set-up or cudaGetLastError() after the
+// launch (0 = cudaSuccess).  The caller checks every bound; the kernel does
+// not synchronise.
 extern "C" int tracs_popcount_gram(const void* pa, const void* pb, long long W,
-                                   int r0, int rb, int c0, int m, void* matches,
-                                   void* nunion, void* stream) {
+                                   int r0, int rb, int c0, int m, int word_splits,
+                                   void* matches, void* nunion, void* stream) {
   if (rb <= 0 || m <= 0) return 0;
-  const dim3 grid((m + kBN - 1) / kBN, (rb + kBM - 1) / kBM);
-  popcount_gram_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(pa), static_cast<const uint32_t*>(pb),
-      static_cast<int64_t>(W), r0, rb, c0, m, static_cast<int32_t*>(matches),
-      static_cast<int32_t*>(nunion));
+  if (W % 4 || W >= (1LL << 23)) return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (W == 0) {   // no site: both counts are zero, and a tensor map cannot be empty
+    const size_t bytes = (size_t)rb * m * sizeof(int32_t);
+    if ((err = cudaMemsetAsync(matches, 0, bytes, st)) == cudaSuccess)
+      err = cudaMemsetAsync(nunion, 0, bytes, st);
+    return static_cast<int>(err);
+  }
+  // libcuda's encoder, reached through the runtime: the build links nothing else
+  static EncodeTiledFn encode = nullptr;
+  if (encode == nullptr) {
+    void* fn = nullptr;
+    err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
+    encode = reinterpret_cast<EncodeTiledFn>(fn);
+  }
+  // the maps end at the block's last row and at n_b = c0 + m
+  PlaneMaps maps;
+  int rc;
+  if ((rc = encode_map(encode, &maps.a, pa, W, (long long)r0 + rb, kBM))) return rc;
+  if ((rc = encode_map(encode, &maps.b, pb, W, (long long)c0 + m, kBN))) return rc;
+  err = cudaFuncSetAttribute(
+      popcount_gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const int tiles_n = (m + kBN - 1) / kBN, tiles_m = (rb + kBM - 1) / kBM;
+  const int n_chunks = (int)((W + kKW - 1) / kKW);
+  int splits = word_splits;
+  if (splits <= 0) {
+    int dev = 0, sms = 0;
+    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    splits = choose_splits((long long)tiles_n * tiles_m, sms, n_chunks);
+  }
+  if (splits > n_chunks) splits = n_chunks;
+  const int part_chunks = (n_chunks + splits - 1) / splits;
+  splits = (n_chunks + part_chunks - 1) / part_chunks;  // no part is empty
+  if (splits > 1) {
+    const size_t bytes = (size_t)rb * m * sizeof(int32_t);
+    if ((err = cudaMemsetAsync(matches, 0, bytes, st)) != cudaSuccess)
+      return static_cast<int>(err);
+    if ((err = cudaMemsetAsync(nunion, 0, bytes, st)) != cudaSuccess)
+      return static_cast<int>(err);
+  }
+  const dim3 grid(tiles_n, tiles_m, splits);
+  popcount_gram_kernel<<<grid, kThreads, kSmemBytes, st>>>(
+      maps, static_cast<int64_t>(W), r0, rb, c0, m, part_chunks,
+      static_cast<int32_t*>(matches), static_cast<int32_t*>(nunion));
   return static_cast<int>(cudaGetLastError());
 }

@@ -30,15 +30,22 @@
 //         scaled by 1/4 and added to the int32 output every ``flush_words``
 //         words, before any partial count can reach 2^24.
 //
-// Design of the mma.sync variants (b1 at 64 x 64, s8, bf16).  A block owns a
-// BM x BN output tile and walks the word axis in chunks of 16 words staged in
-// shared memory with plain 4-byte loads, 5 planes (4 exclusive planes + the N
-// mask) of BM A rows and BN B rows, two barriers a chunk.  Each warp owns a
+// Design of the mma.sync variants (b1 at 64 x 64, s8, bf16): one template,
+// the staging of csrc/split_gram.cu (K1).  A block owns a BM x BN output tile
+// and walks the word axis in chunks of 16 words through a ring of two chunk
+// buffers in shared memory, 5 planes (4 exclusive planes + the N mask) of BM
+// A rows and BN B rows each: while the warps work on one chunk, the 16-byte
+// cp.async copies of the next are in flight, and one __syncthreads() a chunk
+// orders both the arrival of a buffer and its reuse.  Each warp owns a
 // 32 x 32 sub-tile: 2 x 4 mma tiles of 16 x 8, for both grams, 64 accumulator
 // registers a thread.  The sum over sites does not depend on the order of the
 // sites, so any assignment of bits to the k slots of a fragment is right as
-// long as the A and B operands use the same one; the unpack routines use that
-// freedom.
+// long as the A and B operands use the same one: a thread (tig = lane % 4)
+// takes the words 4 tig .. 4 tig + 3 of a staged row with one 16-byte load
+// off unpadded 16-word rows, on both sides, and the unpack routines take
+// their words from that piece.  The bf16 variant adds its accumulators to
+// the outputs in the middle of the walk; every output element belongs to one
+// thread, so that flush races nothing.
 //
 // Design of the wgmma variant (b1 at 128 x 128).  A block of two consumer
 // warpgroups, 64 rows x 128 columns each with both grams in registers (2 x 64
@@ -85,17 +92,25 @@
 // What bounds it on an H100.  The work is 5 bit-products per site and output
 // (rb * m * 32 W * 5 multiply-adds), a matrix product far above the card's
 // bytes-per-operation line; the least time is that work at the tensor cores'
-// dense int8 rate.  The s8 and bf16 variants spend 2 integer operations per
-// unpacked register besides, on the CUDA cores, and with b1 at 64 x 64 their
-// synchronous staging leaves the tensor cores idle while a chunk loads.  The
-// wgmma variant is bound by what arrives in shared memory: a block on its own
-// copies at about 4.5 TB/s from L2 (9 ms for the rb=1024 x n=4096 x 1 Mb
-// block), a 2 x 2 cluster takes 6 ms, and larger clusters no less, because
-// every SM still takes in its 32 KB a slot (41 GB a block in all, near 7
-// TB/s); its wgmma alone would take 2.7 ms (NVIDIA H100 80GB HBM3, 700 W;
-// experiments/tensor_rate.py measures 15.8 POP/s for b1 wgmma, 8 times the
-// int8 rate: an instruction takes the same time in both types).  A larger
-// tile per SM is what would move it.
+// rate for the operand type.  Measured on an NVIDIA H100 80GB HBM3 at 700 W
+// for the rb=1024 x n=4096 x 1 Mb block (experiments/split_gram_probe.py
+// times each variant's copies alone, its unpack alone and its mma alone):
+//   b1 at 64 x 64 (25 ms) is bound by its copies: a 64 x 64 tile brings twice
+//   K1's bytes from L2 an output, 82 GB a block, and the copies alone take as
+//   long as the whole kernel while its mma take 7 ms;
+//   s8 (61 ms shift, 86 ms nibble) by the warps' instruction stream: the
+//   unpack alone (2 integer operations a register for shift, 3 for nibble)
+//   takes 43 and 53 ms, the s8 mma alone 48 ms (mma.sync reaches 65% of the
+//   int8 rate wgmma does), the two overlap only in part, and the copies
+//   (12 ms) hide behind them;
+//   bf16 (112 ms) the same way: its mma alone 87 ms, its unpack alone 73 ms.
+// The wgmma variant is bound by what arrives in shared memory: a block on its
+// own copies at about 4.5 TB/s from L2 (9 ms for that block), a 2 x 2 cluster
+// takes 6 ms, and larger clusters no less, because every SM still takes in
+// its 32 KB a slot (41 GB a block in all, near 7 TB/s); its wgmma alone would
+// take 2.7 ms (experiments/tensor_rate.py measures 15.8 POP/s for b1 wgmma,
+// 8 times the int8 rate: an instruction takes the same time in both types).
+// A larger tile per SM is what would move it.
 
 #include <cstdint>
 #include <cuda.h>
@@ -103,13 +118,11 @@
 
 namespace {
 
-constexpr int kKW = 16;           // words per staged chunk
-// row pitch of the staged tiles in words: a fragment load reads 8 rows x 4
-// consecutive words per warp, and a pitch of 20 puts those on 32 banks
-constexpr int kPitch = kKW + 4;
+constexpr int kKW = 16;           // words per staged chunk: four 16-byte pieces a row
 constexpr int kPlanes = 5;        // 4 exclusive planes + the N mask
 constexpr int kMT = 2;            // 16-row mma tiles per warp (32 rows)
 constexpr int kNT = 4;            // 8-column mma tiles per warp (32 columns)
+constexpr int kPieces = kKW / 4;  // 16-byte pieces of a staged row
 
 enum Dot { kB1 = 0, kS8Shift = 1, kS8Nibble = 2, kBF16 = 3 };
 
@@ -161,44 +174,56 @@ __device__ __forceinline__ uint32_t unpack(uint32_t w, int reg) {
   else return unpack_bf16(w, reg);
 }
 
-__device__ __forceinline__ uint32_t load_word(
-    const uint32_t* __restrict__ e, const uint32_t* __restrict__ nm,
-    int64_t row, int plane, int64_t W, int64_t w) {
-  return plane < 4 ? e[(row * 4 + plane) * W + w] : nm[row * W + w];
+// 16 bytes from global to shared memory, asynchronously, past L1; ``bytes``
+// is 16, or 0 to fill the 16 bytes with zeros and read nothing
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(dst), "l"(src), "r"(bytes) : "memory");
 }
 
-// stage ROWS rows x 5 planes x kKW words, the word index fastest so that a
-// warp reads 64-byte runs; rows >= valid and words >= W are staged as zero
-template <int ROWS, int THREADS>
-__device__ __forceinline__ void stage(uint32_t* __restrict__ s,
-                                      const uint32_t* __restrict__ e,
-                                      const uint32_t* __restrict__ nm,
-                                      int64_t first_row, int valid, int64_t W,
-                                      int64_t k0) {
-  for (int idx = threadIdx.x; idx < ROWS * kPlanes * kKW; idx += THREADS) {
-    const int k = idx % kKW;
-    const int p = (idx / kKW) % kPlanes;
-    const int r = idx / (kKW * kPlanes);
-    uint32_t v = 0u;
-    if (k0 + k < W && r < valid) v = load_word(e, nm, first_row + r, p, W, k0 + k);
-    s[(p * ROWS + r) * kPitch + k] = v;
-  }
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// waits until at most PENDING of this thread's copy groups are in flight
+template <int PENDING>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" :: "n"(PENDING) : "memory");
+}
+
+// word c of 4 of a 16-byte piece
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int c) {
+  return c == 0 ? v.x : c == 1 ? v.y : c == 2 ? v.z : v.w;
 }
 
 template <int DOT> struct AccType { using type = int; };
 template <> struct AccType<kBF16> { using type = float; };
 
-template <int DOT, int BM, int BN>
-__global__ void __launch_bounds__((BM / 32) * (BN / 32) * 32)
+// the ring of a (tile, depth): threads, staged rows and bytes
+template <int BM, int BN, int STAGES>
+struct Ring {
+  static constexpr int kThreads = (BM / 32) * (BN / 32) * 32;
+  static constexpr int kRows = BM + BN;                     // staged rows a plane
+  static constexpr int kStageWords = kPlanes * kRows * kKW;
+  static constexpr int kSmemBytes = STAGES * kStageWords * (int)sizeof(uint32_t);
+  static constexpr int kPasses = kRows * kPieces / kThreads;   // staged rows a thread copies
+  static_assert(STAGES >= 2 && kSmemBytes <= 227 * 1024, "the ring fits an SM");
+  static_assert(kRows * kPieces % kThreads == 0, "every thread copies kPasses rows a plane");
+  static_assert(BM % (kThreads / kPieces) == 0, "a pass copies A rows or B rows, not both");
+};
+
+template <int DOT, int BM, int BN, int STAGES, int BLOCKS>
+__global__ void __launch_bounds__((BM / 32) * (BN / 32) * 32, BLOCKS)
 split_gram_mma_kernel(const uint32_t* __restrict__ ea, const uint32_t* __restrict__ nma,
                       const uint32_t* __restrict__ eb, const uint32_t* __restrict__ nmb,
                       int64_t W, int r0, int rb, int c0, int m, int flush_chunks,
                       int32_t* __restrict__ g, int32_t* __restrict__ gn) {
   using acc_t = typename AccType<DOT>::type;
-  constexpr int kThreads = (BM / 32) * (BN / 32) * 32;
-  extern __shared__ uint32_t smem[];
-  uint32_t* As = smem;                            // [kPlanes][BM][kPitch]
-  uint32_t* Bs = smem + kPlanes * BM * kPitch;    // [kPlanes][BN][kPitch]
+  using R = Ring<BM, BN, STAGES>;
+  constexpr int kThreads = R::kThreads, kRows = R::kRows, kStageWords = R::kStageWords;
+  constexpr int kPasses = R::kPasses;
+  // [stage][plane][A rows, then B rows][kKW words]
+  extern __shared__ __align__(16) uint32_t smem[];
 
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
@@ -208,6 +233,44 @@ split_gram_mma_kernel(const uint32_t* __restrict__ ea, const uint32_t* __restric
   const int wn = (warp % (BN / 32)) * 32;   // the warp's columns inside the block tile
   const int row0 = blockIdx.y * BM;
   const int col0 = blockIdx.x * BN;
+  const int n_chunks = (int)((W + kKW - 1) / kKW);
+
+  // staging: piece sq (4 words) of the staged rows sr + pass * (kThreads /
+  // kPieces), every plane; staged rows below BM are A rows, the others B rows
+  const int sq = threadIdx.x % kPieces;
+  const int sr = threadIdx.x / kPieces;
+  const uint32_t* src_e[kPasses];   // the row's piece in plane 0; plane p is p * W on
+  const uint32_t* src_n[kPasses];   // the row's piece in the mask
+  bool in_rows[kPasses];
+#pragma unroll
+  for (int pass = 0; pass < kPasses; ++pass) {
+    const int row = sr + pass * (kThreads / kPieces);
+    const bool side_b = row >= BM;
+    in_rows[pass] = side_b ? col0 + row - BM < m : row0 + row < rb;
+    const int64_t src_row =
+        !in_rows[pass] ? 0 : side_b ? (int64_t)c0 + col0 + row - BM : (int64_t)r0 + row0 + row;
+    src_e[pass] = (side_b ? eb : ea) + src_row * 4 * W + sq * 4;
+    src_n[pass] = (side_b ? nmb : nma) + src_row * W + sq * 4;
+  }
+  const uint32_t dst0 =
+      (uint32_t)__cvta_generic_to_shared(smem) + (sr * kKW + sq * 4) * (int)sizeof(uint32_t);
+
+  auto stage = [&](int buf, int chunk) {
+    const int64_t k0 = (int64_t)chunk * kKW;
+    const bool in_w = k0 + sq * 4 < W;   // W is a multiple of 4: a piece is in or out whole
+    constexpr int kPlaneBytes = kRows * kKW * (int)sizeof(uint32_t);
+    constexpr int kPassBytes = (kThreads / kPieces) * kKW * (int)sizeof(uint32_t);
+#pragma unroll
+    for (int pass = 0; pass < kPasses; ++pass) {
+      const int bytes = in_rows[pass] && in_w ? 16 : 0;
+      const uint32_t dst = dst0 + buf * kStageWords * (int)sizeof(uint32_t) + pass * kPassBytes;
+      // a piece that reads nothing names the layout's first word as its source
+#pragma unroll
+      for (int p = 0; p < 4; ++p)
+        cp_async16(dst + p * kPlaneBytes, bytes ? src_e[pass] + p * W + k0 : ea, bytes);
+      cp_async16(dst + 4 * kPlaneBytes, bytes ? src_n[pass] + k0 : nma, bytes);
+    }
+  };
 
   acc_t acc4[kMT][kNT][4];
   acc_t accn[kMT][kNT][4];
@@ -221,7 +284,10 @@ split_gram_mma_kernel(const uint32_t* __restrict__ ea, const uint32_t* __restric
         accn[i][j][e] = 0;
       }
 
-  // adds (flushed == true) or stores the accumulators' counts to the outputs
+  // adds (flushed == true) or stores the accumulators' counts to the outputs.
+  // Every output element belongs to one thread of one block, which is the
+  // only one to read or write it, in program order: a flush in the middle of
+  // the walk races nothing, whatever copies are in flight.
   auto flush = [&](bool flushed) {
 #pragma unroll
     for (int i = 0; i < kMT; ++i)
@@ -252,26 +318,40 @@ split_gram_mma_kernel(const uint32_t* __restrict__ ea, const uint32_t* __restric
         }
   };
 
-  // one staged chunk of plane p into the accumulators acc
-  auto plane = [&](acc_t (&acc)[kMT][kNT][4], int p) {
-    const uint32_t* Ap = As + (p * BM + wm + grp) * kPitch + tig;
-    const uint32_t* Bp = Bs + (p * BN + wn + grp) * kPitch + tig;
-    if constexpr (DOT == kB1) {
-      // one mma covers 8 words: k slot tig takes words tig and 4 + tig
+  // one staged chunk of plane p into the accumulators acc.  A thread takes
+  // the piece tig, words 4 tig .. 4 tig + 3, of each of its staged rows with
+  // one 16-byte load, on the A and on the B side alike: which k slot a site
+  // lands in does not matter to the sum as long as both sides agree.  Rows
+  // are 16 words with no padding: a quarter-warp's loads cover two rows, all
+  // 32 banks once.
+  auto plane = [&](acc_t (&acc)[kMT][kNT][4], const uint32_t* buf, int p) {
+    const uint32_t* Ap = buf + (p * kRows + wm + grp) * kKW + 4 * tig;
+    const uint32_t* Bp = buf + (p * kRows + BM + wn + grp) * kKW + 4 * tig;
+    uint4 wa[kMT][2], wb[kNT];
 #pragma unroll
-      for (int ks = 0; ks < kKW; ks += 8) {
+    for (int i = 0; i < kMT; ++i) {
+      wa[i][0] = *reinterpret_cast<const uint4*>(Ap + (i * 16) * kKW);
+      wa[i][1] = *reinterpret_cast<const uint4*>(Ap + (i * 16 + 8) * kKW);
+    }
+#pragma unroll
+    for (int j = 0; j < kNT; ++j) wb[j] = *reinterpret_cast<const uint4*>(Bp + (j * 8) * kKW);
+    if constexpr (DOT == kB1) {
+      // words 0 and 1 of the piece are the two k halves of the chunk's first
+      // k256 step, words 2 and 3 those of the second
+#pragma unroll
+      for (int c = 0; c < 4; c += 2) {
         uint32_t a[kMT][4], b[kNT][2];
 #pragma unroll
         for (int i = 0; i < kMT; ++i) {
-          a[i][0] = Ap[(i * 16) * kPitch + ks];
-          a[i][1] = Ap[(i * 16 + 8) * kPitch + ks];
-          a[i][2] = Ap[(i * 16) * kPitch + ks + 4];
-          a[i][3] = Ap[(i * 16 + 8) * kPitch + ks + 4];
+          a[i][0] = word_of(wa[i][0], c);
+          a[i][1] = word_of(wa[i][1], c);
+          a[i][2] = word_of(wa[i][0], c + 1);
+          a[i][3] = word_of(wa[i][1], c + 1);
         }
 #pragma unroll
         for (int j = 0; j < kNT; ++j) {
-          b[j][0] = Bp[(j * 8) * kPitch + ks];
-          b[j][1] = Bp[(j * 8) * kPitch + ks + 4];
+          b[j][0] = word_of(wb[j], c);
+          b[j][1] = word_of(wb[j], c + 1);
         }
 #pragma unroll
         for (int i = 0; i < kMT; ++i)
@@ -279,33 +359,25 @@ split_gram_mma_kernel(const uint32_t* __restrict__ ea, const uint32_t* __restric
           for (int j = 0; j < kNT; ++j) mma_b1(acc[i][j], a[i], b[j]);
       }
     } else {
-      // k slot tig takes word tig of each group of 4 words and unpacks it
-      // to kRegs registers; each mma consumes 2 of them per operand row
+      // word c of the piece is unpacked to kRegs registers; each mma
+      // consumes 2 of them per operand row
       constexpr int kRegs = DOT == kBF16 ? 16 : 8;
 #pragma unroll
-      for (int ks = 0; ks < kKW; ks += 4) {
-        uint32_t wa[kMT][2], wb[kNT];
-#pragma unroll
-        for (int i = 0; i < kMT; ++i) {
-          wa[i][0] = Ap[(i * 16) * kPitch + ks];
-          wa[i][1] = Ap[(i * 16 + 8) * kPitch + ks];
-        }
-#pragma unroll
-        for (int j = 0; j < kNT; ++j) wb[j] = Bp[(j * 8) * kPitch + ks];
+      for (int c = 0; c < 4; ++c) {
 #pragma unroll
         for (int q = 0; q < kRegs; q += 2) {
           uint32_t a[kMT][4], b[kNT][2];
 #pragma unroll
           for (int i = 0; i < kMT; ++i) {
-            a[i][0] = unpack<DOT>(wa[i][0], q);
-            a[i][1] = unpack<DOT>(wa[i][1], q);
-            a[i][2] = unpack<DOT>(wa[i][0], q + 1);
-            a[i][3] = unpack<DOT>(wa[i][1], q + 1);
+            a[i][0] = unpack<DOT>(word_of(wa[i][0], c), q);
+            a[i][1] = unpack<DOT>(word_of(wa[i][1], c), q);
+            a[i][2] = unpack<DOT>(word_of(wa[i][0], c), q + 1);
+            a[i][3] = unpack<DOT>(word_of(wa[i][1], c), q + 1);
           }
 #pragma unroll
           for (int j = 0; j < kNT; ++j) {
-            b[j][0] = unpack<DOT>(wb[j], q);
-            b[j][1] = unpack<DOT>(wb[j], q + 1);
+            b[j][0] = unpack<DOT>(word_of(wb[j], c), q);
+            b[j][1] = unpack<DOT>(word_of(wb[j], c), q + 1);
           }
 #pragma unroll
           for (int i = 0; i < kMT; ++i)
@@ -321,23 +393,35 @@ split_gram_mma_kernel(const uint32_t* __restrict__ ea, const uint32_t* __restric
     }
   };
 
+  // the ring: STAGES - 1 chunks are in flight ahead of the one computed
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < n_chunks) stage(s, s);
+    cp_async_commit();
+  }
   bool flushed = false;
   int since = 0;
-  for (int64_t k0 = 0; k0 < W; k0 += kKW) {
-    stage<BM, kThreads>(As, ea, nma, (int64_t)r0 + row0, rb - row0, W, k0);
-    stage<BN, kThreads>(Bs, eb, nmb, (int64_t)c0 + col0, m - col0, W, k0);
+  int buf = 0;   // the buffer of ``chunk``
+  for (int chunk = 0; chunk < n_chunks; ++chunk) {
+    // this chunk has landed, and every warp is done with the buffer of the
+    // chunk before it, which the copies issued next fill again
+    cp_async_wait<STAGES - 2>();
     __syncthreads();
+    const int ahead = chunk + STAGES - 1;
+    if (ahead < n_chunks) stage(buf == 0 ? STAGES - 1 : buf - 1, ahead);
+    cp_async_commit();
 
+    const uint32_t* cur = smem + buf * kStageWords;
 #pragma unroll
     for (int p = 0; p < kPlanes; ++p) {
       if (p < 4)
-        plane(acc4, p);
+        plane(acc4, cur, p);
       else
-        plane(accn, p);
+        plane(accn, cur, p);
     }
-    __syncthreads();
+    buf = buf + 1 == STAGES ? 0 : buf + 1;
 
-    if (DOT == kBF16 && ++since == flush_chunks && k0 + kKW < W) {
+    if (DOT == kBF16 && ++since == flush_chunks && chunk + 1 < n_chunks) {
       flush(flushed);
       flushed = true;
       since = 0;
@@ -355,19 +439,21 @@ split_gram_mma_kernel(const uint32_t* __restrict__ ea, const uint32_t* __restric
   flush(flushed);
 }
 
-template <int DOT, int BM, int BN>
+// STAGES buffers in the ring and BLOCKS blocks an SM (registers and shared
+// memory allowing)
+template <int DOT, int BM, int BN, int STAGES, int BLOCKS>
 int launch(const void* ea, const void* nma, const void* eb, const void* nmb,
            long long W, int r0, int rb, int c0, int m, int flush_chunks,
            void* g, void* gn, void* stream) {
-  constexpr int kThreads = (BM / 32) * (BN / 32) * 32;
-  constexpr int kSmem = kPlanes * (BM + BN) * kPitch * (int)sizeof(uint32_t);
-  auto kern = split_gram_mma_kernel<DOT, BM, BN>;
-  // every tile needs more than the 48 KB a block gets without asking
+  using R = Ring<BM, BN, STAGES>;
+  if (W % 4) return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = split_gram_mma_kernel<DOT, BM, BN, STAGES, BLOCKS>;
+  // every ring needs more than the 48 KB a block gets without asking
   cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmem);
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, R::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((m + BN - 1) / BN, (rb + BM - 1) / BM);
-  kern<<<grid, kThreads, kSmem, static_cast<cudaStream_t>(stream)>>>(
+  kern<<<grid, R::kThreads, R::kSmemBytes, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(ea), static_cast<const uint32_t*>(nma),
       static_cast<const uint32_t*>(eb), static_cast<const uint32_t*>(nmb),
       static_cast<int64_t>(W), r0, rb, c0, m, flush_chunks,
@@ -709,9 +795,8 @@ int launch_wgmma(const void* ea, const void* nma, const void* eb, const void* nm
 // C entry point, loaded with ctypes (tracs_tpu_torch/ops/kernels.py).
 //
 // ea, nma, eb, nmb, W, r0, rb, c0, m, g, gn, stream : as tracs_split_gram
-//               (b1 at tile 128 needs its W a multiple of 4 and 16-byte
-//               aligned pointers, TMA's rule for strides and addresses; the
-//               others take any W)
+//               (W a multiple of 4 and 16-byte aligned pointers: the rule of
+//               the 16-byte cp.async pieces and of TMA's strides and addresses)
 // dot         : 0 = b1, 1 = s8 (shift unpack), 2 = s8 (nibble unpack), 3 = bf16
 // tile        : rows and columns of a block's output tile
 // flush_words : bf16 only: words between two flushes of the f32 accumulators
@@ -727,14 +812,14 @@ extern "C" int tracs_split_gram_mma(const void* ea, const void* nma, const void*
                                     void* g, void* gn, void* stream) {
   if (rb <= 0 || m <= 0) return 0;
   const int fc = flush_words > 0 ? (flush_words + kKW - 1) / kKW : 1 << 30;
-#define TRACS_LAUNCH(DOT, T) \
-  return launch<DOT, T, T>(ea, nma, eb, nmb, W, r0, rb, c0, m, fc, g, gn, stream)
-  if (dot == kB1 && tile == 64) TRACS_LAUNCH(kB1, 64);
+#define TRACS_LAUNCH(DOT, T, STAGES, BLOCKS) \
+  return launch<DOT, T, T, STAGES, BLOCKS>(ea, nma, eb, nmb, W, r0, rb, c0, m, fc, g, gn, stream)
+  if (dot == kB1 && tile == 64) TRACS_LAUNCH(kB1, 64, 2, 2);
   if (dot == kB1 && tile == 128)
     return launch_wgmma(ea, nma, eb, nmb, W, r0, rb, c0, m, g, gn, stream);
-  if (dot == kS8Shift && tile == 128) TRACS_LAUNCH(kS8Shift, 128);
-  if (dot == kS8Nibble && tile == 128) TRACS_LAUNCH(kS8Nibble, 128);
-  if (dot == kBF16 && tile == 128) TRACS_LAUNCH(kBF16, 128);
+  if (dot == kS8Shift && tile == 128) TRACS_LAUNCH(kS8Shift, 128, 2, 1);
+  if (dot == kS8Nibble && tile == 128) TRACS_LAUNCH(kS8Nibble, 128, 2, 1);
+  if (dot == kBF16 && tile == 128) TRACS_LAUNCH(kBF16, 128, 2, 1);
 #undef TRACS_LAUNCH
   return static_cast<int>(cudaErrorInvalidValue);
 }

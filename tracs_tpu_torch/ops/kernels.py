@@ -9,7 +9,10 @@ fed by a ``cp.async`` ring); launches counted in ``SPLIT_GRAM_LAUNCHES``.
 ``popcount_gram`` — the popcount engine: match counts
 ``sum popc(OR_x(a_x & b_x))`` and N-union counts ``sum popc(N_a | N_b)``
 over the raw planes, both from the one CUDA kernel
-``csrc/popcount_gram.cu``; launches counted in ``POPCOUNT_GRAM_LAUNCHES``.
+``csrc/popcount_gram.cu`` (the 15 plane-subset grams of the
+inclusion-exclusion as b1 ``mma.sync`` on subset operands formed in
+registers, fed by TMA loads through an mbarrier ring); launches counted in
+``POPCOUNT_GRAM_LAUNCHES``.
 
 ``split_gram_variant`` — the same two grams as ``split_gram`` from the
 tensor-core kernels ``csrc/split_gram_mma.cu`` (``wgmma`` on b1 operands for
@@ -28,12 +31,13 @@ use, runtime/build.py) and counts the launch; on a CPU tensor it returns its
 the other.
 
 Layouts: packed words are ``int32`` tensors holding the bits of the uint32
-planes; the kernel reads them as ``uint32``.  The kernels that read the split
-layout ([n, 4, W] planes and [n, W] masks) copy it to shared memory 16 bytes
-at a time, so on the card its word pitch ``W`` is a multiple of
-``LAYOUT_WORD_MULTIPLE`` and its storage 16-byte aligned: ``pad_layout`` adds
-the zero words, which add nothing to either gram, and a CUDA layout that
-breaks the rule is refused, not copied.
+planes; the kernel reads them as ``uint32``.  The gram kernels copy their
+operands (the split layout's [n, 4, W] planes and [n, W] masks, the popcount
+engine's [n, 4, W] raw planes) to shared memory 16 bytes at a time, so on the
+card the word pitch ``W`` is a multiple of ``LAYOUT_WORD_MULTIPLE`` and the
+storage 16-byte aligned: ``pad_layout`` and ``pad_planes`` add the zero
+words, which add nothing to any count, and a CUDA operand that breaks the
+rule is refused, not copied.
 """
 
 from __future__ import annotations
@@ -83,9 +87,9 @@ _BF16_FLUSH_WORDS = 131072
 # words per chunk of the plain version: bounds the unpacked float64 operands
 _REFERENCE_BYTES = 512 << 20
 
-#: the word pitch of a split layout on the card is a multiple of this: 4 words
-#: are the 16 bytes of one ``cp.async`` piece, and TMA takes only strides that
-#: are multiples of 16 bytes
+#: the word pitch of a gram kernel's operand on the card is a multiple of
+#: this: 4 words are the 16 bytes of one ``cp.async`` piece, and TMA takes only
+#: strides that are multiples of 16 bytes
 LAYOUT_WORD_MULTIPLE = 4
 
 #: parts into which ``split_gram``'s kernel cuts the word axis, each part a
@@ -94,6 +98,12 @@ LAYOUT_WORD_MULTIPLE = 4
 #: number of output tiles and the card's SM count, so that a narrow block
 #: still fills the card; the card-only tests force other values.
 _SPLIT_GRAM_WORD_SPLITS = 0
+#: the same for ``popcount_gram``'s kernel
+_POPCOUNT_GRAM_WORD_SPLITS = 0
+
+#: ``popcount_gram``'s kernel sums up to 8 plane subsets of 32 sites a word in
+#: one int32 accumulator: 256 * W stays below 2^31 for W below this
+_POPCOUNT_GRAM_MAX_WORDS = 2**23
 
 
 def _as_words(a: np.ndarray) -> torch.Tensor:
@@ -128,6 +138,31 @@ def pad_layout(e: torch.Tensor, nm: torch.Tensor):
     return torch.nn.functional.pad(e, (0, pad)), torch.nn.functional.pad(nm, (0, pad))
 
 
+def pad_planes(p: torch.Tensor) -> torch.Tensor:
+    """Raw planes [n, 4, W] with zero words appended up to a pitch of
+    ``padded_words(W)``, on the tensor's own device; the tensor itself when it
+    already has that pitch.  A zero word shares no allele and has N = 0, so it
+    adds nothing to ``matches`` or ``nunion``; it does read as 32 mismatching
+    sites, which only a length keeps out (``mismatch_positions_kernel``)."""
+    pad = padded_words(p.shape[-1]) - p.shape[-1]
+    return torch.nn.functional.pad(p, (0, pad)) if pad else p
+
+
+def _check_pitch(tensors, words: int, what: str, helper: str) -> None:
+    """Raises unless, off the CPU, the operand ``tensors`` of ``words`` words a
+    row keep the gram kernels' rule: a word pitch that is a multiple of
+    ``LAYOUT_WORD_MULTIPLE`` and 16-byte aligned storage."""
+    if tensors[0].device.type == "cpu":
+        return
+    aligned = tensors[0].device.type != "cuda" or not any(t.data_ptr() % 16 for t in tensors)
+    if words % LAYOUT_WORD_MULTIPLE or not aligned:
+        raise ValueError(
+            f"{what}: on the card a gram kernel's operand needs a word pitch that is a "
+            f"multiple of {LAYOUT_WORD_MULTIPLE} and 16-byte aligned storage (the kernels copy "
+            f"it 16 bytes at a time), got {words} words; pad it once with "
+            f"tracs_tpu_torch.ops.kernels.{helper} and keep the result")
+
+
 def _check_layout(e: torch.Tensor, nm: torch.Tensor, what: str, *,
                   pitch: bool = False) -> None:
     """Raises unless (e, nm) is a split layout; with ``pitch`` also unless, off
@@ -143,15 +178,8 @@ def _check_layout(e: torch.Tensor, nm: torch.Tensor, what: str, *,
                          f"{tuple(e.shape)}")
     if not (e.is_contiguous() and nm.is_contiguous()):
         raise ValueError(f"{what}: tensors must be contiguous")
-    if not pitch or e.device.type == "cpu":
-        return
-    aligned = e.device.type != "cuda" or not (e.data_ptr() % 16 or nm.data_ptr() % 16)
-    if e.shape[2] % LAYOUT_WORD_MULTIPLE or not aligned:
-        raise ValueError(
-            f"{what}: on the card a split layout needs a word pitch that is a multiple of "
-            f"{LAYOUT_WORD_MULTIPLE} and 16-byte aligned storage (the kernels copy it 16 "
-            f"bytes at a time), got {e.shape[2]} words; pad it once with "
-            f"tracs_tpu_torch.ops.kernels.pad_layout(e, nm) and keep the result")
+    if pitch:
+        _check_pitch((e, nm), e.shape[2], what, "pad_layout(e, nm)")
 
 
 def _operands(ea, nm, r0, rb, c0, eb, nmb):
@@ -287,6 +315,8 @@ def _popcount_operands(pa, r0, rb, c0, pb):
         pb = pa
     _check_planes(pa, "A")
     _check_planes(pb, "B")
+    _check_pitch((pa,), pa.shape[2], "A", "pad_planes(p)")
+    _check_pitch((pb,), pb.shape[2], "B", "pad_planes(p)")
     if pb.shape[2] != pa.shape[2]:
         raise ValueError(f"A has {pa.shape[2]} words, B has {pb.shape[2]}")
     if pa.device != pb.device:
@@ -352,13 +382,20 @@ def popcount_gram(pa, r0: int, rb: int, c0: int, pb=None):
     (the self all-pairs sweep, c0 = r0 for its triangle blocks) and is
     given for a query-vs-db rectangle (c0 = 0).  The full device-resident
     planes go in; no block is copied.  CPU tensors take
-    ``popcount_gram_reference``; CUDA tensors launch the kernel or raise."""
+    ``popcount_gram_reference``; CUDA tensors launch the kernel or raise:
+    their word pitch must be a multiple of ``LAYOUT_WORD_MULTIPLE``
+    (``pad_planes`` makes it one; the wrapper pads nothing itself) and below
+    ``_POPCOUNT_GRAM_MAX_WORDS``, the range of the kernel's int32 sums."""
     global POPCOUNT_GRAM_LAUNCHES
     if pa.device.type == "cpu":
         return popcount_gram_reference(pa, r0, rb, c0, pb)
     pb, m = _popcount_operands(pa, r0, rb, c0, pb)
     _check_cuda(pa, "popcount_gram", max(pa.shape[0], pb.shape[0]))
-    out = _launch("popcount_gram", (pa, pb), pa.shape[2], r0, rb, c0, m)
+    if pa.shape[2] >= _POPCOUNT_GRAM_MAX_WORDS:
+        raise ValueError(f"popcount_gram: {pa.shape[2]} words a row; the kernel's int32 sums "
+                         f"hold fewer than {_POPCOUNT_GRAM_MAX_WORDS}")
+    out = _launch("popcount_gram", (pa, pb), pa.shape[2], r0, rb, c0, m,
+                  extra=(_POPCOUNT_GRAM_WORD_SPLITS,))
     if rb and m:
         POPCOUNT_GRAM_LAUNCHES += 1
     return out
@@ -373,8 +410,8 @@ def snp_distance_popcount(a, b=None, *, device):
         b = a
     if a.length != b.length:
         raise ValueError("alignments must share sequence length")
-    pa = _as_words(a.planes).to(device)
-    pb = None if b is a else _as_words(b.planes).to(device)
+    pa = pad_planes(_as_words(a.planes).to(device))
+    pb = None if b is a else pad_planes(_as_words(b.planes).to(device))
     matches, nunion = popcount_gram(pa, 0, a.n_seqs, 0, pb)
     L = a.length
     return to_host(L - matches).astype(np.int32), to_host(L - nunion).astype(np.int32)

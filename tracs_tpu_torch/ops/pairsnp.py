@@ -48,7 +48,7 @@ from tracs_tpu_torch.ops.kernels import (
     _subset_products,
     _unpack_bits,
     mismatch_positions_kernel,
-    padded_words,
+    pad_planes,
     popcount_gram,
     split_gram,
 )
@@ -96,10 +96,7 @@ def _split_device(sa: SplitAlignment, device: torch.device):
     on a 16-byte boundary whatever the sequence length."""
     cache = getattr(sa, "_dev_cache", None)
     if cache is None or cache[0] != device:
-        planes = _as_words(sa.src.planes).to(device)
-        pad = padded_words(planes.shape[2]) - planes.shape[2]
-        if pad:
-            planes = torch.nn.functional.pad(planes, (0, pad))
+        planes = pad_planes(_as_words(sa.src.planes).to(device))
         ea, nm = _derive_split_planes(planes)
         del planes
         pt = _as_words(sa.partial).to(device)
@@ -112,10 +109,14 @@ def _planes_device(packed: PackedAlignment, device: torch.device) -> torch.Tenso
     """The raw planes [n, 4, W] of a PackedAlignment on ``device``, cached on
     it: the popcount engine's resident operand (the split path frees its own
     raw upload after deriving its layout, so the two engines keep separate
-    copies)."""
+    copies).  Padded on the device with zero words to the pitch
+    ``padded_words(W)``, so a plane row starts on a 16-byte boundary whatever
+    the sequence length: a zero word adds nothing to ``matches`` or
+    ``nunion``, and the mismatch-position kernel, to which it reads as 32
+    mismatches, reports nothing at or past the length."""
     cache = getattr(packed, "_dev_planes", None)
     if cache is None or cache[0] != device:
-        cache = (device, _as_words(packed.planes).to(device))
+        cache = (device, pad_planes(_as_words(packed.planes).to(device)))
         packed._dev_planes = cache
     return cache[1]
 
@@ -313,8 +314,8 @@ def mismatch_positions_device(
     planes.  Entries past a pair's count hold -1.  One kernel launch per
     ``_MISM_TABLE_BYTES`` of position table: the kernel reads the resident
     layout through the pair indices and needs no other buffer.  The zero
-    words that pad the split layout's pitch lie at and past ``a.length``,
-    where the kernel reports nothing."""
+    words that pad either layout's pitch lie at and past ``a.length``, where
+    the kernel reports nothing."""
     engine = _check_method(method)
     device = resolve_device(device)
     if engine == "split":
