@@ -68,6 +68,31 @@ Phases (each one passes or the script exits non-zero):
    full square, the shape their own path gives them (their block times stay
    beside them as ``block_ms`` and ``block_plain_ms``).
 
+10. reads to clusters through the normal entry point
+   (``tracs_tpu_torch.cli.main(["pipe", ...])``, ``--device`` left at its
+   default): one reference genome of 2,000,000 sites and 16 samples in four
+   planted clusters (members a few SNPs apart, clusters hundreds apart), each
+   with stretches without coverage, stretches of one read a strand and mixed
+   sites with two alleles on both strands, made from the seed with numpy.
+   The database zip holds the reference, a decoy genome and the port's own
+   FracMinHash sketches and no SBT, so every sample's reference is chosen by
+   the native gather from its read file (a FASTQ holding its genome).  Only
+   the aligner subprocess is stood in for: a function writes the sample's
+   htsbox-format pileup where minimap2 | samtools | htsbox would have.  The
+   run fails unless every called FASTA equals the planted genome with N on
+   the low-coverage stretches and the planted IUPAC code at the mixed sites,
+   ``transmission_distances.csv`` holds exactly the planted within-threshold
+   pairs with the planted SNP distances and sites considered,
+   ``transmission_clusters.csv`` groups exactly the planted clusters, the
+   split-gram kernel was launched, and both model functions were handed
+   their counts on the card and allocated there (the model ran there).  Then
+   the run's combined alignment is packed and laid out as ``distance`` does
+   and, at that shape, ``split_gram`` is held against its plain version
+   (exact) and the sweep's distance and sites considered of every one of
+   the 120 pairs against the planted ones.  Prints the wall of ``pipe`` and
+   its split by function, the two model functions on the CPU at the same size
+   beside the card's, and whether the real aligner binaries are on PATH.
+
 No phase was cut when later ones were added.
 
 The line before the last is a JSON object describing each kernel (its
@@ -82,6 +107,7 @@ script exits non-zero before printing a result.
 from __future__ import annotations
 
 import argparse
+import gc
 import hashlib
 import json
 import math
@@ -119,6 +145,9 @@ PEAK_BY_DOT = {"b1": PEAK_B1, "s8": PEAK_INT8, "bf16": PEAK_BF16}
 PEAK_CUDA_CORE = 33.5e12
 #: samples of the planted recombination case (phase 8)
 PLANTED_N = 256
+#: the reads-to-clusters run (phase 10): sites of the reference genome (a small
+#: bacterial genome), samples, planted clusters
+PIPE_SITES, PIPE_SAMPLES, PIPE_CLUSTERS = 2_000_000, 16, 4
 
 
 def fail(msg: str) -> None:
@@ -888,6 +917,400 @@ def phase_experiments(n: int, L: int, device, card, recs):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# phase 10: reads to clusters
+# ---------------------------------------------------------------------------
+
+_BASES = np.frombuffer(b"ACGT", dtype=np.uint8)
+
+
+def pipe_samples(L: int, n: int, n_clusters: int, seed: int):
+    """(reference codes [L] in 0..3, samples): ``n`` samples in ``n_clusters``
+    planted clusters off one random reference.  A cluster's centre is the
+    reference with 300 substitutions, a member its centre with 1 to 3 more.
+    Each sample is a dict: ``seq`` codes [L]; ``fwd``/``rev`` reads a strand
+    of its allele at every site (8-12 each, 1 on the thin stretches);
+    ``absent`` sites without a pileup line; ``special`` positions that show
+    a ``second`` allele with ``second_reads`` [m, 2] (fwd, rev) of the site's
+    reads: mixed sites or sequencing noise; ``expected`` the nibbles the align stage
+    must call (N on thin and absent stretches, two bits at mixed sites)."""
+    rng = np.random.default_rng(seed + 6)
+    ref = rng.integers(0, 4, size=L, dtype=np.uint8)
+
+    def substitute(seq, k):
+        pos = rng.choice(L, size=k, replace=False)
+        seq[pos] = (seq[pos] + rng.integers(1, 4, size=k, dtype=np.uint8)) % 4
+
+    centres = []
+    for _ in range(n_clusters):
+        c = ref.copy()
+        substitute(c, 300)
+        centres.append(c)
+    samples = []
+    for k in range(n):
+        seq = centres[k % n_clusters].copy()
+        substitute(seq, int(rng.integers(1, 4)))
+        fwd = rng.integers(8, 13, size=L, dtype=np.uint8)
+        rev = rng.integers(8, 13, size=L, dtype=np.uint8)
+        low = np.zeros(L, dtype=bool)
+        absent = np.zeros(L, dtype=bool)
+        for stretch in range(4):  # two stretches without a line, two of one read a strand
+            start = int(rng.integers(0, L - 3000))
+            span = slice(start, start + int(rng.integers(500, 3000)))
+            low[span] = True
+            if stretch < 2:
+                absent[span] = True
+        fwd[low] = rev[low] = 1
+        # 300 mixed sites (two alleles on both strands, the second 4-5 of a
+        # strand's 8-12 reads) and as many noisy ones (an error allele with one
+        # read a strand: above the error threshold, so in the fit, and below
+        # the posterior threshold, so out of the call).  Minor fractions from
+        # 8% to 60% make the fitted concentration small, as real pileups do.
+        special = np.sort(rng.choice(np.nonzero(~low)[0], size=600, replace=False))
+        is_mixed = rng.permutation(600) < 300
+        second = (seq[special] + rng.integers(1, 4, size=600, dtype=np.uint8)) % 4
+        second_reads = np.where(is_mixed[:, None], rng.integers(4, 6, size=(600, 2)),
+                                np.ones((600, 2), dtype=np.int64))  # fwd, rev
+        expected = (np.uint8(1) << seq).astype(np.uint8)
+        expected[special[is_mixed]] |= np.uint8(1) << second[is_mixed]
+        expected[low] = 15
+        samples.append(dict(name=f"s{k:02d}", cluster=k % n_clusters, seq=seq, fwd=fwd, rev=rev,
+                            absent=absent, special=special, second=second,
+                            second_reads=second_reads, expected=expected))
+    return ref, samples
+
+
+def pileup_bytes(ref: np.ndarray, sample: dict, contig: bytes = b"chr1") -> bytes:
+    """The sample's htsbox-format pileup text, one line a covered site:
+    ``contig pos ref . nucs x:fwd:rev`` (several alleles: ``A,G`` and
+    ``x:f1,f2:r1,r2``), built as a byte matrix of one row a site whose unused
+    cells are 0 and dropped at the end: a Python loop over 2 M lines a sample
+    would take longer than everything it stands in front of."""
+    L = len(ref)
+    width = len(contig) + 36
+    rows = np.zeros((L, width), dtype=np.uint8)
+    col = len(contig)
+    rows[:, :col] = np.frombuffer(contig, dtype=np.uint8)
+    rows[:, col] = 9
+    pos = np.arange(1, L + 1, dtype=np.int64)
+    for k in range(7):  # 7 digits, leading zeros dropped
+        digit = (pos // 10 ** (6 - k)) % 10 + 48
+        rows[:, col + 1 + k] = np.where(pos >= 10 ** (6 - k), digit, 0)
+    col += 8
+    rows[:, col] = 9
+    rows[:, col + 1] = _BASES[ref]
+    rows[:, col + 2:col + 5] = np.frombuffer(b"\t.\t", dtype=np.uint8)
+    rows[:, col + 5] = _BASES[sample["seq"]]
+    rows[:, col + 6:col + 9] = np.frombuffer(b"\t2:", dtype=np.uint8)
+    col += 9
+    for at, reads in ((col, sample["fwd"]), (col + 3, sample["rev"])):
+        rows[:, at] = np.where(reads >= 10, reads // 10 + 48, 0)
+        rows[:, at + 1] = reads % 10 + 48
+    rows[:, col + 2] = ord(":")
+    rows[:, col + 5] = 10
+    for p, b2, (bf, br) in zip(sample["special"], sample["second"], sample["second_reads"]):
+        af, ar = sample["fwd"][p] - bf, sample["rev"][p] - br  # the strand's depth is shared
+        line = b"%s\t%d\t%c\t.\t%c,%c\t2:%d,%d:%d,%d\n" % (
+            contig, p + 1, _BASES[ref[p]], _BASES[sample["seq"][p]], _BASES[b2], af, bf, ar, br)
+        rows[p] = 0
+        rows[p, :len(line)] = np.frombuffer(line, dtype=np.uint8)
+    rows[sample["absent"]] = 0
+    return rows[rows != 0].tobytes()
+
+
+def phase_pipe(seed: int, tmp: str, device, card):
+    """Reads to clusters through ``cli.main(["pipe", ...])`` on the card, at
+    PIPE_SITES x PIPE_SAMPLES; returns (the split-gram launches of the run,
+    the kernel's record at the run's shape for the JSON line)."""
+    import gzip
+    import zipfile
+
+    import torch
+
+    from tracs_tpu_torch import cli
+    from tracs_tpu_torch.io.external import require_tool
+    from tracs_tpu_torch.io.fasta import read_fasta
+    from tracs_tpu_torch.models import dirichlet
+    from tracs_tpu_torch.ops.packing import IUPAC_BY_NIBBLE
+    from tracs_tpu_torch.sketch import write_db_sketches
+    from tracs_tpu_torch.stages import align as align_mod
+    from tracs_tpu_torch.stages import pipe as pipe_mod
+
+    found = []
+    for tool in ("minimap2", "samtools", "htsbox", "sourmash"):
+        try:
+            require_tool(tool)
+            found.append(f"{tool} yes")
+        except RuntimeError:
+            found.append(f"{tool} no")
+    print(f"# aligner binaries on PATH: {', '.join(found)}")
+
+    L, n = PIPE_SITES, PIPE_SAMPLES
+    t0 = time.perf_counter()
+    ref, samples = pipe_samples(L, n, PIPE_CLUSTERS, seed)
+    by_name = {s["name"]: s for s in samples}
+    work = os.path.join(tmp, "pipe")
+    os.makedirs(work)
+    rng = np.random.default_rng(seed + 7)
+    genomes = {"REFA": ref, "DECOY": rng.integers(0, 4, size=L, dtype=np.uint8)}
+    db = os.path.join(work, "db.zip")
+    inputs = []
+    with zipfile.ZipFile(db, "w") as z:
+        for name, codes in genomes.items():
+            fasta = os.path.join(work, name + ".fasta")
+            with open(fasta, "wb") as fh:
+                fh.write(b">chr1\n" + _BASES[codes].tobytes() + b"\n")
+            with open(fasta, "rb") as fh:
+                z.writestr(name + ".fasta.gz", gzip.compress(fh.read(), 1))
+            inputs.append((fasta, name))
+    write_db_sketches(db, inputs)  # the port's sketches; no SBT member
+    tsv = os.path.join(work, "input.tsv")
+    with open(tsv, "w") as fh:
+        fh.write("prefix\tr1\n")
+        for s in samples:
+            reads = os.path.join(work, s["name"] + ".fastq.gz")
+            with gzip.open(reads, "wb", compresslevel=1) as rf:
+                rf.write(b"@" + s["name"].encode() + b"\n" + _BASES[s["seq"]].tobytes()
+                         + b"\n+\n" + b"F" * L + b"\n")
+            fh.write(f"{s['name']}\t{reads}\n")
+    print(f"# pipe inputs: {n} samples x {L} sites in {PIPE_CLUSTERS} planted clusters, database "
+          f"of {len(genomes)} genomes with native sketches, made in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    spent = {}
+    iterations = []
+    model_peak = {}
+
+    def timed(name, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return run
+
+    def stand_in(reference, outdir, prefix, r1, r2=None, **kw):
+        """In place of minimap2 | samtools | htsbox: the sample's pileup."""
+        sample = by_name[os.path.basename(prefix).split("_ref_")[0]]
+        with gzip.open(prefix + "_pileup.txt.gz", "wb", compresslevel=1) as fh:
+            fh.write(pileup_bytes(ref, sample))
+
+    def fit_loop(*args):
+        """The fit's fixed-point loop, keeping the iteration count."""
+        alpha, its = saved_fit_loop(*args)
+        iterations.append(its)
+        return alpha, its
+
+    def on_card(name, fn):
+        """A model function as ``align`` calls it: fails unless it is handed
+        its counts on the card; keeps the call's peak allocation above what
+        was resident before the run."""
+        def run(counts, *args, **kwargs):
+            if not (isinstance(counts, torch.Tensor) and counts.device.type == "cuda"):
+                fail(f"pipe: {name} was handed counts that are not on the card")
+            torch.cuda.reset_peak_memory_stats()
+            out = fn(counts, *args, **kwargs)
+            model_peak[name] = max(model_peak.get(name, 0),
+                                   torch.cuda.max_memory_allocated() - held)
+            return out
+        return run
+
+    patches = [(align_mod, "align_and_pileup", timed("stand-in pileup writing", stand_in)),
+               (align_mod, "native_gather", timed("native gather", align_mod.native_gather)),
+               (align_mod, "parse_pileup", timed("parse_pileup", align_mod.parse_pileup)),
+               (dirichlet, "_fit", fit_loop),
+               (align_mod, "find_dirichlet_priors",
+                timed("find_dirichlet_priors",
+                      on_card("find_dirichlet_priors", align_mod.find_dirichlet_priors))),
+               (align_mod, "posteriors_on_device",
+                timed("calculate_posteriors",
+                      on_card("calculate_posteriors", align_mod.posteriors_on_device))),
+               (align_mod, "distinct_values",
+                timed("distinct values and the copy back", align_mod.distinct_values)),
+               (align_mod, "write_posterior_csv",
+                timed("posterior CSV writing", align_mod.write_posterior_csv)),
+               (align_mod, "nibble_sequence",
+                timed("IUPAC string", align_mod.nibble_sequence)),
+               (pipe_mod, "align", timed("align", pipe_mod.align)),
+               (pipe_mod, "distance", timed("distance", pipe_mod.distance)),
+               (pipe_mod, "cluster", timed("cluster", pipe_mod.cluster))]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    saved_fit_loop = dirichlet._fit
+    out = os.path.join(work, "out")
+    reset_counts()
+    torch.cuda.synchronize()
+    gc.collect()  # what earlier phases dropped must not be freed in the middle of this one
+    torch.cuda.empty_cache()
+    held = torch.cuda.memory_allocated()  # what earlier phases left resident
+    for mod, name, fn in patches:
+        setattr(mod, name, fn)
+    try:
+        t0 = time.perf_counter()
+        cli.main(["pipe", "-i", tsv, "--database", db, "-o", out, "-D", "100"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    counts = read_counts()
+    inside = sum(v for k, v in spent.items() if k not in ("align", "distance", "cluster"))
+    print(f"# pipe CLI: {wall:.3f} s wall for {n} samples; align {spent['align']:.3f} s, "
+          f"distance {spent['distance']:.3f} s, cluster {spent['cluster']:.3f} s")
+    print("# pipe, inside align (sums over the samples): " + ", ".join(
+        f"{k} {v:.3f} s" for k, v in spent.items() if k not in ("align", "distance", "cluster"))
+        + f", the rest (reference extraction, host statistics, FASTA) "
+          f"{spent['align'] - inside:.3f} s")
+    print(f"# pipe: find_dirichlet_priors took {min(iterations)}..{max(iterations)} iterations a "
+          f"sample; split_gram launches {counts['split_gram']}; peak device allocation above "
+          f"what was resident before, inside " + ", ".join(
+              f"{k} {v / 1e6:.1f} MB" for k, v in model_peak.items())
+          + f" (a count matrix is {L * 4 * 8 / 1e6:.1f} MB)")
+    if counts["split_gram"] < 1:
+        fail("pipe: the distance step did not launch the split-gram kernel")
+    if len(iterations) != n or len(model_peak) != 2 \
+            or min(model_peak.values()) <= L * 4 * 8:
+        fail("pipe: a model function did not hold a count matrix on the card")
+
+    # every called FASTA against the planted genome
+    for s in samples:
+        path = os.path.join(out, s["name"], f"{s['name']}_posterior_counts_ref_REFA.fasta")
+        if not os.path.exists(path):
+            fail(f"pipe: no called FASTA for {s['name']}")
+        (name, called), = read_fasta(path)
+        want = IUPAC_BY_NIBBLE[s["expected"]].tobytes().decode()
+        if name != f"{s['name']}_REFA" or called != want:
+            got = np.frombuffer(called.encode(), dtype=np.uint8)
+            bad = (np.nonzero(got != np.frombuffer(want.encode(), dtype=np.uint8))[0]
+                   if len(got) == L else [])
+            fail(f"pipe: the called FASTA of {s['name']} differs from the planted genome at "
+                 f"{len(bad)} sites (first {list(bad[:5])}), length {len(called)}")
+        if os.path.exists(os.path.join(out, s["name"],
+                                       f"{s['name']}_posterior_counts_ref_DECOY.fasta")):
+            fail(f"pipe: the gather selected the decoy genome for {s['name']}")
+    n_codes = sum(int(np.isin(s["expected"], (3, 5, 6, 9, 10, 12)).sum()) for s in samples)
+    n_low = sum(int((s["expected"] == 15).sum()) for s in samples)
+    print(f"# pipe: {n} called FASTAs equal the planted genomes ({n_low} N sites on low-coverage "
+          f"stretches, {n_codes} two-allele IUPAC codes)")
+
+    # the planted distances: two samples mismatch where their allele sets are disjoint
+    want_rows = {}
+    planted_pairs = {}
+    for i in range(n):
+        for j in range(i + 1, n):
+            a, b = samples[i]["expected"], samples[j]["expected"]
+            d = int(np.count_nonzero((a & b) == 0))
+            nn = L - int(np.count_nonzero((a == 15) | (b == 15)))
+            planted_pairs[frozenset((samples[i]["name"], samples[j]["name"]))] = (d, nn)
+            if d <= 100:
+                want_rows[frozenset((samples[i]["name"], samples[j]["name"]))] = (d, nn)
+            if (d <= 100) != (samples[i]["cluster"] == samples[j]["cluster"]):
+                fail("pipe: the planted clusters are not what the planted distances separate")
+    with open(os.path.join(out, "transmission_distances.csv")) as fh:
+        rows = [ln.strip().split(",") for ln in fh.readlines()[1:]]
+    got_rows = {frozenset((r[0][:-5], r[1][:-5])): (int(r[3]), int(r[7])) for r in rows}
+    if len(rows) != len(got_rows) or got_rows != want_rows:
+        fail(f"pipe: transmission_distances.csv holds {len(rows)} rows, the planted "
+             f"within-threshold pairs are {len(want_rows)}, or a distance differs")
+    if any(r[2] != "NA" or r[6] != "0" or r[8] != "combinedREFA" for r in rows):
+        fail("pipe: a distance row's date, filtered or MSA column is not what pipe writes")
+    dists = sorted(d for d, _ in want_rows.values())
+    print(f"# pipe: transmission_distances.csv holds exactly the {len(rows)} planted pairs, SNP "
+          f"distances {dists[0]}..{dists[-1]}, sites considered exact")
+    with open(os.path.join(out, "transmission_clusters.csv")) as fh:
+        labels = dict(ln.strip().split(",") for ln in fh.readlines()[1:])
+    groups = {}
+    for name, label in labels.items():
+        groups.setdefault(label, set()).add(name[:-5])
+    planted = {}
+    for s in samples:
+        planted.setdefault(s["cluster"], set()).add(s["name"])
+    if sorted(map(sorted, groups.values())) != sorted(map(sorted, planted.values())):
+        fail("pipe: transmission_clusters.csv does not group exactly the planted clusters")
+    print(f"# pipe: transmission_clusters.csv groups the {len(planted)} planted clusters of "
+          f"{n // len(planted)}")
+
+    # K1 at the shape this path gave it: the run's combined alignment, packed
+    # and laid out as the distance stage does, against the plain version; then
+    # every pair of the sweep, unbounded, against the planted distances
+    from tracs_tpu_torch.ops import kernels
+    from tracs_tpu_torch.ops.packing import pack_fasta
+    from tracs_tpu_torch.ops.pairsnp import _cached_compact, _split_device, _split_pair, pairsnp
+
+    packed = pack_fasta(os.path.join(out, "combinedREFA"))
+    comp = _cached_compact(packed, packed)
+    a_k = packed if comp is None else comp[0]
+    ea, nm, _ = _split_device(_split_pair(a_k, None)[0], device)
+    W = ea.shape[2]
+    shape = f"the pipe run's shape, n={n} W={W} (of {-(-L // 32)} words before compaction)"
+    args = (ea, nm, 0, n, 0)
+    got = kernels.split_gram(*args)
+    torch.cuda.synchronize()
+    want = kernels.split_gram_reference(*args)
+    err = [int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)]
+    print(f"# split_gram vs plain, {shape}: out {tuple(got[0].shape)}, max |err| {err}")
+    if packed.n_seqs != n or any(err):
+        fail(f"split_gram disagrees with its plain version at {shape}")
+    rec = {"max_abs_err": err, "ms": time_ms(lambda: kernels.split_gram(*args), 10),
+           "plain_ms": time_ms(lambda: kernels.split_gram_reference(*args), 3),
+           **gram_bound(f"split_gram at {shape}", n, None, W, 0, n, 0, planes=5, products=5,
+                        popc=5, card=card, peak_ops=PEAK_B1)}
+    print(f"# split_gram at {shape}: kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms "
+          f"(median)")
+    pi, pj, pd, names, _, pnn = pairsnp([packed], device=device)
+    swept = {frozenset((names[i][:-5], names[j][:-5])): (int(d), int(nn))
+             for i, j, d, nn in zip(pi, pj, pd, pnn)}
+    if len(pi) != n * (n - 1) // 2 or swept != planted_pairs:
+        wrong = [sorted(k) for k in planted_pairs if swept.get(k) != planted_pairs[k]]
+        fail(f"pipe: the sweep over the run's alignment differs from the planted distance or "
+             f"sites considered at {len(wrong)} of {len(planted_pairs)} pairs (first {wrong[:3]})")
+    far = sorted(d for d, _ in planted_pairs.values() if d > 100)
+    print(f"# pipe: all {len(swept)} pairs of the sweep equal the planted SNP distance and sites "
+          f"considered ({len(far)} cross-cluster pairs, {far[0]}..{far[-1]} apart)")
+    del got, want, ea, nm, args, packed
+
+    # the two model functions on the CPU at the same size, for one sample
+    s = samples[0]
+    pileup = os.path.join(out, s["name"], f"{s['name']}_ref_REFA_pileup.txt.gz")
+    counts_np = align_mod.parse_pileup(pileup, {"chr1": L})
+    times = {}
+    results = {}
+    for dev in ("cpu", device):
+        key = "cpu" if dev == "cpu" else "card"
+        counts_dev = torch.from_numpy(counts_np).to(dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        del iterations[:]
+        dirichlet._fit = fit_loop
+        try:
+            alphas = dirichlet.find_dirichlet_priors(counts_dev, method="FPI",
+                                                     error_filt_threshold=0.01, device=dev)
+        finally:
+            dirichlet._fit = saved_fit_loop
+        its = sum(iterations)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        post = dirichlet.calculate_posteriors(counts_dev, alphas, False, 0.25, device=dev)
+        torch.cuda.synchronize()
+        times[key] = (t1 - t0, time.perf_counter() - t1, its)
+        results[key] = (alphas, post)
+    print(f"# model on one sample ({L} x 4 counts): find_dirichlet_priors card "
+          f"{times['card'][0]:.3f} s ({times['card'][2]} iterations), CPU {times['cpu'][0]:.3f} s "
+          f"({times['cpu'][2]} iterations); calculate_posteriors card {times['card'][1]:.3f} s, "
+          f"CPU {times['cpu'][1]:.3f} s")
+    err_a = float(np.max(np.abs(results["card"][0] - results["cpu"][0])
+                         / np.maximum(results["cpu"][0], 1e-300)))
+    pc, pg = results["cpu"][1], results["card"][1]
+    err_p = float(np.max(np.abs(pg - pc) / np.maximum(pc, 1e-300)))
+    print(f"# model, card vs CPU: alphas rel err {err_a:.3e}, posteriors rel err {err_p:.3e}, "
+          f"zero patterns equal: {bool(np.array_equal(pg == 0, pc == 0))}")
+    if times["card"][2] != times["cpu"][2] or max(err_a, err_p) > 1e-9 \
+            or not np.array_equal(pg == 0, pc == 0):
+        fail("pipe: the model on the card disagrees with the model on the CPU at 1e-9")
+    return counts["split_gram"], rec
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=4096, help="samples (default 4096)")
@@ -948,6 +1371,9 @@ def main() -> None:
     del packed, fields
     phase_planted(args.length, args.seed, device)
     exp_counts = phase_experiments(args.n, args.length, device, card, recs)
+    with tempfile.TemporaryDirectory() as tmp:
+        pipe_launches, recs["split_gram at pipe's shape"] = phase_pipe(args.seed, tmp, device,
+                                                                       card)
 
     def entry(name, kernel, source, replaces, launches, outputs=None):
         rec = dict(recs[kernel])
@@ -966,6 +1392,10 @@ def main() -> None:
     print(json.dumps({"kernels": [
         entry("split_gram", "split_gram", "split_gram", f"{pallas}:157", split_launches,
               (0, 1)),
+        # the same kernel on the reads-to-clusters path: its launches in the
+        # pipe run, its error, times and bound at that run's shape
+        entry("split_gram (pipe path)", "split_gram at pipe's shape", "split_gram",
+              f"{pallas}:157", pipe_launches, (0, 1)),
         entry("popcount_gram (K2 matches)", "popcount_gram", "popcount_gram", f"{pallas}:45",
               pc_launches, (0,)),
         entry("popcount_gram (K3 nunion)", "popcount_gram", "popcount_gram", f"{pallas}:65",

@@ -7,12 +7,14 @@ filtered column, sites considered, MSA file, and the set and order of the
 rows); the transmission distance and expected K come from two float64
 engines whose exp/log/lgamma differ by ulps, and are compared at rtol 1e-9."""
 
+import gc
 import gzip
 import json
 import os
 import re
 import subprocess
 import sys
+import weakref
 
 import numpy as np
 import pytest
@@ -137,6 +139,46 @@ def test_large_input_streams_automatically(tmp_path, monkeypatch):
                         lambda *a: seen.append(a[0].row_block) or real(*a))
     got, want = _run_both(tmp_path, ["--msa", msa, "-D", "30"])
     assert got == want and seen == [1024]
+
+
+@pytest.mark.parametrize("order", ["large first", "small first", "large between"])
+@pytest.mark.parametrize("meta", [False, True])
+def test_one_msa_at_a_time_matches_reference(tmp_path, monkeypatch, order, meta):
+    """Several MSAs of different sample counts, one above the streaming bound:
+    each is packed once, when its turn comes, and only one is held; the
+    large one and those after it stream, and the CSV is tracs_tpu's."""
+    rng = np.random.default_rng(26)
+    small = _clustered_msa(tmp_path / "small_combined.fasta", rng, 5, 128, prefix="a")
+    large = _clustered_msa(tmp_path / "large.fasta", rng, 11, 160, prefix="b")
+    other = _clustered_msa(tmp_path / "other.fasta", rng, 4, 96, prefix="d")
+    msas = {"large first": [large, small], "small first": [small, large],
+            "large between": [small, large, other]}[order]
+    monkeypatch.setattr(port_distance, "_AUTO_STREAM_SAMPLES", 8)
+    packs, refs, alive = [], [], []
+    real_pack = port_distance.pack_fasta
+
+    def counting_pack(path):
+        gc.collect()
+        alive.append(sum(r() is not None for r in refs))  # earlier MSAs still held
+        packs.append(os.path.basename(path))
+        packed = real_pack(path)
+        refs.append(weakref.ref(packed))
+        return packed
+
+    monkeypatch.setattr(port_distance, "pack_fasta", counting_pack)
+    args = ["--msa", *msas, "-D", "60"]
+    if meta:
+        names = [f"{p}{k}" for p, n in (("a", 5), ("b", 11), ("d", 4)) for k in range(n)]
+        args += ["--meta", _write_dates(tmp_path / "dates.csv", names, rng)]
+    got, want = _run_both(tmp_path, args)
+    if meta:
+        _assert_meta_csv_close(got, want)
+    else:
+        assert got == want
+    assert got.count(b"\n") > 3
+    assert packs == [os.path.basename(m) for m in msas]  # each MSA packed once, in turn
+    assert max(alive) <= 1  # the one being replaced, never the sum over the MSAs
+    assert not os.path.exists(str(tmp_path / "port.csv") + ".cursor")
 
 
 def test_python_writer_matches_native(tmp_path, monkeypatch):
@@ -322,8 +364,9 @@ def test_mesh_off_is_accepted(tmp_path):
     assert os.path.getsize(out) > 0
 
 
-@pytest.mark.parametrize("sub", ["cluster", "align"])
+@pytest.mark.parametrize("sub", ["threshold", "build-db", "plot", "doctor"])
 def test_other_subcommands_not_yet_ported(sub, capsys):
+    assert port_cli._NOT_YET_PORTED == ["threshold", "build-db", "plot", "doctor"]
     with pytest.raises(SystemExit) as exc:
         port_cli.main([sub, "-d", "x.csv"])
     assert exc.value.code == 2
@@ -343,7 +386,7 @@ def test_cli_import_leaves_jax_unloaded():
 
 
 def test_port_sources_never_import_jax():
-    pattern = re.compile(r"^\s*(import|from)\s+(jax|tracs_tpu)(\.|\s|$)", re.M)
+    pattern = re.compile(r"^\s*(import|from)\s+(jax|tracs_tpu|pandas|joblib)(\.|\s|$)", re.M)
     sources = [os.path.join(REPO, "chip_smoke.py")]
     for root, _dirs, files in os.walk(PORT_DIR):
         sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
@@ -352,3 +395,14 @@ def test_port_sources_never_import_jax():
         with open(path) as fh:
             hits = pattern.findall(fh.read())
         assert not hits, f"{path} imports {hits}"
+
+
+def test_port_sources_read_no_environment_variable():
+    pattern = re.compile(r"os\.environ|os\.getenv|\bgetenv\(")
+    sources = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _dirs, files in os.walk(PORT_DIR):
+        sources += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    for path in sources:
+        with open(path) as fh:
+            hits = pattern.findall(fh.read())
+        assert not hits, f"{path} reads the environment: {hits}"

@@ -310,3 +310,28 @@ def test_smoke_workload_matches_bench():
     got = workload.make_clustered(70, 4000, cluster_size=6, n_partial_cols=64)
     want = bench.make_clustered(70, 4000, cluster_size=6, n_partial_cols=64)
     assert np.array_equal(got.planes, want.planes) and got.names == want.names
+
+
+@pytest.mark.parametrize("cache", ["split pair", "compact"])
+def test_layout_caches_hold_the_partner_not_its_id(monkeypatch, cache):
+    """A layout cached for one partner is never served to another object,
+    even one that presents the same ``id`` (as a new object can, once the
+    old partner is freed): the entry holds the partner and is compared with
+    ``is``."""
+    rng = np.random.default_rng(41)
+    seqs = _mostly_conserved(rng, 13, 256, 40)  # one base genome, so compaction drops columns
+    a, b1, b2 = (pack_sequences(seqs[lo:hi]) for lo, hi in ((0, 5), (5, 9), (9, 13)))
+    monkeypatch.setattr(port, "id", lambda obj: 7, raising=False)  # every object "shares" an id
+    fn, attr = ((port._split_pair, "_split_pair_cache") if cache == "split pair"
+                else (port._cached_compact, "_compact_res"))
+    first = fn(a, b1)
+    assert getattr(a, attr)[0] is b1 and fn(a, b1) is first
+    second = fn(a, b2)
+    assert second is not first and getattr(a, attr)[0] is b2
+    fresh = (port.split_alignment if cache == "split pair" else None)
+    if cache == "split pair":
+        pos = np.union1d(port.partial_site_positions(a), port.partial_site_positions(b2))
+        assert np.array_equal(second[1].excl, fresh(b2, pos).excl)
+    else:
+        want = port.compact_variant_columns(a, b2)
+        assert np.array_equal(second[1].planes, want[1].planes)

@@ -372,6 +372,40 @@ def test_mismatch_positions_reference_exact(masks, length, capacity):
         assert (want[:, 0] > capacity).all()
 
 
+def _pair_pattern(name, rng, n):
+    """Pair lists as the filter and other callers may send them: runs of one
+    first sample (the sweep's row-major COO), one run longer than any group
+    of pairs a kernel might take together, a single pair, pairs in no order,
+    and every sample against itself."""
+    if name == "runs":
+        return np.repeat(np.arange(n // 2), 5), np.tile(np.arange(n // 2, n // 2 + 5), n // 2)
+    if name == "long run":
+        return np.full(300, 2), rng.integers(0, n, size=300)
+    if name == "one":
+        return np.array([3]), np.array([n - 1])
+    if name == "unsorted":
+        return rng.integers(0, n, size=333), rng.integers(0, n, size=333)
+    assert name == "self"
+    return np.arange(n), np.arange(n)
+
+
+PAIR_PATTERNS = ["runs", "long run", "one", "unsorted", "self"]
+
+
+@pytest.mark.parametrize("masks", [False, True])
+@pytest.mark.parametrize("pattern", PAIR_PATTERNS)
+def test_mismatch_positions_pair_patterns_exact(pattern, masks):
+    """Whatever the order and the repeats of the pair list, every row of the
+    table is its own pair's, in the caller's order."""
+    rng = np.random.default_rng(17)
+    pa, ma = _word_tensors(rng, 12, 5)
+    ii, jj = _pair_pattern(pattern, rng, 12)
+    m = (ma, None) if masks else (None, None)
+    got = kernels.mismatch_positions_kernel(pa, None, ii, jj, 32 * 5 - 3, 24, *m)
+    want = _naive_positions(pa, pa, ii, jj, 32 * 5 - 3, 24, *((ma, ma) if masks else ()))
+    assert np.array_equal(got.numpy(), want)
+
+
 def test_mismatch_positions_layouts_agree():
     """The split layout with its masks gives what the raw planes give."""
     from tracs_tpu_torch.ops.packing import pack_sequences, split_alignment
@@ -663,6 +697,34 @@ def test_mismatch_positions_cuda_matches_plain(cuda_device, masks, n, W, length,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("masks", [False, True])
+@pytest.mark.parametrize("pattern", PAIR_PATTERNS)
+@pytest.mark.parametrize("capacity", [1, 128, 8192])
+@pytest.mark.parametrize("W", [1, 3, 4, 5, 17, 31_252])
+def test_mismatch_positions_cuda_pair_patterns(cuda_device, W, capacity, pattern, masks):
+    """The kernel on the pair patterns above, at word counts around the
+    16-byte pitch and at the main path's, with a capacity below, around and
+    above the counts.  At the main path's width the rows are near-identical,
+    as within a cluster, and a few pairs stand in for the patterns."""
+    rng = np.random.default_rng(W + capacity)
+    n = 12
+    pa, ma = (t.to(cuda_device) for t in _word_tensors(rng, n, W))
+    if W > 1000:
+        if pattern not in ("runs", "unsorted"):
+            pytest.skip("the main path's width runs two patterns")
+        pa = pa[:1].expand(n, 4, W).clone()
+        pa[:, 0, ::997] ^= torch.arange(1, n + 1, device=cuda_device, dtype=torch.int32)[:, None]
+        pa |= 0x0F0F0F0F
+    ii, jj = _pair_pattern(pattern, rng, n)
+    m = (ma, None) if masks else (None, None)
+    length = 32 * W - (13 if W > 1 else 7)
+    got = kernels.mismatch_positions_kernel(pa, None, ii, jj, length, capacity, *m)
+    torch.cuda.synchronize()
+    want = kernels.mismatch_positions_reference(pa, None, ii, jj, length, capacity, *m)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("method", ["split", "popcount"])
 def test_stream_filter_cuda_matches_cpu(cuda_device, method):
     rng = np.random.default_rng(40)
@@ -675,3 +737,14 @@ def test_stream_filter_cuda_matches_cpu(cuda_device, method):
     got = list(port.pairsnp_stream([pack_sequences(seqs)], device=cuda_device, **kw))
     assert kernels.MISM_POSITIONS_LAUNCHES > before
     _assert_streams_equal(got, want)
+
+
+@pytest.mark.cuda
+def test_shared_memory_design_builds_and_agrees(cuda_device):
+    """``csrc/mism_positions_shared.cu`` is on no path: the probe that times it
+    beside the committed kernel builds it, holds both against the plain
+    version on both layouts at every group size, and exits on a difference."""
+    from tracs_tpu_torch.experiments import mism_positions_probe
+
+    mism_positions_probe.main(["--n", "256", "--length", "100000", "--row-block", "128",
+                               "--groups", "32,8,128"])

@@ -1,6 +1,7 @@
 """CLI dispatcher: ``tracs-tpu-torch <subcommand>`` with the subcommands of
-``tracs-tpu``.  Only ``distance`` is ported; the others print that they are
-not yet ported and exit non-zero."""
+``tracs-tpu``.  ``align``, ``combine``, ``distance``, ``cluster`` and
+``pipe`` are ported; the others print that they are not yet ported and exit
+non-zero."""
 
 from __future__ import annotations
 
@@ -9,10 +10,15 @@ import sys
 
 from tracs_tpu_torch import __version__
 from tracs_tpu_torch.runtime.device import DeviceUnavailableError
+from tracs_tpu_torch.stages.align import align_parser
+from tracs_tpu_torch.stages.cluster import cluster_parser
+from tracs_tpu_torch.stages.combine import combine_parser
 from tracs_tpu_torch.stages.distance import distance_parser
+from tracs_tpu_torch.stages.pipe import pipe_parser
 
-_NOT_YET_PORTED = ["align", "combine", "threshold", "cluster", "build-db", "pipe",
-                   "plot", "doctor"]
+_PORTED = {"align": align_parser, "combine": combine_parser, "distance": distance_parser,
+           "cluster": cluster_parser, "pipe": pipe_parser}
+_NOT_YET_PORTED = ["threshold", "build-db", "plot", "doctor"]
 
 
 def _not_ported(name):
@@ -29,7 +35,8 @@ def main(argv=None):
     parser.add_argument(
         "--version", action="version", version="%(prog)s " + __version__
     )
-    distance_parser(subparsers.add_parser("distance"))
+    for name, add_arguments in _PORTED.items():
+        add_arguments(subparsers.add_parser(name))
     for name in _NOT_YET_PORTED:
         subparsers.add_parser(name, help="not yet ported").set_defaults(
             func=_not_ported(name)

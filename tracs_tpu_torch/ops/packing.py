@@ -50,6 +50,16 @@ for ch, nib in _CHAR_TO_NIBBLE.items():
     NIBBLE_LUT[ord(ch.lower())] = nib
 
 
+def iupac_code_for_mask(nibble: int) -> str:
+    """IUPAC character for a 4-bit allele-presence mask (bit0=A..bit3=T)."""
+    return IUPAC_BY_NIBBLE[nibble].decode()
+
+
+def nibbles_to_string(nibbles: np.ndarray) -> str:
+    """[L] uint8 4-bit masks -> IUPAC string (0 -> 'X')."""
+    return IUPAC_BY_NIBBLE[nibbles].tobytes().decode("ascii")
+
+
 @dataclasses.dataclass
 class PackedAlignment:
     """Bit-packed multiple sequence alignment.

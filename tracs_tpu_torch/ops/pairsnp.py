@@ -266,28 +266,29 @@ def _split_pair(a: PackedAlignment, b: PackedAlignment | None):
     """(sa, sb) SplitAlignments for a comparison pair.  For a query-vs-db
     pair both sides are gathered at the union of their partial positions,
     so the correction gram's contraction axis lines up site for site.
-    Cached on ``a`` keyed by the partner's identity."""
+    Cached on ``a`` beside the partner itself: the entry keeps ``b`` alive, so
+    no later object can take its identity and be served its layout."""
     if b is None or b is a:
         sa = _cached_split(a)
         return sa, sa
     cache = getattr(a, "_split_pair_cache", None)
-    if cache is not None and cache[0] == id(b):
+    if cache is not None and cache[0] is b:
         return cache[1]
     pos = np.union1d(partial_site_positions(a), partial_site_positions(b))
     pair = (split_alignment(a, pos), split_alignment(b, pos))
-    a._split_pair_cache = (id(b), pair)
+    a._split_pair_cache = (b, pair)
     return pair
 
 
 def _cached_compact(a: PackedAlignment, b: PackedAlignment):
-    """compact_variant_columns, memoised on the first alignment (streaming
-    resume re-enters with the same objects)."""
-    key = id(b) if b is not a else None
+    """compact_variant_columns, memoised on the first alignment beside the
+    partner it was computed for (streaming resume re-enters with the same
+    objects; the entry keeps ``b`` alive, as in ``_split_pair``)."""
     cache = getattr(a, "_compact_res", None)
-    if cache is not None and cache[0] == key:
+    if cache is not None and cache[0] is b:
         return cache[1]
     res = compact_variant_columns(a, None if b is a else b)
-    a._compact_res = (key, res)
+    a._compact_res = (b, res)
     return res
 
 

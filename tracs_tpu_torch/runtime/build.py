@@ -79,15 +79,13 @@ def compile_library(src: str, out_dir: str, stem: str, argv: list[str],
 
 
 def nvcc_path() -> str:
-    """The CUDA compiler: ``nvcc`` on PATH, else under ``$CUDA_HOME`` or
-    ``/usr/local/cuda``."""
+    """The CUDA compiler: ``nvcc`` on PATH, else under ``/usr/local/cuda``."""
     found = shutil.which("nvcc")
     if found:
         return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    path = os.path.join(home, "bin", "nvcc")
+    path = "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):
-        raise BuildError("nvcc not found (looked on PATH, in $CUDA_HOME and /usr/local/cuda)")
+        raise BuildError("nvcc not found (looked on PATH and in /usr/local/cuda)")
     return path
 
 

@@ -1,7 +1,9 @@
 """ctypes loader for the native C++ host library ``src/tracs_native.cpp``
-(counterpart of tracs_tpu/runtime/native.py, limited to the entry points
-the ``distance`` stage uses: FASTA packing, split-layout statistics, the
-recombination filter's window passes and CSV row formatting).
+(counterpart of tracs_tpu/runtime/native.py): FASTA packing, split-layout
+statistics, the recombination filter's window passes, CSV row formatting,
+the distance-CSV reader of the ``cluster`` stage, and the pileup parser and
+FracMinHash sketcher of the ``align`` stage (``tn_parse_pileup`` and
+``tn_sketch_file``, called by io/pileup.py and sketch.py on ``get_lib()``).
 
 The library is built with g++ into the git-ignored ``build/native/`` at
 first use (runtime/build.py).  Every entry point returns None when the
@@ -63,6 +65,30 @@ def _configure(lib) -> None:
     lib.tn_fasta_pack.argtypes = [
         ctypes.c_char_p, u32p, ctypes.c_int64, ctypes.c_int64,
         ctypes.c_char_p, ctypes.c_int64,
+    ]
+
+    f32p = np.ctypeslib.ndpointer(dtype=np.float32, flags="C_CONTIGUOUS")
+    lib.tn_parse_pileup.restype = ctypes.c_int64
+    lib.tn_parse_pileup.argtypes = [
+        ctypes.c_char_p, f32p, ctypes.c_int64,       # path, counts [L, 4], L
+        i64p, ctypes.c_int64,                        # contig offsets, n_contigs
+        u8p, ctypes.c_int64, ctypes.c_int,           # names blob, its length, both strands
+    ]
+
+    u64p = np.ctypeslib.ndpointer(dtype=np.uint64, flags="C_CONTIGUOUS")
+    lib.tn_sketch_file.restype = ctypes.c_int64
+    lib.tn_sketch_file.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_int64, u64p, ctypes.c_int64,
+    ]
+
+    lib.tn_dist_csv_scan.restype = ctypes.c_int64
+    lib.tn_dist_csv_scan.argtypes = [ctypes.c_char_p]
+
+    lib.tn_read_dist_csv.restype = ctypes.c_int64
+    lib.tn_read_dist_csv.argtypes = [
+        ctypes.c_char_p, ctypes.c_int64, ctypes.c_double,   # path, column, threshold
+        i64p, i64p, ctypes.c_int64,                         # I, J, their capacity
+        ctypes.c_char_p, ctypes.c_int64, i64p,              # names blob, its capacity, n_out
     ]
 
     lib.tn_format_dist_rows.restype = ctypes.c_int64
@@ -195,6 +221,45 @@ def native_format_rows(names, rows, cols, dvals, nn, ref, datediff=None, p0=None
     if wrote < 0:
         return None
     return ctypes.string_at(out, wrote).decode()
+
+
+def native_read_dist_csv(path, col_index, threshold):
+    """Parse a distance CSV for the cluster stage via the native reader.
+
+    Returns (I, J, names, n_rows): edge endpoint ids (first-appearance
+    order) of the rows whose column ``col_index`` is <= ``threshold``, the
+    id-ordered sample names, and the data row count; None when the native
+    library is unavailable or cannot open the file.  Raises ValueError on a
+    non-numeric metric field (``float()`` parity) or a short row.
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    path_b = os.fspath(path).encode()
+    n_rows = lib.tn_dist_csv_scan(path_b)
+    if n_rows < 0:
+        return None
+    I = np.zeros(max(n_rows, 1), dtype=np.int64)
+    J = np.zeros(max(n_rows, 1), dtype=np.int64)
+    n_out = np.zeros(4, dtype=np.int64)
+    names_cap = 1 << 22
+    while True:
+        blob = ctypes.create_string_buffer(names_cap)
+        rc = lib.tn_read_dist_csv(path_b, col_index, float(threshold), I, J, max(n_rows, 1),
+                                  blob, names_cap, n_out)
+        if rc == -2 and names_cap < (1 << 30):  # the names outgrew the blob
+            names_cap *= 8
+            continue
+        break
+    if rc == -4:
+        raise ValueError(f"could not convert distance column {col_index} to float")
+    if rc == -3:
+        raise ValueError("malformed distance CSV row (too few columns)")
+    if rc != 0:
+        return None
+    n_edges, _n_names, n_rows, blob_len = (int(x) for x in n_out)
+    names = ctypes.string_at(blob, blob_len).decode().split("\x00")[:-1] if blob_len else []
+    return I[:n_edges], J[:n_edges], names, n_rows
 
 
 def native_split_stats(planes):

@@ -242,25 +242,24 @@ def distance(args):
     logging.info("Running the SNP sweep on %s", device)
     dates = _load_dates(args.metadata) if args.metadata is not None else None
 
+    # a cursor file is what an interrupted streaming run leaves behind; one
+    # that streamed on its own account (below) used row blocks of 1024
+    if args.resume and not args.row_block and os.path.exists(args.output_file + ".cursor"):
+        args.row_block = 1024
     if args.row_block:
         return _distance_streaming(args, device, dates)
 
-    # large inputs stream automatically (bounded host memory, resumable);
-    # the sample count comes from the packed alignments, which are reused
-    packed = [pack_fasta(path) for path in args.msa_files]
+    # one MSA at a time is packed, swept and dropped (pipe hands over one MSA
+    # per reference genome); the database side is shared by all of them
     db = pack_fasta(args.msa_db) if args.msa_db is not None else None
-    n_max = max(p.n_seqs for p in packed)
-    if n_max > _AUTO_STREAM_SAMPLES:
-        logging.info(
-            "%s samples detected: switching to streaming row blocks "
-            "(use --row-block to control the block size)", n_max,
-        )
-        args.row_block = 1024
-        return _distance_streaming(args, device, dates, packed, db)
-
+    large = None  # (index, packed alignment) of the first MSA that must stream
     with open(args.output_file, "w") as outfile:
         outfile.write(HEADER)
-        for msa, a in zip(args.msa_files, packed):
+        for mi, msa in enumerate(args.msa_files):
+            a = pack_fasta(msa)
+            if a.n_seqs > _AUTO_STREAM_SAMPLES:
+                large = (mi, a)
+                break
             logging.info("Calculating pairwise snp distances for %s", msa)
             rows, cols, dvals, names, filt, nn = pairsnp(
                 [a, db] if db is not None else [a],
@@ -282,20 +281,31 @@ def distance(args):
             )
             outfile.write(_transmission_rows(args, names, rows, cols, dvals, filt, nn,
                                              ref, (years, p0, eK)))
+    if large is not None:
+        # a large input streams from here on (bounded host memory, resumable);
+        # its sample count came from the packed alignment, which is reused
+        logging.info(
+            "%s samples detected: switching to streaming row blocks "
+            "(use --row-block to control the block size)", large[1].n_seqs,
+        )
+        args.row_block = 1024
+        _distance_streaming(args, device, dates, *large, db)
 
 
-def _distance_streaming(args, device, dates, packed=None, db=None):
+def _distance_streaming(args, device, dates, first_msa=0, first_packed=None, db=None):
     """Row-block streaming driver: bounded host memory, incremental CSV
     writes, and a cursor file so an interrupted sweep resumes at the last
     completed block.  The cursor records the flushed byte offset after each
     block; a resumed run truncates the output there first, so it is
     byte-identical to an uninterrupted one.  With ``dates`` one
     TransClusterCache serves every block of the run.  Output rows are
-    identical to the non-streaming path."""
+    identical to the non-streaming path.  With ``first_packed``, the
+    packed alignment of MSA ``first_msa``, the run continues an output that
+    holds the header and every earlier MSA already."""
     cursor_path = args.output_file + ".cursor"
-    cursor = {"msa_index": 0, "next_row": 0}
-    mode = "w"
-    if args.resume and os.path.exists(cursor_path):
+    cursor = {"msa_index": first_msa, "next_row": 0}
+    mode = "w" if first_packed is None else "a"
+    if first_packed is None and args.resume and os.path.exists(cursor_path):
         with open(cursor_path) as fh:
             cursor = json.load(fh)
         mode = "a"
@@ -316,7 +326,8 @@ def _distance_streaming(args, device, dates, packed=None, db=None):
                 continue
             start_row = cursor["next_row"] if mi == cursor["msa_index"] else 0
             ref = _ref_name(msa)
-            a = packed[mi] if packed is not None else pack_fasta(msa)
+            a = first_packed if mi == first_msa and first_packed is not None else pack_fasta(msa)
+            first_packed = None  # one packed MSA is held at a time
             if db is None and args.msa_db is not None:
                 db = pack_fasta(args.msa_db)
             logging.info("Streaming pairwise distances for %s", msa)
