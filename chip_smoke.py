@@ -10,7 +10,11 @@ Phases (each one passes or the script exits non-zero):
 0. the card's name and power limit, from nvidia-smi;
 1. the build of every kernel from the sources in the checkout (one nvcc per
    source, all started together, sm_90a), with its seconds and ptxas report;
-   then the tensor cores' issue rates for b1 and int8 operands
+   then the port's ``doctor`` runtime check (``check_runtime``: the native
+   library, torch and its CUDA, the card, nvcc, every kernel source), which
+   fails the run on any problem line, and the versions of matplotlib and
+   pandas (or ``absent``: the port imports neither outside ``plot``); then
+   the tensor cores' issue rates for b1 and int8 operands
    (``tracs_tpu_torch.experiments.tensor_rate``): the data sheet names no b1
    peak, so the bounds below take 8 x int8's, and the run fails unless the
    card's b1 ``wgmma`` rate is measured within 10% of that;
@@ -34,10 +38,17 @@ Phases (each one passes or the script exits non-zero):
    that every row block launched the split-gram kernel, that the CSV holds
    exactly the within-cluster pairs, and that 2,000 sampled rows agree with a
    host numpy popcount over the raw planes.  Prints wall seconds, pairs/s and
-   the CSV's sha256;
+   the CSV's sha256.  Then the pack cache on the same FASTA: a cold
+   ``pack_fasta(cache_dir=...)`` packs and stores, a warm one loads the
+   planes, which must be equal (both times printed), and one ``distance
+   --pack-cache`` run served from the cache must write the same bytes;
 4. the sweep alone (``pairsnp_stream``) through both engines, cold and warm:
    the popcount engine must launch ``popcount_gram`` once per row block and
-   yield, array for array, what the split engine yields.  On the layouts
+   yield, array for array, what the split engine yields.  Then, warm,
+   ``method="mxu"``, whose route on the card is ``popcount_gram`` (the
+   15-channel gram of the JAX package's ``_gram_mxu`` is the kernel's own
+   15 subset grams): once per row block, the split engine's arrays, and the
+   route's (g, gq) at the first block against ``_gram_mxu``.  On the layouts
    that stay resident, ``mismatch_positions_kernel`` against its plain
    version, exact on the whole table: the first row block's emitted pairs at
    the capacity the filter gives it (timed), and a ragged length with a
@@ -74,8 +85,9 @@ Phases (each one passes or the script exits non-zero):
    planted clusters (members a few SNPs apart, clusters hundreds apart), each
    with stretches without coverage, stretches of one read a strand and mixed
    sites with two alleles on both strands, made from the seed with numpy.
-   The database zip holds the reference, a decoy genome and the port's own
-   FracMinHash sketches and no SBT, so every sample's reference is chosen by
+   The database zip is built by the ``build-db`` stage from the reference
+   and a decoy genome: no sourmash there, so it holds the genomes and the
+   port's own FracMinHash sketches and no SBT, and every sample's reference is chosen by
    the native gather from its read file (a FASTQ holding its genome).  Only
    the aligner subprocess is stood in for: a function writes the sample's
    htsbox-format pileup where minimap2 | samtools | htsbox would have.  The
@@ -89,7 +101,10 @@ Phases (each one passes or the script exits non-zero):
    the run's combined alignment is packed and laid out as ``distance`` does
    and, at that shape, ``split_gram`` is held against its plain version
    (exact) and the sweep's distance and sites considered of every one of
-   the 120 pairs against the planted ones.  Prints the wall of ``pipe`` and
+   the 120 pairs against the planted ones.  ``threshold`` then fits its
+   mixture to the close pairs (``pipe``'s distance CSV: the pairs within a
+   planted cluster) and the distant ones (the sweep's cross-cluster pairs),
+   and the run fails unless the cutoff lies between the two.  Prints the wall of ``pipe`` and
    its split by function, the two model functions on the CPU at the same size
    beside the card's, and whether the real aligner binaries are on PATH.
 
@@ -112,6 +127,7 @@ import hashlib
 import json
 import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -122,9 +138,6 @@ import numpy as np
 
 #: row block of the distance run: the JAX package's headline setting
 ROW_BLOCK = 1024
-#: the kernel sources, built from csrc/<name>.cu; the last is the yardstick
-#: of phase 1, not a kernel of any path
-KERNELS = ("split_gram", "popcount_gram", "split_gram_mma", "mism_positions", "tensor_rate")
 #: the transmission model's defaults (tracs distance --clock_rate/--trans_rate/--precision)
 LAMB, BETA, PRECISION = 1e-3 * 29903, 73.0, 0.01
 
@@ -293,6 +306,29 @@ def phase_tensor_rate():
     if not 0.9 * PEAK_B1 <= b1["tops"] * 1e12 <= 1.1 * PEAK_B1:
         fail(f"the measured b1 wgmma rate, {b1['tops']:.1f} TOP/s, is not within 10% of the "
              f"{PEAK_B1 / 1e12:.0f} TOP/s the bounds assume")
+
+
+def phase_doctor():
+    """The port's ``doctor`` runtime check on the card (the native library,
+    torch and its CUDA, the card, nvcc, and every kernel source through
+    ``build_cuda_library``, a cache hit after phase 1); fails on any problem
+    line.  The external tools are phase 10's to report.  Then the plotting
+    packages, which the port imports only inside ``plot``."""
+    import importlib.metadata
+    import importlib.util
+
+    from tracs_tpu_torch.stages.doctor import check_runtime
+
+    ok, problems = check_runtime("cuda")
+    for line in ok:
+        print(f"# doctor:   ok  {line}")
+    for line in problems:
+        print(f"# doctor: FAIL  {line}")
+    if problems:
+        fail(f"doctor found {len(problems)} problem(s) on the card: {problems[0]}")
+    for package in ("matplotlib", "pandas"):
+        found = importlib.util.find_spec(package) is not None
+        print(f"# {package}: {importlib.metadata.version(package) if found else 'absent'}")
 
 
 #: name, A rows, B rows (None: self), W, r0, rb, c0
@@ -580,12 +616,13 @@ def phase_mism_positions(packed, block, device):
     return rec
 
 
-def phase_sweeps(fasta: str, row_block: int, device):
+def phase_sweeps(fasta: str, row_block: int, device, card):
     """pairsnp_stream through both engines, cold (fresh alignment object:
     compaction scan, layout and upload) and warm (resident), the warm runs
     taken in turns.  The popcount run is the popcount engine's main path:
     its launch count is read around its cold sweep.  Returns (that count, the
-    mismatch-position kernel's record from the resident layouts)."""
+    mismatch-position kernel's record from the resident layouts, the mxu
+    route's launches and record)."""
     import torch
 
     from tracs_tpu_torch.ops import kernels
@@ -630,9 +667,107 @@ def phase_sweeps(fasta: str, row_block: int, device):
     for method, ts in warm.items():
         print(f"# sweep warm {method}: median {float(np.median(ts)):.4f} s of "
               f"{', '.join(f'{t:.4f}' for t in ts)}")
+    mxu = phase_mxu(fresh["popcount"], split_blocks, row_block, device, card)
     # both engines' layouts of one alignment object: the split layout is
     # resident on fresh["split"]; the raw planes follow at first use
-    return launches, phase_mism_positions(fresh["split"], split_blocks[0], device)
+    return launches, phase_mism_positions(fresh["split"], split_blocks[0], device), mxu
+
+
+def phase_mxu(packed, split_blocks, row_block: int, device, card):
+    """``method="mxu"`` on the card, warm on the raw planes the popcount sweep
+    left resident: its route is ``popcount_gram`` (g = -matches, gq = cntN_a +
+    cntN_b - nunion), launched once a row block, and its arrays must equal the
+    split engine's.  Then, at the first block's shape on the headline's own
+    planes, the route's (g, gq) against its plain version ``_gram_mxu``.
+    Returns the route's record for the JSON line."""
+    import torch
+
+    from tracs_tpu_torch.ops import kernels
+    from tracs_tpu_torch.ops.pairsnp import _cnt_n, _gram_mxu, _planes_device, pairsnp_stream
+
+    n = packed.n_seqs
+    n_blocks = -(-n // row_block)
+    reset_counts()
+    t0 = time.perf_counter()
+    blocks = list(pairsnp_stream([packed], dist=200, row_block=row_block, device=device,
+                                 method="mxu"))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = kernels.POPCOUNT_GRAM_LAUNCHES
+    print(f"# sweep warm mxu: {wall:.4f} s, popcount_gram launches {launches} for {n_blocks} "
+          f"row blocks")
+    if launches != n_blocks or kernels.SPLIT_GRAM_LAUNCHES:
+        fail(f"the mxu sweep made {launches} popcount_gram launches for {n_blocks} row blocks")
+    if len(blocks) != len(split_blocks) or not all(
+            b[:2] == s[:2] and all(np.array_equal(x, y) for x, y in zip(b[3:], s[3:]))
+            for b, s in zip(blocks, split_blocks)):
+        fail("the mxu sweep disagrees with the split sweep")
+    print(f"# mxu sweep == split sweep, array for array: {len(blocks)} blocks")
+
+    pa = _planes_device(packed, device)
+    cnt = _cnt_n(packed, 0, None).to(device)
+    rb, W = min(row_block, n), pa.shape[2]
+
+    def route():
+        matches, nunion = kernels.popcount_gram(pa, 0, rb, 0)
+        return -matches, cnt[:rb, None] + cnt[None, :] - nunion
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = _gram_mxu(pa[:rb], pa)  # slow (float64): one run, timed by itself
+    end.record()
+    got = route()
+    torch.cuda.synchronize()
+    err = [int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)]
+    name = f"the headline's block rb={rb} n={n} W={W}"
+    print(f"# popcount_gram (mxu route) vs _gram_mxu, {name}: max |err| {err}")
+    if any(err):
+        fail(f"the mxu route disagrees with its plain version at {name}")
+    del got, want
+    rec = {"max_abs_err": err, "ms": time_ms(route, 10), "plain_ms": start.elapsed_time(end),
+           **gram_bound(
+        f"popcount_gram (mxu route) at {name}", n, None, W, 0, rb, 0, planes=4, products=15,
+        popc=2, card=card, peak_ops=PEAK_B1)}
+    print(f"# popcount_gram (mxu route) at {name}: kernel {rec['ms']:.3f} ms, plain "
+          f"{rec['plain_ms']:.3f} ms (one run)")
+    torch.cuda.empty_cache()
+    return launches, rec
+
+
+def phase_pack_cache(fasta: str, n: int, row_block: int, plain_csv: str, tmp: str, device):
+    """The pack cache on the headline FASTA: a cold ``pack_fasta`` packs and
+    stores, a warm one loads the planes (a read-only mmap) and they must equal;
+    then one ``distance --pack-cache`` run served from the cache must write
+    the bytes of phase 3's CSV."""
+    from tracs_tpu_torch.ops.packing import pack_cache_key, pack_fasta
+
+    cache = os.path.join(tmp, "pack_cache")
+    t0 = time.perf_counter()
+    cold = pack_fasta(fasta, cache_dir=cache)
+    t_cold = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    warm = pack_fasta(fasta, cache_dir=cache)
+    t_warm = time.perf_counter() - t0
+    entry = os.path.join(cache, pack_cache_key(fasta))
+    size = sum(os.path.getsize(os.path.join(entry, f)) for f in os.listdir(entry))
+    print(f"# pack cache: cold pack_fasta (pack + store) {t_cold:.3f} s, warm (load) "
+          f"{t_warm:.3f} s; entry {size / 1e9:.2f} GB")
+    if not isinstance(warm.planes, np.memmap) or warm.names != cold.names \
+            or warm.length != cold.length or not np.array_equal(warm.planes, cold.planes):
+        fail("the pack cache's warm load differs from the cold pack")
+    del cold, warm
+    out = os.path.join(tmp, "dists_pack_cache.csv")
+    argv = ["distance", "--msa", fasta, "-o", out, "-D", "200", "--row-block", str(row_block),
+            "--pack-cache", cache]
+    wall, _, _, sha = _run_cli(argv, n, row_block, "distance --pack-cache CLI (warm)", device)
+    with open(plain_csv, "rb") as fh:
+        want = hashlib.sha256(fh.read()).hexdigest()
+    print(f"# distance --pack-cache: {wall:.3f} s wall, sha256 {sha}")
+    if sha != want:
+        fail(f"the --pack-cache run's CSV (sha256 {sha}) differs from phase 3's ({want})")
+    os.remove(out)
+    shutil.rmtree(cache)
 
 
 def write_dates(path: str, n: int, cluster_size: int, seed: int) -> None:
@@ -1032,7 +1167,6 @@ def phase_pipe(seed: int, tmp: str, device, card):
     from tracs_tpu_torch.io.fasta import read_fasta
     from tracs_tpu_torch.models import dirichlet
     from tracs_tpu_torch.ops.packing import IUPAC_BY_NIBBLE
-    from tracs_tpu_torch.sketch import write_db_sketches
     from tracs_tpu_torch.stages import align as align_mod
     from tracs_tpu_torch.stages import pipe as pipe_mod
 
@@ -1053,17 +1187,23 @@ def phase_pipe(seed: int, tmp: str, device, card):
     os.makedirs(work)
     rng = np.random.default_rng(seed + 7)
     genomes = {"REFA": ref, "DECOY": rng.integers(0, 4, size=L, dtype=np.uint8)}
-    db = os.path.join(work, "db.zip")
     inputs = []
-    with zipfile.ZipFile(db, "w") as z:
-        for name, codes in genomes.items():
-            fasta = os.path.join(work, name + ".fasta")
-            with open(fasta, "wb") as fh:
-                fh.write(b">chr1\n" + _BASES[codes].tobytes() + b"\n")
-            with open(fasta, "rb") as fh:
-                z.writestr(name + ".fasta.gz", gzip.compress(fh.read(), 1))
-            inputs.append((fasta, name))
-    write_db_sketches(db, inputs)  # the port's sketches; no SBT member
+    for name, codes in genomes.items():
+        fasta = os.path.join(work, name + ".fasta")
+        with open(fasta, "wb") as fh:
+            fh.write(b">chr1\n" + _BASES[codes].tobytes() + b"\n")
+        inputs.append(fasta)
+    # the database through the build-db stage: no sourmash on the card's
+    # machine, so the genomes and the port's native sketches, no SBT member
+    t_db = time.perf_counter()
+    cli.main(["build-db", "-i", *inputs, "-o", os.path.join(work, "db")])
+    t_db = time.perf_counter() - t_db
+    db = os.path.join(work, "db.zip")
+    with zipfile.ZipFile(db) as z:
+        members = sorted(z.namelist())
+    print(f"# build-db: {t_db:.3f} s, members {members}")
+    if members != ["DECOY.fasta.gz", "REFA.fasta.gz", "native_sketches.npz", "summary.tsv"]:
+        fail(f"build-db wrote the members {members}")
     tsv = os.path.join(work, "input.tsv")
     with open(tsv, "w") as fh:
         fh.write("prefix\tr1\n")
@@ -1268,6 +1408,28 @@ def phase_pipe(seed: int, tmp: str, device, card):
     far = sorted(d for d, _ in planted_pairs.values() if d > 100)
     print(f"# pipe: all {len(swept)} pairs of the sweep equal the planted SNP distance and sites "
           f"considered ({len(far)} cross-cluster pairs, {far[0]}..{far[-1]} apart)")
+
+    # threshold: the close pairs are pipe's distance CSV (the within-cluster
+    # pairs), the distant ones the sweep's cross-cluster pairs in its schema
+    distant = os.path.join(work, "distant.csv")
+    with open(os.path.join(out, "transmission_distances.csv")) as src, open(distant, "w") as fh:
+        fh.write(src.readline())
+        for i, j, d, nn in zip(pi, pj, pd, pnn):
+            if d > 100:
+                fh.write(f"{names[i]},{names[j]},NA,{d},NA,NA,0,{nn},combinedREFA\n")
+    t0 = time.perf_counter()
+    cli.main(["threshold", "--close", os.path.join(out, "transmission_distances.csv"),
+              "--distant", distant, "-o", os.path.join(work, "threshold.csv"), "--column", "3"])
+    t_thr = time.perf_counter() - t0
+    with open(os.path.join(work, "threshold.csv")) as fh:
+        fit = dict(line.strip().split(",") for line in fh.readlines()[1:])
+    cutoff = float(fit["snp_threshold"])
+    print(f"# threshold: {t_thr:.3f} s; r {float(fit['r']):.4g}, p {float(fit['p']):.4g}, "
+          f"q {float(fit['q']):.4g}, lambda {float(fit['lambda']):.4g}; cutoff {cutoff} between "
+          f"the close pairs (<= {dists[-1]}) and the distant ones (>= {far[0]})")
+    if not dists[-1] < cutoff < far[0]:
+        fail(f"threshold: the fitted cutoff {cutoff} does not separate the planted close pairs "
+             f"(up to {dists[-1]}) from the distant ones (from {far[0]})")
     del got, want, ea, nm, args, packed
 
     # the two model functions on the CPU at the same size, for one sample
@@ -1323,7 +1485,9 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False: this script needs a CUDA card")
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from tracs_tpu_torch.runtime.build import build_cuda_library
+    # the kernel sources csrc/<name>.cu; the last is the yardstick of phase 1,
+    # not a kernel of any path
+    from tracs_tpu_torch.runtime.build import KERNELS, build_cuda_library
 
     device = torch.device("cuda", 0)
     smi = subprocess.run(
@@ -1357,13 +1521,16 @@ def main() -> None:
     card = {"sms": props.multi_processor_count, "sm_hz": sm_mhz * 1e6}
     print(f"# {card['sms']} SMs, max SM clock {sm_mhz:.0f} MHz")
 
+    phase_doctor()
     phase_tensor_rate()
     recs = phase_kernels(device, args.seed, card)
     with tempfile.TemporaryDirectory() as tmp:
         packed, fasta, cluster_size = _headline(args.n, args.length, args.seed, tmp)
         split_launches, fields = phase_slice(packed, fasta, cluster_size, ROW_BLOCK,
                                              args.seed, tmp, device)
-        pc_launches, recs["mism_positions"] = phase_sweeps(fasta, ROW_BLOCK, device)
+        phase_pack_cache(fasta, args.n, ROW_BLOCK, os.path.join(tmp, "dists.csv"), tmp, device)
+        pc_launches, recs["mism_positions"], (mxu_launches, recs["mxu route"]) = phase_sweeps(
+            fasta, ROW_BLOCK, device, card)
         _, _, N, years = phase_meta(packed, fasta, cluster_size, ROW_BLOCK, args.seed, tmp,
                                     fields, device)
         phase_trans_dist(N, years, device)
@@ -1400,6 +1567,10 @@ def main() -> None:
               pc_launches, (0,)),
         entry("popcount_gram (K3 nunion)", "popcount_gram", "popcount_gram", f"{pallas}:65",
               pc_launches, (1,)),
+        # the same kernel on the mxu engine's route: its launches in the mxu
+        # sweep, its (g, gq) against _gram_mxu at that sweep's first block
+        entry("popcount_gram (mxu route)", "mxu route", "popcount_gram", f"{pallas}:45",
+              mxu_launches, (0, 1)),
         *(entry(f"split_gram_variant {name}", name, "split_gram_mma",
                 "scripts/kernel_experiments.py:22", exp_counts[name], (0, 1))
           for name in (K.variant_name(*v) for v in K.SPLIT_GRAM_VARIANTS)),

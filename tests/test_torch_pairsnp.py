@@ -277,12 +277,18 @@ def test_pair_layouts_must_share_partial_axis():
 
 
 def test_unported_options_raise():
+    """method="mxu" is ported (tests/test_torch_mxu.py): it yields what the
+    split engine yields, with and without the filter; an unknown method
+    raises."""
     rng = np.random.default_rng(10)
     _, p = _both(_seqs(rng, 3, 64))
-    with pytest.raises(NotImplementedError):
-        list(port.pairsnp_stream([p], method="mxu", device="cpu"))
-    with pytest.raises(NotImplementedError):
-        list(port.pairsnp_stream([p], filter=True, method="mxu", device="cpu"))
+    for filter_ in (False, True):
+        got = list(port.pairsnp_stream([p], filter=filter_, method="mxu", device="cpu"))
+        want = list(port.pairsnp_stream([p], filter=filter_, method="split", device="cpu"))
+        for g, w in zip(got, want):
+            assert all(np.array_equal(x, y) for x, y in zip(g[3:], w[3:]))
+    with pytest.raises(ValueError):
+        list(port.pairsnp_stream([p], method="bogus", device="cpu"))
 
 
 def test_cuda_device_without_card_raises():

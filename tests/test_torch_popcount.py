@@ -359,9 +359,15 @@ def test_popcount_planes_cached_and_split_layout_untouched():
     assert getattr(p, "_split_cache", None) is None
 
 
-@pytest.mark.parametrize("method,exc", [("mxu", NotImplementedError), ("bogus", ValueError)])
+@pytest.mark.parametrize("method,exc", [("mxu", None), ("bogus", ValueError)])
 def test_other_methods_raise(method, exc):
+    """An unknown method raises; ``mxu`` is ported and runs."""
     p = pack_sequences(["ACGT", "ACGA"])
+    if exc is None:
+        assert list(port.pairsnp_stream([p], device="cpu", method=method))[0][5].tolist() == [1]
+        assert port.snp_distance_dense(p, device="cpu", method=method)[0].tolist() == [[0, 1],
+                                                                                     [1, 0]]
+        return
     with pytest.raises(exc):
         list(port.pairsnp_stream([p], device="cpu", method=method))
     with pytest.raises(exc):

@@ -43,6 +43,7 @@ rule is refused, not copied.
 from __future__ import annotations
 
 import ctypes
+import warnings
 
 import numpy as np
 import torch
@@ -107,8 +108,15 @@ _POPCOUNT_GRAM_MAX_WORDS = 2**23
 
 
 def _as_words(a: np.ndarray) -> torch.Tensor:
-    """uint32 numpy words as an int32 CPU tensor of the same bits."""
-    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32))
+    """uint32 numpy words as an int32 CPU tensor of the same bits.  The
+    tensor shares the array's memory, which may be a read-only mmap (a pack
+    cache entry): nothing in the port writes into packed planes."""
+    words = np.ascontiguousarray(a, dtype=np.uint32).view(np.int32)
+    if words.flags.writeable:
+        return torch.from_numpy(words)
+    with warnings.catch_warnings():
+        warnings.filterwarnings("ignore", message="The given NumPy array is not writable")
+        return torch.from_numpy(words)
 
 
 def _unpack_bits(words: torch.Tensor) -> torch.Tensor:

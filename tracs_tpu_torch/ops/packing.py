@@ -155,12 +155,79 @@ def pack_sequences(seqs: Sequence[str | bytes], names: Sequence[str] | None = No
     return PackedAlignment(planes=planes, length=nib.shape[1], names=list(names))
 
 
-def pack_fasta(path: str | os.PathLike) -> PackedAlignment:
-    """Load an aligned (equal-length) FASTA/FASTA.gz into bit-planes, with
-    the native packer when it builds and the numpy packer otherwise."""
+#: bump to invalidate on-disk pack caches when the plane layout changes
+PACKER_VERSION = 1
+
+
+def pack_cache_key(path: str | os.PathLike) -> str:
+    """The cache key of a FASTA: ``PACKER_VERSION`` and the file's identity and
+    change stamps, ``(st_dev, st_ino, st_size, st_mtime_ns, st_ctime_ns)``.
+
+    Every one of them is a property of the whole file, read from one
+    ``stat`` (reading the content would cost what the cache saves).  The
+    kernel sets ``st_ctime`` on every write, rename and ``utime`` and user
+    space cannot set it back, so an edit that restores the size and the
+    modification time (``touch -r``, ``os.utime``) still re-keys, wherever in
+    the file it lies; a copy or an unpacked archive is a new inode and re-keys
+    too.  The stamps have the file system's clock granularity."""
+    import hashlib
+
+    st = os.stat(path)
+    stamp = (PACKER_VERSION, st.st_dev, st.st_ino, st.st_size, st.st_mtime_ns,
+             st.st_ctime_ns)
+    return hashlib.sha256(repr(stamp).encode()).hexdigest()[:32]
+
+
+def _pack_cache_load(entry: str) -> PackedAlignment | None:
+    """The cached alignment of ``entry`` with its planes as a read-only mmap,
+    None when there is no entry; raises ValueError for a corrupt one."""
+    import json
+
+    meta_p = os.path.join(entry, "meta.json")
+    planes_p = os.path.join(entry, "planes.npy")
+    if not os.path.isdir(entry):
+        return None
+    try:
+        with open(meta_p) as fh:
+            meta = json.load(fh)
+        planes = np.load(planes_p, mmap_mode="r")
+        length, names = int(meta["length"]), list(meta["names"])
+    except (OSError, ValueError, KeyError, TypeError) as e:
+        raise ValueError(f"unreadable entry: {e}") from e
+    if meta.get("version") != PACKER_VERSION or planes.dtype != np.uint32 \
+            or planes.shape != (len(names), 4, (length + 31) // 32):
+        raise ValueError(f"entry of version {meta.get('version')} holds planes "
+                         f"{planes.dtype}{planes.shape} for {len(names)} names of length {length}")
+    return PackedAlignment(planes=planes, length=length, names=names)
+
+
+def _pack_cache_store(entry: str, packed: PackedAlignment) -> None:
+    """Writes the entry into a temporary directory beside it and publishes it
+    with one ``os.rename``, so a reader sees a whole entry or none."""
+    import json
+    import shutil
+    import tempfile
+
+    parent = os.path.dirname(entry)
+    os.makedirs(parent, exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=parent, prefix=".pack-")
+    try:
+        np.save(os.path.join(tmp, "planes.npy"), packed.planes)
+        with open(os.path.join(tmp, "meta.json"), "w") as fh:
+            json.dump({"version": PACKER_VERSION, "length": packed.length,
+                       "names": packed.names}, fh)
+        try:
+            os.rename(tmp, entry)
+        except OSError:
+            if not os.path.isdir(entry):  # else another process published it first
+                raise
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _pack_uncached(path: str) -> PackedAlignment:
     from tracs_tpu_torch.runtime.native import native_pack_fasta
 
-    path = os.fspath(path)
     got = native_pack_fasta(path)
     if got is not None:
         planes, length, names = got
@@ -172,6 +239,54 @@ def pack_fasta(path: str | os.PathLike) -> PackedAlignment:
     if not seqs:
         raise ValueError(f"No sequences found in {path!r}")
     return pack_sequences(seqs, names)
+
+
+def pack_fasta(path: str | os.PathLike,
+               cache_dir: str | os.PathLike | None = None) -> PackedAlignment:
+    """Load an aligned (equal-length) FASTA/FASTA.gz into bit-planes, with
+    the native packer when it builds and the numpy packer otherwise.
+
+    With ``cache_dir`` the planes are kept on disk under
+    ``cache_dir/<pack_cache_key(path)>`` (``planes.npy`` and ``meta.json``,
+    published by an atomic rename), and a later call on the unchanged file
+    loads them as a read-only mmap instead of parsing the FASTA.  A store
+    that fails logs a warning and the packed planes are returned all the
+    same; a corrupt entry is reported, removed and re-packed.
+
+    Deviation from tracs_tpu: the cache is off unless ``cache_dir`` is given
+    (``tracs-tpu-torch distance --pack-cache DIR``); there is no default
+    directory and no ``TRACS_TPU_PACK_CACHE``, so nothing is written that the
+    caller did not ask for.  ``cache_dir`` is the only switch: a file of any
+    size is cached when it is given (tracs_tpu skips files under 64 MB by
+    default)."""
+    import logging
+
+    path = os.fspath(path)
+    entry = None
+    if cache_dir is not None:
+        try:
+            entry = os.path.join(os.fspath(cache_dir), pack_cache_key(path))
+        except OSError:
+            entry = None  # the packer reports a missing file
+    if entry is not None:
+        try:
+            cached = _pack_cache_load(entry)
+        except ValueError as e:
+            import shutil
+
+            logging.warning("pack cache: %s is corrupt (%s); re-packing %s", entry, e, path)
+            shutil.rmtree(entry, ignore_errors=True)
+            cached = None
+        if cached is not None:
+            logging.info("pack cache: loaded %s from %s", path, entry)
+            return cached
+    packed = _pack_uncached(path)
+    if entry is not None:
+        try:
+            _pack_cache_store(entry, packed)
+        except OSError as e:
+            logging.warning("pack cache: could not store %s in %s (%s)", path, entry, e)
+    return packed
 
 
 @dataclasses.dataclass

@@ -26,6 +26,15 @@ the kernel ``popcount_gram`` (K2 + K3 in one pass): D = L - matches,
 NN = L - nunion, with no split layout and no correction gram.  Same sweep
 schedule, extraction and emission order as the split path.
 
+Inclusion-exclusion engine (``method="mxu"``).  matches by inclusion-exclusion
+over the 15 non-empty plane subsets S: with G_S the gram of the AND over S,
+g = sum_S (-1)^|S| G_S = -matches and gq = G_ACGT (the N gram), so
+D = L + g and NN = L - cntN_a - cntN_b + gq.  On the CPU ``_gram_mxu`` forms
+the two grams in plain torch; on the card they are the popcount kernel's own
+15 subset grams (``popcount_gram``: g = -matches, gq = cntN_a + cntN_b -
+nunion), so there the engine runs the popcount engine's blocks.  ``auto`` picks between the engines by tracs_tpu's rule
+(``_select_method``), which picks split on every alignment.
+
 Recombination filter (``filter=True``).  Each block's survivors go through
 ops/recomb.py::filter_pairs: the kernel ``mismatch_positions_kernel`` reads
 the engine's resident layout and returns every pair's mismatch positions,
@@ -44,6 +53,7 @@ import numpy as np
 import torch
 
 from tracs_tpu_torch.ops.kernels import (
+    _SUBSET_SIGNS,
     _as_words,
     _subset_products,
     _unpack_bits,
@@ -58,6 +68,7 @@ from tracs_tpu_torch.ops.packing import (
     compact_variant_columns,
     pack_fasta,
     partial_site_positions,
+    popcount_words,
     split_alignment,
 )
 from tracs_tpu_torch.ops.recomb import filter_pairs
@@ -77,7 +88,13 @@ _PARTIAL_CHUNK_BYTES = 256 << 20
 # bytes of one launch's [pairs, 1 + capacity] int32 position table
 _MISM_TABLE_BYTES = 256 << 20
 
-_NOT_PORTED = "not ported to tracs_tpu_torch yet; see ROADMAP.md"
+#: the signs (-1)^|S| of the 15 plane subsets in the mxu gram, and the channel
+#: of the 4-plane subset (the N mask)
+_MXU_SIGNS = [-s for s in _SUBSET_SIGNS]
+_QUAD = 14
+
+#: the method names; ``auto`` picks one of the others by ``_select_method``
+METHODS = ("auto", "split", "popcount", "mxu")
 
 
 def _derive_split_planes(planes: torch.Tensor):
@@ -170,6 +187,32 @@ def _assemble_popcount(matches, nunion, L: int):
     return (L - matches).to(torch.int32), (L - nunion).to(torch.int32)
 
 
+def _assemble_mxu(g, gq, cnt_a, cnt_b, L: int):
+    """(D, NN) blocks from the signed 15-channel gram and the quad gram."""
+    return (g + L).to(torch.int32), (L - cnt_a[:, None] - cnt_b[None, :] + gq).to(torch.int32)
+
+
+def _gram_mxu(pa: torch.Tensor, pb: torch.Tensor):
+    """Signed channel gram and quad gram of raw planes [na, 4, W] and
+    [nb, 4, W] (counterpart of tracs_tpu.ops.pairsnp._gram_mxu):
+    g = sum_S (-1)^|S| G_S over the 15 plane subsets, gq = G_ACGT, int32
+    [na, nb].  Contracted in float64 over unpacked 0/1 channels, which is
+    exact, chunked over words so the operands stay under ~256 MB."""
+    na, nb, W = pa.shape[0], pb.shape[0], pa.shape[2]
+    f64 = dict(dtype=torch.float64, device=pa.device)
+    signs = torch.tensor(_MXU_SIGNS, **f64)[None, :, None]
+    acc = torch.zeros((na, nb), **f64)
+    accq = torch.zeros((na, nb), **f64)
+    chunk = max(1, _PARTIAL_CHUNK_BYTES // max(1, (na + 2 * nb) * 15 * 32 * 8))
+    for w0 in range(0, W, chunk):
+        w1 = min(W, w0 + chunk)
+        ya = _unpack_bits(_subset_products(pa[:, :, w0:w1])).to(torch.float64)
+        yb = _unpack_bits(_subset_products(pb[:, :, w0:w1])).to(torch.float64)
+        acc += ya.reshape(na, -1) @ (yb * signs).reshape(nb, -1).T
+        accq += ya[:, _QUAD] @ yb[:, _QUAD].T
+    return acc.to(torch.int32), accq.to(torch.int32)
+
+
 def _popcount_block(a: PackedAlignment, b: PackedAlignment, r0: int, r1: int,
                     c0: int, device: torch.device):
     """(D, NN) int32 device blocks of rows [r0, r1) of ``a`` against
@@ -178,6 +221,30 @@ def _popcount_block(a: PackedAlignment, b: PackedAlignment, r0: int, r1: int,
     pb = None if b is a else _planes_device(b, device)
     matches, nunion = popcount_gram(pa, r0, r1 - r0, c0, pb)
     return _assemble_popcount(matches, nunion, a.length)
+
+
+def _cnt_n(packed: PackedAlignment, r0: int, r1: int | None) -> torch.Tensor:
+    """Per-sample N counts of rows [r0, r1) of a PackedAlignment as int32, a
+    host popcount of their N masks."""
+    p = packed.planes[r0:r1]
+    cnt = popcount_words(p[:, 0] & p[:, 1] & p[:, 2] & p[:, 3]).sum(axis=-1)
+    return torch.from_numpy(cnt.astype(np.int32))
+
+
+def _mxu_block(a: PackedAlignment, b: PackedAlignment, r0: int, r1: int, c0: int,
+               device: torch.device):
+    """(D, NN) int32 device blocks of rows [r0, r1) of ``a`` against columns
+    [c0, n_b) of ``b`` through the inclusion-exclusion engine.  On the card
+    its 15 subset grams are the popcount kernel's own (g = -matches and
+    gq = cntN_a + cntN_b - nunion, which ``_assemble_mxu`` turns back into
+    D = L - matches and NN = L - nunion), so the block is the popcount
+    engine's; on the CPU ``_gram_mxu`` forms g and gq in plain torch."""
+    if device.type != "cpu":
+        return _popcount_block(a, b, r0, r1, c0, device)
+    pa = _planes_device(a, device)
+    pb = pa if b is a else _planes_device(b, device)
+    g, gq = _gram_mxu(pa[r0:r1], pb[c0:])
+    return _assemble_mxu(g, gq, _cnt_n(a, r0, r1), _cnt_n(b, c0, None), a.length)
 
 
 def _split_block(sa: SplitAlignment, sb: SplitAlignment, r0: int, r1: int,
@@ -292,16 +359,23 @@ def _cached_compact(a: PackedAlignment, b: PackedAlignment):
     return res
 
 
-def _check_method(method: str) -> str:
-    """The engine a method name runs: ``auto`` is the split path."""
-    if method == "mxu":
-        raise NotImplementedError(
-            f"method='mxu' (the 15-channel cross-check gram) is {_NOT_PORTED} "
-            "('Modules to port', item 8)"
-        )
-    if method not in ("auto", "split", "popcount"):
-        raise ValueError(f"unknown method {method!r}")
-    return "popcount" if method == "popcount" else "split"
+def _select_method(a: PackedAlignment, b: PackedAlignment) -> str:
+    """tracs_tpu's choice for ``auto``, by multiply-adds a site: the split
+    decomposition costs ~5 a site + 10 a partial-IUPAC site (p of them, the
+    union over the samples), the inclusion-exclusion gram ~16 a site.  mxu
+    would need 10 p >= 11 L, and p <= L, so the rule picks split on every
+    alignment, in tracs_tpu as here; it is kept so that ``auto`` runs what
+    tracs_tpu runs."""
+    sa, sb = _split_pair(a, b)
+    p = max(sa.n_partial, sb.n_partial)
+    return "split" if (5 * a.length + 10 * p) < (16 * a.length) else "mxu"
+
+
+def _engine(method: str, a: PackedAlignment, b: PackedAlignment) -> str:
+    """The engine a method name runs on the pair (a, b)."""
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; one of {METHODS}")
+    return _select_method(a, b) if method == "auto" else method
 
 
 def mismatch_positions_device(
@@ -311,13 +385,13 @@ def mismatch_positions_device(
     """(counts [n_pairs] int64, positions [n_pairs, capacity] int64) of the
     sites where the two samples of each pair share no allele, ascending,
     from the layout ``method``'s engine keeps on ``device``: the split
-    layout (N-exclusive planes and N masks) or, for ``popcount``, the raw
-    planes.  Entries past a pair's count hold -1.  One kernel launch per
-    ``_MISM_TABLE_BYTES`` of position table: the kernel reads the resident
-    layout through the pair indices and needs no other buffer.  The zero
-    words that pad either layout's pitch lie at and past ``a.length``, where
-    the kernel reports nothing."""
-    engine = _check_method(method)
+    layout (N-exclusive planes and N masks) or, for ``popcount`` and
+    ``mxu``, the raw planes.  Entries past a pair's count hold -1.  One
+    kernel launch per ``_MISM_TABLE_BYTES`` of position table: the kernel
+    reads the resident layout through the pair indices and needs no other
+    buffer.  The zero words that pad either layout's pitch lie at and past
+    ``a.length``, where the kernel reports nothing."""
+    engine = _engine(method, a, b)
     device = resolve_device(device)
     if engine == "split":
         sa, sb = _split_pair(a, b)
@@ -371,13 +445,14 @@ def snp_distance_dense(
 ) -> tuple[np.ndarray, np.ndarray]:
     """Dense all-pairs SNP distance and comparable-site matrices, int32
     numpy [n_a, n_b] (b defaults to a), computed in row blocks by the split
-    engine or (``method="popcount"``) the popcount engine."""
-    engine = _check_method(method)
+    engine, the popcount engine or the inclusion-exclusion engine (``method``
+    ``split``, ``popcount``, ``mxu``; ``auto`` picks as tracs_tpu does)."""
     device = resolve_device(device)
     if b is None:
         b = a
     if a.length != b.length:
         raise ValueError("alignments must share sequence length")
+    engine = _engine(method, a, b)
     if engine == "split":
         sa, sb = _split_pair(a, b)
     D = np.empty((a.n_seqs, b.n_seqs), dtype=np.int32)
@@ -386,6 +461,8 @@ def snp_distance_dense(
         r1 = min(a.n_seqs, r0 + row_block)
         if engine == "split":
             Dd, Nd = snp_distance_split_device(sa, sb, device=device, r0=r0, r1=r1)
+        elif engine == "mxu":
+            Dd, Nd = _mxu_block(a, b, r0, r1, 0, device)
         else:
             Dd, Nd = _popcount_block(a, b, r0, r1, 0, device)
         D[r0:r1] = to_host(Dd)
@@ -413,12 +490,14 @@ def pairsnp_stream(
     query-vs-db rectangle, with db columns offset by the query count.
     ``start_row`` resumes at a row-block boundary.  ``compact`` drops
     alignment columns that cannot change any result (bit-identical output).
-    ``method`` picks the engine (``auto``/``split`` or ``popcount``); both
-    yield the same arrays.  ``filter`` fills ``filt`` with the
+    ``method`` picks the engine (``split``, ``popcount`` or ``mxu``; ``auto``
+    picks as tracs_tpu does, on the compacted alignment); all yield the same
+    arrays.  ``filter`` fills ``filt`` with the
     recombination-filtered distance of each emitted pair (ops/recomb.py);
     without it ``filt`` is zero-filled.
     """
-    engine = _check_method(method)
+    if method not in METHODS:
+        raise ValueError(f"unknown method {method!r}; one of {METHODS}")
     device = resolve_device(device)
     if len(fasta) < 1 or len(fasta) > 2:
         raise ValueError("Invalid number of fasta files!")
@@ -449,6 +528,7 @@ def pairsnp_stream(
             a_k, b_k, pos_map, nn_off = comp
             if b is a:
                 b_k = a_k
+    engine = _engine(method, a_k, b_k)
     if engine == "split":
         sa, sb = _split_pair(a_k, b_k)
 
@@ -458,6 +538,8 @@ def pairsnp_stream(
         c0 = r0 if triangle else 0
         if engine == "popcount":
             D, NN = _popcount_block(a_k, b_k, r0, r1, c0, device)
+        elif engine == "mxu":
+            D, NN = _mxu_block(a_k, b_k, r0, r1, c0, device)
         elif triangle:
             D, NN, c0 = snp_distance_split_prefix_device(sa, r0, r1, device=device)
         else:

@@ -10,9 +10,11 @@ date) the transmission model (models/transcluster.py) fills them on
 ``--device``, ``-K`` drops the pairs whose expected K exceeds it, and the
 filtered column holds NA.  ``--filter`` runs the recombination filter
 (ops/recomb.py): the filtered distance fills its column, also with
-``--meta``, where it replaces the raw distance as the model's input.  A
-``--mesh`` other than ``off`` raises NotImplementedError, naming the
-ROADMAP.md item that will port it.
+``--meta``, where it replaces the raw distance as the model's input.
+``--pack-cache DIR`` serves each MSA's packed planes from an on-disk cache
+in DIR (ops/packing.py::pack_fasta; off unless given).  A ``--mesh`` other
+than ``off`` raises NotImplementedError, naming the ROADMAP.md item that
+will port it.
 """
 
 from __future__ import annotations
@@ -130,6 +132,12 @@ def distance_parser(parser):
              "written next to the output.",
     )
     scale.add_argument(
+        "--pack-cache", dest="pack_cache", type=os.path.abspath, default=None,
+        help="Directory of an on-disk cache of packed alignments: a rerun on an "
+             "unchanged FASTA loads its planes from there instead of parsing it "
+             "(default: no cache; nothing is written unless this is given).",
+    )
+    scale.add_argument(
         "--mesh", dest="mesh", type=str, default=None,
         help="Device mesh for the all-pairs sweep; only 'off' (one device) "
              "is ported.",
@@ -157,6 +165,13 @@ def _reject_unported(args) -> None:
             "tracs_tpu_torch yet (ROADMAP.md, 'Modules to port', item 4); "
             "use --mesh off"
         )
+
+
+def _pack(args, path: str):
+    """``pack_fasta`` through the cache directory of ``--pack-cache``, if any:
+    the flag is the request, so every input is cached whatever its size
+    (``pipe``, which shares this namespace, has no such flag)."""
+    return pack_fasta(path, cache_dir=getattr(args, "pack_cache", None))
 
 
 def _ref_name(msa: str) -> str:
@@ -251,12 +266,12 @@ def distance(args):
 
     # one MSA at a time is packed, swept and dropped (pipe hands over one MSA
     # per reference genome); the database side is shared by all of them
-    db = pack_fasta(args.msa_db) if args.msa_db is not None else None
+    db = _pack(args, args.msa_db) if args.msa_db is not None else None
     large = None  # (index, packed alignment) of the first MSA that must stream
     with open(args.output_file, "w") as outfile:
         outfile.write(HEADER)
         for mi, msa in enumerate(args.msa_files):
-            a = pack_fasta(msa)
+            a = _pack(args, msa)
             if a.n_seqs > _AUTO_STREAM_SAMPLES:
                 large = (mi, a)
                 break
@@ -326,10 +341,10 @@ def _distance_streaming(args, device, dates, first_msa=0, first_packed=None, db=
                 continue
             start_row = cursor["next_row"] if mi == cursor["msa_index"] else 0
             ref = _ref_name(msa)
-            a = first_packed if mi == first_msa and first_packed is not None else pack_fasta(msa)
+            a = first_packed if mi == first_msa and first_packed is not None else _pack(args, msa)
             first_packed = None  # one packed MSA is held at a time
             if db is None and args.msa_db is not None:
-                db = pack_fasta(args.msa_db)
+                db = _pack(args, args.msa_db)
             logging.info("Streaming pairwise distances for %s", msa)
             log_rate = rate_logger("pairs")
             blob_cache = {}  # per MSA: the names blob is shared across blocks
@@ -339,7 +354,7 @@ def _distance_streaming(args, device, dates, first_msa=0, first_packed=None, db=
                 filter=args.recomb_filter, row_block=args.row_block,
                 start_row=start_row, device=device,
             ):
-                with phase("block rows [%d,%d)" % (r0, r1)):
+                with phase("block rows [%d,%d)" % (r0, r1), device):
                     if cache is None or len(rows) == 0:
                         txt = _format_rows(names, rows, cols, dvals, filt, nn, ref,
                                            blob_cache=blob_cache)
