@@ -108,6 +108,25 @@ Phases (each one passes or the script exits non-zero):
    its split by function, the two model functions on the CPU at the same size
    beside the card's, and whether the real aligner binaries are on PATH.
 
+11. the dp x sp mesh (``tracs_tpu_torch.parallel``) on the headline
+   workload, its planes read from phase 3's pack cache (run inside the
+   headline's temp dir, after phase 7).  (a) nccl in a world of one, in this
+   process: the triangle ring (from row 0) and the block sweep (from row
+   1024) over a 1 x 1 ``DeviceMesh`` through ``pairsnp_stream(mesh=...)``,
+   each array for array equal to the one-device stream: the only place the
+   nccl calls run, since a call has one card and nccl refuses two ranks on
+   one device.  (b) gloo ranks sharing cuda:0, spawned as worlds of 2 and 4
+   processes (each ``initialize(..., backend="gloo")``, each world with a
+   timeout): the ``distance`` CLI with ``--mesh 2x1`` (the ring), ``--mesh
+   1x2`` (the ring at dp = 1 with an sp reduction) and ``--mesh 2x2
+   --filter``, every CSV (``.procN`` included) hashing to phase 3's (phase
+   7's with ``--filter``); the block sweep through the API from row 1024 on
+   2 x 2, every rank's arrays equal to the one-device stream's; one shard's
+   ring block against ``split_gram_reference``.  Prints each run's wall, the
+   ranks' peak device allocation and the bytes through the collectives.
+   None of it is a scaling number: the ranks share one card's SMs and talk
+   through host memory.
+
 No phase was cut when later ones were added.
 
 The line before the last is a JSON object describing each kernel (its
@@ -127,7 +146,6 @@ import hashlib
 import json
 import math
 import os
-import shutil
 import subprocess
 import sys
 import tempfile
@@ -539,7 +557,7 @@ def phase_slice(packed, fasta: str, cluster_size: int, row_block: int, seed: int
     if not (np.array_equal(d_csv, d_ref) and np.array_equal(nn_csv, nn_ref)):
         fail("sampled CSV rows disagree with the host popcount oracle")
     print(f"# oracle: {len(pick)} sampled rows agree (SNP distance and sites considered)")
-    return counts["split_gram"], fields
+    return counts["split_gram"], fields, sha
 
 
 def phase_mism_positions(packed, block, device):
@@ -739,7 +757,8 @@ def phase_pack_cache(fasta: str, n: int, row_block: int, plain_csv: str, tmp: st
     """The pack cache on the headline FASTA: a cold ``pack_fasta`` packs and
     stores, a warm one loads the planes (a read-only mmap) and they must equal;
     then one ``distance --pack-cache`` run served from the cache must write
-    the bytes of phase 3's CSV."""
+    the bytes of phase 3's CSV.  Returns the cache's directory, which the
+    mesh phase reads."""
     from tracs_tpu_torch.ops.packing import pack_cache_key, pack_fasta
 
     cache = os.path.join(tmp, "pack_cache")
@@ -767,7 +786,7 @@ def phase_pack_cache(fasta: str, n: int, row_block: int, plain_csv: str, tmp: st
     if sha != want:
         fail(f"the --pack-cache run's CSV (sha256 {sha}) differs from phase 3's ({want})")
     os.remove(out)
-    shutil.rmtree(cache)
+    return cache
 
 
 def write_dates(path: str, n: int, cluster_size: int, seed: int) -> None:
@@ -873,7 +892,7 @@ def host_filter(packed, i, j, d, chunk: int = 256) -> np.ndarray:
 def phase_filter(packed, fasta: str, row_block: int, seed: int, tmp: str, plain_fields,
                  device):
     """``distance --filter`` through the CLI on the card; returns the
-    mismatch-position kernel's launches in that run."""
+    mismatch-position kernel's launches in that run and the CSV's sha256."""
     import torch
 
     from tracs_tpu_torch.ops import pairsnp as port
@@ -918,7 +937,7 @@ def phase_filter(packed, fasta: str, row_block: int, seed: int, tmp: str, plain_
         fail("sampled --filter rows disagree with the host bitset path")
     print(f"# --filter: {len(pick)} sampled rows equal the host bitset path; "
           f"{int((filt < d).sum())} of {len(fields)} rows lost SNPs to the filter")
-    return counts["mism_positions"]
+    return counts["mism_positions"], sha
 
 
 def planted_alignment(n: int, L: int, seed: int):
@@ -1473,6 +1492,317 @@ def phase_pipe(seed: int, tmp: str, device, card):
     return counts["split_gram"], rec
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the dp x sp mesh (parallel/), at the headline size
+# ---------------------------------------------------------------------------
+
+#: seconds a spawned world of ranks may take before the phase fails
+MESH_WORLD_TIMEOUT = 300
+
+
+def _stream_arrays(blocks):
+    """(spans, rows, cols, d, filt, nn) of a pairsnp_stream run."""
+    spans = [tuple(b[:2]) for b in blocks]
+    cat = [np.concatenate([b[k] for b in blocks]) if blocks else np.zeros(0, np.int64)
+           for k in (3, 4, 5, 6, 7)]
+    return spans, cat
+
+
+def _spy_engines():
+    """Records the mesh engine each pairsnp_stream call builds; returns the
+    list and a function that undoes the wrapping."""
+    from tracs_tpu_torch.parallel import allpairs
+
+    made, real = [], {c: c.__init__ for c in (allpairs.RingCoo, allpairs.ShardedSweep)}
+    for cls in real:
+        def init(self, *a, _cls=cls, **k):
+            made.append(_cls.__name__)
+            real[_cls](self, *a, **k)
+        cls.__init__ = init
+
+    def undo():
+        for cls, fn in real.items():
+            cls.__init__ = fn
+    return made, undo
+
+
+def _mesh_rank(rank: int, n: int, url: str, jobs: list, outdir: str, repo: str) -> None:
+    """One gloo rank on cuda:0 (spawned by ``phase_mesh``): ``initialize``
+    with ``backend="gloo"``, then each job in turn, every rank together.  A
+    job's launch counts, collective bytes, wall and peak allocation go to
+    ``outdir/<tag>.<rank>.json``."""
+    import datetime
+
+    sys.path.insert(0, repo)
+    import torch
+    import torch.distributed as dist
+
+    from tracs_tpu_torch import cli
+    from tracs_tpu_torch.ops import kernels
+    from tracs_tpu_torch.ops.packing import pack_fasta
+    from tracs_tpu_torch.ops.pairsnp import _cached_compact, _split_pair, pairsnp_stream
+    from tracs_tpu_torch.parallel import allpairs, mesh as mesh_mod, multihost
+
+    torch.set_num_threads(2)
+    if not multihost.initialize(url, n, rank, device="cuda", backend="gloo",
+                                timeout=datetime.timedelta(seconds=MESH_WORLD_TIMEOUT)):
+        raise RuntimeError("no process group was set up")
+    device = torch.device("cuda", torch.cuda.current_device())
+    for job in jobs:
+        reset_counts()
+        mesh_mod.COLLECTIVE_BYTES = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dist.barrier()
+        t0 = time.perf_counter()
+        extra = {}
+        if job["kind"] == "cli":
+            cli.main(job["argv"])
+        else:  # the block sweep through the API from row start_row (the --resume route)
+            packed = pack_fasta(job["fasta"], cache_dir=job["cache"])
+            made, undo = _spy_engines()
+            mesh = mesh_mod.make_mesh(*job["shape"])
+            blocks = list(pairsnp_stream([packed], dist=200, row_block=job["row_block"],
+                                         start_row=job["start_row"], device=device, mesh=mesh))
+            undo()
+            spans, cat = _stream_arrays(blocks)
+            np.savez(os.path.join(outdir, f"{job['tag']}.{rank}.npz"), spans=np.asarray(spans),
+                     rows=cat[0], cols=cat[1], d=cat[2], filt=cat[3], nn=cat[4])
+            extra["engines"] = made
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rec = {"wall": wall, "counts": read_counts(), "bytes": mesh_mod.COLLECTIVE_BYTES,
+               "peak": torch.cuda.max_memory_allocated(device), **extra}
+        if job["kind"] == "sweep" and rank == 0:
+            # one shard's ring block: rank 0's stripe against rank 1's, on this
+            # rank's word shard, the K1 call of a ring step at the mesh's shape
+            comp = _cached_compact(packed, packed)
+            sa = _split_pair(packed if comp is None else comp[0], None)[0]
+            ranks = allpairs._Ranks(mesh)
+            B = mesh_mod.pad_to(sa.n_seqs, ranks.dp) // ranks.dp
+            a = allpairs._Shard(sa, 0, B, ranks, device)
+            b = allpairs._Shard(sa, B, B, ranks, device)
+            args = (a.ex, a.nm, 0, B, 0, b.ex, b.nm)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            want = kernels.split_gram_reference(*args)
+            end.record()
+            got = kernels.split_gram(*args)
+            torch.cuda.synchronize()
+            rec["shard"] = {
+                "B": B, "W": int(a.ex.shape[2]),
+                "max_abs_err": [int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)],
+                "ms": time_ms(lambda: kernels.split_gram(*args), 10),
+                "plain_ms": start.elapsed_time(end)}
+            del got, want, a, b
+        with open(os.path.join(outdir, f"{job['tag']}.{rank}.json"), "w") as fh:
+            json.dump(rec, fh)
+        dist.barrier()  # rank 0's shard check ends before any rank goes on
+    dist.destroy_process_group()
+
+
+def _run_world(n: int, jobs: list, tmp: str, name: str) -> list:
+    """Spawns ``n`` gloo ranks running ``jobs``; fails the phase if one exits
+    non-zero or the world outlives MESH_WORLD_TIMEOUT (every rank is then
+    killed).  Returns {tag: [each rank's record]}."""
+    import multiprocessing as mp
+
+    outdir = os.path.join(tmp, f"mesh_{name}")
+    os.makedirs(outdir)
+    url = f"file://{os.path.join(outdir, 'store')}"
+    repo = os.path.dirname(os.path.abspath(__file__))
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=_mesh_rank, args=(r, n, url, jobs, outdir, repo))
+             for r in range(n)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MESH_WORLD_TIMEOUT
+    try:
+        while any(p.is_alive() for p in procs):
+            if any(p.exitcode not in (None, 0) for p in procs):
+                break
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join()
+    codes = [p.exitcode for p in procs]
+    if any(c != 0 for c in codes):
+        fail(f"mesh world {name}: rank exit codes {codes} (killed ranks show -9)")
+    recs = {}
+    for job in jobs:
+        recs[job["tag"]] = []
+        for r in range(n):
+            with open(os.path.join(outdir, f"{job['tag']}.{r}.json")) as fh:
+                recs[job["tag"]].append(json.load(fh))
+    return recs
+
+
+def _report(what: str, recs: list, expect_split: int) -> int:
+    """Prints a run's wall, peak allocation and collective bytes over its
+    ranks; fails unless every rank launched ``expect_split`` split-gram
+    kernels.  Returns their sum."""
+    walls = [r["wall"] for r in recs]
+    launches = [r["counts"]["split_gram"] for r in recs]
+    print(f"# mesh {what}: wall {max(walls):.3f} s (ranks {', '.join(f'{w:.3f}' for w in walls)}),"
+          f" peak device allocation per rank "
+          f"{', '.join(f'{r["peak"] / 1e9:.2f}' for r in recs)} GB, bytes through the "
+          f"collectives {sum(r['bytes'] for r in recs):,}, split_gram launches {launches}, "
+          f"mism_positions launches {[r['counts']['mism_positions'] for r in recs]}")
+    if launches != [expect_split] * len(recs):
+        fail(f"mesh {what}: split_gram launches {launches}, {expect_split} expected a rank")
+    return sum(launches)
+
+
+def _sha(path: str) -> str:
+    with open(path, "rb") as fh:
+        return hashlib.sha256(fh.read()).hexdigest()
+
+
+def phase_mesh(packed, fasta: str, cache: str, row_block: int, sha_plain: str,
+               sha_filter: str, tmp: str, device, card):
+    """The mesh (parallel/) at the headline size, the planes from phase 3's
+    pack cache.  (a) nccl in a world of one, in this process: the ring and
+    the block sweep over a 1 x 1 mesh through ``pairsnp_stream(mesh=...)``,
+    each equal to the one-device stream.  (b) gloo ranks sharing cuda:0,
+    each calling ``initialize(..., backend="gloo")`` then the ``distance``
+    CLI: ``--mesh 2x1`` (the ring), ``--mesh 1x2`` (sp only) and ``--mesh
+    2x2 --filter``, whose every CSV (``.procN`` included) must hash to phase
+    3's (phase 7's with ``--filter``); then the block sweep through the API
+    from row 1024 on 2 x 2, equal to the one-device arrays, and one shard's
+    ring block against ``split_gram_reference``.  Nothing here is a scaling
+    number: the ranks share one card's SMs and talk through host memory.
+    Returns (the 2 x 2 run's split-gram launches over its ranks, the
+    kernel's record at the shard's shape)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from tracs_tpu_torch.ops import kernels
+    from tracs_tpu_torch.ops.packing import pack_fasta
+    from tracs_tpu_torch.ops.pairsnp import pairsnp_stream
+    from tracs_tpu_torch.parallel import allpairs, mesh as mesh_mod, multihost
+
+    n = packed.n_seqs
+    props = torch.cuda.get_device_properties(device)
+    print(f"# mesh: card memory {props.total_memory:,} B; the ring plans with "
+          f"{allpairs.device_bytes(device):,} B (less {allpairs._CUDA_HEADROOM_BYTES:,} B "
+          f"of headroom)")
+    torch.cuda.empty_cache()
+
+    # (a) nccl, a world of one
+    url = f"file://{os.path.join(tmp, 'nccl_store')}"
+    if multihost.initialize(url, 1, 0, device=device) is not False:
+        fail("initialize set up a group for one process")
+    multihost.init_group(url, 1, 0, device=device, timeout=datetime.timedelta(seconds=300))
+    try:
+        if dist.get_backend() != "nccl":
+            fail(f"the world of one runs on {dist.get_backend()}, not nccl")
+        mesh = mesh_mod.make_mesh(1, 1)
+        pc = pack_fasta(fasta, cache_dir=cache)
+        if not np.array_equal(pc.planes, packed.planes):
+            fail("the pack cache's planes differ from the headline's")
+        made, undo = _spy_engines()
+        single = {}
+        for start in (0, 1024):
+            for on_mesh in (False, True):
+                reset_counts()
+                mesh_mod.COLLECTIVE_BYTES = 0
+                t0 = time.perf_counter()
+                blocks = list(pairsnp_stream([pc], dist=200, row_block=row_block,
+                                             start_row=start, device=device,
+                                             mesh=mesh if on_mesh else None))
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                spans, cat = _stream_arrays(blocks)
+                what = f"{'1x1 mesh' if on_mesh else 'one device'} from row {start}"
+                print(f"# mesh (a) nccl, {what}: {wall:.3f} s, {len(blocks)} blocks, "
+                      f"{len(cat[0])} pairs, split_gram launches "
+                      f"{kernels.SPLIT_GRAM_LAUNCHES}, bytes through nccl "
+                      f"{mesh_mod.COLLECTIVE_BYTES:,}")
+                if not on_mesh:
+                    single[start] = (spans, cat)
+                    continue
+                if not all(np.array_equal(x, y) for x, y in zip(cat, single[start][1])):
+                    fail(f"mesh (a): the {what} arrays differ from the one-device stream")
+                if start and spans != single[start][0]:
+                    fail(f"mesh (a): the {what} blocks differ from the one-device stream")
+        undo()
+        if made != ["RingCoo", "ShardedSweep"]:
+            fail(f"mesh (a): engines {made}, want the ring from row 0 and the sweep from 1024")
+        print("# mesh (a): the ring and the block sweep over nccl equal the one-device stream")
+    finally:
+        dist.destroy_process_group()
+    del pc
+    torch.cuda.empty_cache()
+
+    # (b) gloo ranks on cuda:0
+    def cli_job(tag, mesh_spec, *extra):
+        out = os.path.join(tmp, f"mesh_{tag}.csv")
+        return {"kind": "cli", "tag": tag, "out": out,
+                "argv": ["distance", "--msa", fasta, "-o", out, "-D", "200", "--row-block",
+                         str(row_block), "--pack-cache", cache, "--mesh", mesh_spec, *extra,
+                         "--device", "cuda"]}
+
+    def check_csvs(job, ranks: int, want: str):
+        paths = [job["out"]] + [f"{job['out']}.proc{r}" for r in range(1, ranks)]
+        shas = [_sha(p) for p in paths]
+        print(f"# mesh {job['tag']}: CSV sha256 {', '.join(h[:8] + '...' for h in shas)} "
+              f"(want {want[:8]}...)")
+        if any(h != want for h in shas):
+            fail(f"mesh {job['tag']}: a rank's CSV differs from the one-device run's")
+        for p in paths:
+            os.remove(p)
+
+    t0 = time.perf_counter()
+    jobs_a = [cli_job("2x1", "2x1"), cli_job("1x2", "1x2")]
+    recs = _run_world(2, jobs_a, tmp, "two")
+    print(f"# mesh world of 2 gloo ranks: {time.perf_counter() - t0:.3f} s with start-up")
+    _report("2x1 (the ring)", recs["2x1"], 2)
+    _report("1x2 (sp only)", recs["1x2"], 1)
+    check_csvs(jobs_a[0], 2, sha_plain)
+    check_csvs(jobs_a[1], 2, sha_plain)
+
+    t0 = time.perf_counter()
+    sweep = {"kind": "sweep", "tag": "sweep", "fasta": fasta, "cache": cache, "shape": (2, 2),
+             "row_block": row_block, "start_row": 1024}
+    jobs_b = [cli_job("2x2f", "2x2", "--filter"), sweep]
+    recs = _run_world(4, jobs_b, tmp, "four")
+    print(f"# mesh world of 4 gloo ranks: {time.perf_counter() - t0:.3f} s with start-up")
+    launches = _report("2x2 --filter", recs["2x2f"], 2)
+    if any(r["counts"]["mism_positions"] < 1 for r in recs["2x2f"]):
+        fail("mesh 2x2 --filter: a rank did not launch the mismatch-position kernel")
+    check_csvs(jobs_b[0], 4, sha_filter)
+    _report("2x2 block sweep from row 1024", recs["sweep"], -(-(n - 1024) // row_block))
+    spans, cat = single[1024]
+    for r in range(4):
+        got = np.load(os.path.join(tmp, "mesh_four", f"sweep.{r}.npz"))
+        if recs["sweep"][r]["engines"] != ["ShardedSweep"]:
+            fail(f"mesh sweep: rank {r} built {recs['sweep'][r]['engines']}")
+        if [tuple(x) for x in got["spans"].tolist()] != spans or not all(
+                np.array_equal(got[k], c) for k, c in zip(("rows", "cols", "d", "filt", "nn"),
+                                                          cat)):
+            fail(f"mesh sweep: rank {r}'s arrays differ from the one-device stream")
+    print(f"# mesh sweep from row 1024 on 2x2: every rank's arrays equal the one-device "
+          f"stream's ({len(cat[0])} pairs)")
+    shard = recs["sweep"][0]["shard"]
+    name = f"a ring block of the 2x2 mesh B={shard['B']} W={shard['W']}"
+    print(f"# split_gram (mesh path) vs plain, {name}: max |err| {shard['max_abs_err']}; "
+          f"kernel {shard['ms']:.3f} ms, plain {shard['plain_ms']:.3f} ms (one run)")
+    if any(shard["max_abs_err"]):
+        fail(f"split_gram disagrees with its plain version at {name}")
+    rec = {k: shard[k] for k in ("max_abs_err", "ms", "plain_ms")}
+    rec.update(gram_bound(f"split_gram (mesh path) at {name}", shard["B"], shard["B"],
+                          shard["W"], 0, shard["B"], 0, planes=5, products=5, popc=5, card=card,
+                          peak_ops=PEAK_B1))
+    return launches, rec
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--n", type=int, default=4096, help="samples (default 4096)")
@@ -1526,15 +1856,19 @@ def main() -> None:
     recs = phase_kernels(device, args.seed, card)
     with tempfile.TemporaryDirectory() as tmp:
         packed, fasta, cluster_size = _headline(args.n, args.length, args.seed, tmp)
-        split_launches, fields = phase_slice(packed, fasta, cluster_size, ROW_BLOCK,
-                                             args.seed, tmp, device)
-        phase_pack_cache(fasta, args.n, ROW_BLOCK, os.path.join(tmp, "dists.csv"), tmp, device)
+        split_launches, fields, sha_plain = phase_slice(packed, fasta, cluster_size, ROW_BLOCK,
+                                                        args.seed, tmp, device)
+        cache = phase_pack_cache(fasta, args.n, ROW_BLOCK, os.path.join(tmp, "dists.csv"), tmp,
+                                 device)
         pc_launches, recs["mism_positions"], (mxu_launches, recs["mxu route"]) = phase_sweeps(
             fasta, ROW_BLOCK, device, card)
         _, _, N, years = phase_meta(packed, fasta, cluster_size, ROW_BLOCK, args.seed, tmp,
                                     fields, device)
         phase_trans_dist(N, years, device)
-        mism_launches = phase_filter(packed, fasta, ROW_BLOCK, args.seed, tmp, fields, device)
+        mism_launches, sha_filter = phase_filter(packed, fasta, ROW_BLOCK, args.seed, tmp,
+                                                 fields, device)
+        mesh_launches, recs["split_gram (mesh path)"] = phase_mesh(
+            packed, fasta, cache, ROW_BLOCK, sha_plain, sha_filter, tmp, device, card)
     del packed, fields
     phase_planted(args.length, args.seed, device)
     exp_counts = phase_experiments(args.n, args.length, device, card, recs)
@@ -1563,6 +1897,11 @@ def main() -> None:
         # pipe run, its error, times and bound at that run's shape
         entry("split_gram (pipe path)", "split_gram at pipe's shape", "split_gram",
               f"{pallas}:157", pipe_launches, (0, 1)),
+        # the same kernel on the mesh path: its launches over the four gloo
+        # ranks of the 2x2 --filter run, error, times and bound at one ring
+        # block of that mesh (rank 0's stripe against rank 1's, a word shard)
+        entry("split_gram (mesh path)", "split_gram (mesh path)", "split_gram",
+              f"{pallas}:157", mesh_launches, (0, 1)),
         entry("popcount_gram (K2 matches)", "popcount_gram", "popcount_gram", f"{pallas}:45",
               pc_launches, (0,)),
         entry("popcount_gram (K3 nunion)", "popcount_gram", "popcount_gram", f"{pallas}:65",

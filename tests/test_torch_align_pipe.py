@@ -546,15 +546,21 @@ def test_pipe_validates_its_input(tmp_path, bad):
                        str(tmp_path / "out"), "--device", "cpu"])
 
 
-def test_pipe_mesh_other_than_off_is_refused(tmp_path, monkeypatch):
+def test_pipe_mesh_shape_needs_its_world(tmp_path, monkeypatch):
+    """``pipe --mesh 2x1`` in one process raises the distance stage's
+    world-size error, before any sample is aligned."""
     ref = ref_genome()
     samples = {"s0": ref, "s1": make_sample(ref, [5])}
     tsv, db = _pipe_inputs(tmp_path, ref, samples)
-    monkeypatch.setattr(port_align, "align_and_pileup", stand_in_aligner(ref, samples))
+    calls = []
+    aligner = stand_in_aligner(ref, samples)
+    monkeypatch.setattr(port_align, "align_and_pileup",
+                        lambda *a, **k: (calls.append(1), aligner(*a, **k)))
     monkeypatch.setattr(port_align, "run_gather", lambda **kw: ["REF1"])
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="mesh 2x1 needs 2 processes, the world has 1"):
         port_cli.main(["pipe", "-i", tsv, "--database", db, "-o", str(tmp_path / "out"),
                        "--min-cov", "2", "--device", "cpu", "--mesh", "2x1"])
+    assert not calls
 
 
 @pytest.mark.parametrize("stage", ["align", "pipe"])

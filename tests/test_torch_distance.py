@@ -350,11 +350,20 @@ def test_default_device_cuda_exits_nonzero_without_card(tmp_path, capsys):
     assert "CUDA" in str(exc.value.code) and "--device cpu" in str(exc.value.code)
 
 
-@pytest.mark.parametrize("flags,item", [(["--filter", "--mesh", "auto"], "item 4"), (["--mesh", "2x1"], "item 4")])
-def test_unported_flags_raise(tmp_path, flags, item):
-    with pytest.raises(NotImplementedError, match=item):
-        port_cli.main(["distance", "--msa", os.path.join(DATA, "ambig.aln"),
-                       "-o", str(tmp_path / "x.csv"), "--device", "cpu", *flags])
+@pytest.mark.parametrize("flags", [["--filter", "--mesh", "auto"], ["--mesh", "2x1"]])
+def test_mesh_flags_in_a_world_of_one(tmp_path, flags):
+    """In one process (no process group) ``--mesh auto`` is this process's
+    card, and writes the bytes of ``--mesh off``; a ``DPxSP`` shape needs a
+    world of dp * sp processes and says so, naming both numbers."""
+    argv = ["distance", "--msa", os.path.join(DATA, "ambig.aln"), "--device", "cpu"]
+    if "2x1" in flags:
+        with pytest.raises(ValueError, match="mesh 2x1 needs 2 processes, the world has 1"):
+            port_cli.main([*argv, "-o", str(tmp_path / "x.csv"), *flags])
+        return
+    port_cli.main([*argv, "-o", str(tmp_path / "auto.csv"), *flags])
+    port_cli.main([*argv, "-o", str(tmp_path / "off.csv"), "--filter", "--mesh", "off"])
+    assert (tmp_path / "auto.csv").read_bytes() == (tmp_path / "off.csv").read_bytes()
+    assert len((tmp_path / "auto.csv").read_bytes().splitlines()) > 1
 
 
 def test_mesh_off_is_accepted(tmp_path):

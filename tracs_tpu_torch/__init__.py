@@ -6,9 +6,11 @@ pileup parsing, the Dirichlet-multinomial model in float64 on the card),
 threshold and COO -> transmission model -> CSV, with the split-decomposition
 gram ``csrc/split_gram.cu`` and the popcount engine ``csrc/popcount_gram.cu``
 as hand-written CUDA kernels), ``cluster``, and ``pipe`` over all of them; or
-on the CPU through the kernels' plain PyTorch versions.  Every entry point
-takes an explicit ``device``; nothing here sets global state, and nothing
-imports jax or tracs_tpu.  ROADMAP.md lists what is still to port.
+on the CPU through the kernels' plain PyTorch versions.  ``distance`` and
+``pipe`` also run as several processes, one card each, the all-pairs sweep
+spread over a dp x sp mesh of them (parallel/).  Every entry point takes an
+explicit ``device``; nothing here sets global state, and nothing imports jax
+or tracs_tpu.
 """
 
 __version__ = "0.1.0"

@@ -1,5 +1,7 @@
 """All-pairs SNP distances over bit-packed IUPAC alignments, on one device
-(the split and popcount paths of tracs_tpu/ops/pairsnp.py, in PyTorch).
+(the split and popcount paths of tracs_tpu/ops/pairsnp.py, in PyTorch); over
+a dp x sp mesh of processes the split path's sweep runs in
+parallel/allpairs.py, which ``pairsnp_stream(mesh=...)`` calls.
 
 Semantics: for a pair (i, j) a site *matches* when the two samples share at
 least one allele bit (IUPAC codes set several bits, N sets all four); the
@@ -47,6 +49,7 @@ bit (tests/test_torch_pairsnp.py).
 
 from __future__ import annotations
 
+import logging
 from typing import Sequence
 
 import numpy as np
@@ -480,6 +483,7 @@ def pairsnp_stream(
     row_block: int = 1024,
     start_row: int = 0,
     compact: bool = True,
+    mesh=None,
 ):
     """Streaming COO emission for all-pairs runs.
 
@@ -495,6 +499,16 @@ def pairsnp_stream(
     arrays.  ``filter`` fills ``filt`` with the
     recombination-filtered distance of each emitted pair (ops/recomb.py);
     without it ``filt`` is zero-filled.
+
+    ``mesh`` (a dp x sp ``DeviceMesh``, parallel/mesh.py) runs the split
+    engine's sweep over the ranks of the mesh: the triangle ring
+    (``RingCoo``) for a self all-pairs run from row 0 that fits its budget,
+    the block sweep (``ShardedSweep``) otherwise.  Every rank of the mesh
+    must call this with the same arguments (SPMD), and every rank yields the
+    same arrays, those of the one-device run; the ring yields one block per
+    dp stripe instead of per ``row_block``.  ``--filter`` then runs on each
+    rank on its emitted rows with the whole alignment.  ``popcount`` and
+    ``mxu`` ignore the mesh (logged).
     """
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; one of {METHODS}")
@@ -529,11 +543,41 @@ def pairsnp_stream(
             if b is a:
                 b_k = a_k
     engine = _engine(method, a_k, b_k)
+    ring = sweep = None
     if engine == "split":
         sa, sb = _split_pair(a_k, b_k)
+        if mesh is not None:
+            from tracs_tpu_torch.parallel.allpairs import RingCoo, ShardedSweep
 
+            if triangle and start_row == 0 and RingCoo.fits(
+                sa.n_seqs, mesh, n_words=sa.excl.shape[2], device=device
+            ):
+                ring = RingCoo(sa, mesh, dist, device)
+            else:
+                sweep = ShardedSweep(sa, sb, mesh, device)
+    elif mesh is not None:
+        logging.info("mesh ignored by method %r: it runs on one device", engine)
+
+    def emit(r0, r1, rows_l, cols, dvals, nvals):
+        if nn_off:
+            nvals = nvals + nn_off
+        rows = rows_l + r0
+        if filter and len(rows):
+            filt = filter_pairs(a_k, b_k, rows, cols, dvals, length, device=device,
+                                method=engine, position_map=pos_map)
+        else:
+            filt = np.zeros(len(rows), dtype=np.int64)
+        return r0, r1, names, rows, cols + col_offset, dvals, filt, nvals
+
+    if ring is not None:
+        for r0, r1, *coo in ring.stripes():
+            yield emit(r0, r1, *coo)
+        return
     for r0 in range(start_row, a.n_seqs, row_block):
         r1 = min(a.n_seqs, r0 + row_block)
+        if sweep is not None:
+            yield emit(r0, r1, *sweep.block(r0, r1, dist, triangle=triangle))
+            continue
         # triangle blocks sweep the column suffix c0 = r0; rectangles c0 = 0
         c0 = r0 if triangle else 0
         if engine == "popcount":
@@ -544,18 +588,7 @@ def pairsnp_stream(
             D, NN, c0 = snp_distance_split_prefix_device(sa, r0, r1, device=device)
         else:
             D, NN = snp_distance_split_device(sa, sb, device=device, r0=r0, r1=r1)
-        rows_l, cols, dvals, nvals = _extract_coo(
-            D, NN, dist, r0, b.n_seqs, c0, triangle=triangle
-        )
-        if nn_off:
-            nvals = nvals + nn_off
-        rows = rows_l + r0
-        if filter and len(rows):
-            filt = filter_pairs(a_k, b_k, rows, cols, dvals, length, device=device,
-                                method=engine, position_map=pos_map)
-        else:
-            filt = np.zeros(len(rows), dtype=np.int64)
-        yield r0, r1, names, rows, cols + col_offset, dvals, filt, nvals
+        yield emit(r0, r1, *_extract_coo(D, NN, dist, r0, b.n_seqs, c0, triangle=triangle))
 
 
 def pairsnp(
@@ -568,17 +601,19 @@ def pairsnp(
     method: str = "split",
     row_block: int = 4096,
     compact: bool = True,
+    mesh=None,
 ):
     """Reference-compatible driver: sparse COO of the pairs with d <= dist,
     in row-major order.  Returns (rows, cols, distances, seq_names,
     filt_distances, n_compared_sites) — Python lists up to 2^22 surviving
     pairs, int64 numpy arrays above that.  ``n_threads`` is accepted for API
-    parity; the filtered column is zero-filled unless ``filter`` is set."""
+    parity; the filtered column is zero-filled unless ``filter`` is set.
+    ``mesh`` as in ``pairsnp_stream``: every rank calls this (SPMD)."""
     chunks = []  # per-block (rows, cols, d, filt, nn) numpy tuples
     names = None
     for _r0, _r1, names, rows, cols, dvals, filt, nvals in pairsnp_stream(
         fasta, dist=dist, filter=filter, device=device, method=method,
-        row_block=row_block, compact=compact,
+        row_block=row_block, compact=compact, mesh=mesh,
     ):
         chunks.append((rows, cols, dvals, filt, nvals))
     cat = [

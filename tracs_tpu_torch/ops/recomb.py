@@ -24,10 +24,18 @@ scipy call over every SNP of every pair in the batch.
 from __future__ import annotations
 
 import numpy as np
-from scipy.stats import binom
 
 _WIN_MIN = 50
 _WIN_MAX = 5000
+
+
+def _binom_sf(k, n, p):
+    """scipy's binomial survival function.  scipy.stats is imported here, at
+    the first call: it takes seconds to import, and every process of a
+    multi-process run imports this module."""
+    from scipy.stats import binom
+
+    return binom.sf(k, n, p)
 
 
 def mismatch_positions(words_row: np.ndarray) -> np.ndarray:
@@ -57,7 +65,7 @@ def filter_recomb_single(positions: np.ndarray, length: int) -> int:
     multi = count > 1
     keep = ~multi
     if np.any(multi):
-        pv = binom.sf(count[multi], span[multi], p)
+        pv = _binom_sf(count[multi], span[multi], p)
         keep_multi = pv >= thresh
         keep = keep.astype(np.int64)
         keep[multi] = keep_multi
@@ -230,7 +238,7 @@ def _keep_table(d, length):
         w = int(_window_w(d, length)[()])
         spans = np.arange(2 * w + 2, dtype=np.int64)
         cnts = np.arange(2, _SF_TABLE_CAP + 1, dtype=np.int64)
-        pv = binom.sf(cnts[:, None], spans[None, :], d / length)
+        pv = _binom_sf(cnts[:, None], spans[None, :], d / length)
         tab = pv >= (0.05 / d)
         _keep_tables[key] = tab
     return tab
@@ -263,7 +271,7 @@ def _keep_lookup(count, span, d_u, d_inv_flat, length):
         uniq, inv = np.unique(key, return_inverse=True)
         du = np.asarray(d_u)[uniq % nd]
         rem = uniq // nd
-        pv = binom.sf(rem // sb, rem % sb, du.astype(np.float64) / length)
+        pv = _binom_sf(rem // sb, rem % sb, du.astype(np.float64) / length)
         keep[big] = (pv >= 0.05 / du)[inv]
     return keep
 

@@ -12,9 +12,17 @@ filtered column holds NA.  ``--filter`` runs the recombination filter
 (ops/recomb.py): the filtered distance fills its column, also with
 ``--meta``, where it replaces the raw distance as the model's input.
 ``--pack-cache DIR`` serves each MSA's packed planes from an on-disk cache
-in DIR (ops/packing.py::pack_fasta; off unless given).  A ``--mesh`` other
-than ``off`` raises NotImplementedError, naming the ROADMAP.md item that
-will port it.
+in DIR (ops/packing.py::pack_fasta; off unless given).
+
+Several processes (one card each) share the sweep when ``--mesh`` names a
+mesh over them: ``global`` (every rank, shaped by the planner) or ``DPxSP``
+(dp·sp must be the number of processes); ``auto``, the default, and ``off``
+keep the sweep on this process's card.  A mesh forces streaming (row blocks
+of 1024 unless ``--row-block`` says otherwise).  Every process runs the
+stage; rank 0 writes the output and rank r > 0 writes the same bytes to
+``{output}.proc{r}``.  ``--coordinator``, ``--num-processes`` and
+``--process-id`` set up the processes' group first
+(parallel/multihost.py::initialize).
 """
 
 from __future__ import annotations
@@ -35,6 +43,8 @@ from tracs_tpu_torch.models.transcluster import (
 )
 from tracs_tpu_torch.ops.packing import pack_fasta
 from tracs_tpu_torch.ops.pairsnp import INT32_MAX, pairsnp, pairsnp_stream
+from tracs_tpu_torch.parallel import multihost
+from tracs_tpu_torch.parallel.mesh import parse_mesh_spec, resolve_mesh, world
 from tracs_tpu_torch.runtime.device import resolve_device
 from tracs_tpu_torch.runtime.native import native_format_rows
 from tracs_tpu_torch.runtime.profiling import phase, rate_logger
@@ -139,8 +149,11 @@ def distance_parser(parser):
     )
     scale.add_argument(
         "--mesh", dest="mesh", type=str, default=None,
-        help="Device mesh for the all-pairs sweep; only 'off' (one device) "
-             "is ported.",
+        help="Process mesh for the all-pairs sweep: 'auto' (default: this "
+             "process's card), 'off' (one device), 'global' (every process of "
+             "a multi-process launch, shaped to the workload) or an explicit "
+             "'DPxSP' shape over the processes, e.g. '4x2' = 4 sample shards x "
+             "2 genome-position shards. Output is identical for every shape.",
     )
     scale.add_argument(
         "--device", dest="device", choices=["cuda", "cpu"], default="cuda",
@@ -153,18 +166,54 @@ def distance_parser(parser):
         help="number of threads to use (default=1)",
         type=check_positive_int, default=1,
     )
+    multihost.add_launch_args(parser)
     add_loglevel_arg(parser)
     parser.set_defaults(func=distance)
     return parser
 
 
-def _reject_unported(args) -> None:
-    if args.mesh is not None and args.mesh.strip().lower() != "off":
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: multi-GPU sweeps are not ported to "
-            "tracs_tpu_torch yet (ROADMAP.md, 'Modules to port', item 4); "
-            "use --mesh off"
-        )
+def _peek_fasta_dims(path):
+    """(n_samples, n_words) of one MSA, to shape a ``global`` mesh: the first
+    record is walked line by line for its length, the other headers are
+    counted in 16 MB binary chunks.  (None, None) when unreadable: the
+    planner then takes its dimension-free default."""
+    import gzip
+
+    opener = gzip.open if str(path).endswith(".gz") else open
+    try:
+        with opener(path, "rb") as fh:
+            n = 0
+            length = 0
+            for line in fh:
+                if line.startswith(b">"):
+                    n += 1
+                    if n == 2:
+                        break
+                elif n == 1:
+                    length += len(line.rstrip())
+            prev_nl = True
+            while True:
+                chunk = fh.read(1 << 24)
+                if not chunk:
+                    break
+                n += chunk.count(b"\n>")
+                if prev_nl and chunk.startswith(b">"):
+                    n += 1
+                prev_nl = chunk.endswith(b"\n")
+    except OSError:
+        return None, None
+    if n == 0 or length == 0:
+        return None, None
+    return n, (length + 31) // 32
+
+
+def _resolve_mesh(args):
+    """The mesh of ``--mesh``; ``global`` over several processes is shaped
+    to the first MSA's dimensions."""
+    n_peek = w_peek = None
+    if parse_mesh_spec(args.mesh) == "global" and world()[1] > 1:
+        n_peek, w_peek = _peek_fasta_dims(args.msa_files[0])
+    return resolve_mesh(args.mesh, n_samples=n_peek, n_words=w_peek)
 
 
 def _pack(args, path: str):
@@ -252,17 +301,27 @@ def _transmission_rows(args, names, rows, cols, dvals, filt, nn, ref, trans,
 
 def distance(args):
     setup_logging(args.loglevel)
-    _reject_unported(args)
+    multihost.launch(args)
     device = resolve_device(args.device)
     logging.info("Running the SNP sweep on %s", device)
     dates = _load_dates(args.metadata) if args.metadata is not None else None
+    mesh = _resolve_mesh(args)
+    if mesh is not None:
+        logging.info("Running on a %s mesh", dict(zip(mesh.mesh_dim_names, mesh.shape)))
+        args.row_block = args.row_block or 1024
+    # every process runs the stage (the collectives need them all); one owns
+    # the output path and the others write the same bytes beside it
+    rank, n_proc = world()
+    if n_proc > 1 and rank > 0:
+        args.output_file = f"{args.output_file}.proc{rank}"
+        logging.info("process %d writes %s", rank, args.output_file)
 
     # a cursor file is what an interrupted streaming run leaves behind; one
     # that streamed on its own account (below) used row blocks of 1024
     if args.resume and not args.row_block and os.path.exists(args.output_file + ".cursor"):
         args.row_block = 1024
     if args.row_block:
-        return _distance_streaming(args, device, dates)
+        return _distance_streaming(args, device, dates, mesh=mesh)
 
     # one MSA at a time is packed, swept and dropped (pipe hands over one MSA
     # per reference genome); the database side is shared by all of them
@@ -307,7 +366,8 @@ def distance(args):
         _distance_streaming(args, device, dates, *large, db)
 
 
-def _distance_streaming(args, device, dates, first_msa=0, first_packed=None, db=None):
+def _distance_streaming(args, device, dates, first_msa=0, first_packed=None, db=None,
+                        mesh=None):
     """Row-block streaming driver: bounded host memory, incremental CSV
     writes, and a cursor file so an interrupted sweep resumes at the last
     completed block.  The cursor records the flushed byte offset after each
@@ -316,7 +376,8 @@ def _distance_streaming(args, device, dates, first_msa=0, first_packed=None, db=
     TransClusterCache serves every block of the run.  Output rows are
     identical to the non-streaming path.  With ``first_packed``, the
     packed alignment of MSA ``first_msa``, the run continues an output that
-    holds the header and every earlier MSA already."""
+    holds the header and every earlier MSA already.  ``mesh`` runs the
+    sweep over the processes of a mesh (``pairsnp_stream``)."""
     cursor_path = args.output_file + ".cursor"
     cursor = {"msa_index": first_msa, "next_row": 0}
     mode = "w" if first_packed is None else "a"
@@ -352,7 +413,7 @@ def _distance_streaming(args, device, dates, first_msa=0, first_packed=None, db=
             for r0, r1, names, rows, cols, dvals, filt, nn in pairsnp_stream(
                 [a, db] if db is not None else [a], dist=args.snp_threshold,
                 filter=args.recomb_filter, row_block=args.row_block,
-                start_row=start_row, device=device,
+                start_row=start_row, device=device, mesh=mesh,
             ):
                 with phase("block rows [%d,%d)" % (r0, r1), device):
                     if cache is None or len(rows) == 0:

@@ -7,22 +7,33 @@ more than one sample into ``combined<REF>``, then runs distance
 (transmission_distances.csv) and cluster (transmission_clusters.csv) over the
 shared args namespace.  ``--device`` goes to both align and distance.
 
-One process: the port has no multi-process runtime yet, so every sample is
-ingested here and ``--mesh`` is handed to ``distance`` as it is, which takes
-only ``off`` or nothing (one device).
+Several processes (``--coordinator``, ``--num-processes``, ``--process-id``,
+one card each) share the ingest: process r aligns the samples ``i`` with
+``i % world == r`` (a shared filesystem, as a cluster's).  All meet at a
+barrier; rank 0 then runs combine, distance and cluster on its own card while
+the others wait at a second barrier, so that none leaves before the run's
+outputs exist.  ``--mesh`` is handed to ``distance``; under several
+processes it must keep the sweep on rank 0's card (``off`` or ``auto``),
+since the other ranks are not in the tail to join a mesh.
 """
 
 from __future__ import annotations
 
 import argparse
 import glob
+import logging
 import os
 import re
 from collections import defaultdict
 
 from concurrent.futures import ThreadPoolExecutor
+from datetime import timedelta
+
+import torch.distributed as dist
 
 from tracs_tpu_torch.ops.pairsnp import INT32_MAX
+from tracs_tpu_torch.parallel import multihost
+from tracs_tpu_torch.parallel.mesh import check_world, parse_mesh_spec, world
 from tracs_tpu_torch.runtime.device import resolve_device
 from tracs_tpu_torch.stages.align import align
 from tracs_tpu_torch.stages.cluster import cluster
@@ -154,8 +165,9 @@ def pipe_parser(parser):
     )
     scale.add_argument(
         "--mesh", dest="mesh", type=str, default=None,
-        help="device mesh for the distance stage; only 'off' (one device) "
-             "is ported (see tracs-tpu-torch distance --help)",
+        help="process mesh for the distance stage (see tracs-tpu-torch distance "
+             "--help); under several processes 'off' or 'auto', since the "
+             "distance stage runs on rank 0 alone",
     )
     scale.add_argument(
         "--device", dest="device", choices=["cuda", "cpu"], default="cuda",
@@ -165,6 +177,7 @@ def pipe_parser(parser):
 
     parser.add_argument("-t", "--threads", dest="n_cpu",
                         help="number of threads to use (default=1)", type=int, default=1)
+    multihost.add_launch_args(parser)
     add_loglevel_arg(parser)
     parser.set_defaults(func=pipe)
     return parser
@@ -217,19 +230,55 @@ def _ingest_samples(args, outputdir: str, rows: list[list[str]]) -> None:
             list(pool.map(align_one, rows))
 
 
+#: how long a rank waits at pipe's barriers: for the slowest rank's ingest,
+#: then for rank 0's combine, distance and cluster, which take as long as
+#: the data needs
+_BARRIER_TIMEOUT = timedelta(days=7)
+
+
+def _check_mesh(spec) -> None:
+    """Raises, before any work, for a ``--mesh`` that the distance stage
+    would refuse (a shape whose size is not the world's) or that the other
+    ranks could not join (a mesh over several processes: only rank 0 runs
+    the distance stage)."""
+    parsed = parse_mesh_spec(spec)
+    if isinstance(parsed, tuple) and parsed[0] * parsed[1] > 1:
+        check_world(*parsed)
+    if world()[1] > 1 and parsed not in ("off", "auto"):
+        raise ValueError(
+            f"pipe --mesh {spec}: under several processes pipe runs distance on rank 0 "
+            "alone; use --mesh off or auto, or run the distance stage on every process")
+
+
 def pipe(args):
     setup_logging(args.loglevel)
     args.device = resolve_device(args.device)  # no card: fail before any work
+    multihost.launch(args)
+    _check_mesh(args.mesh)
+    rank, n_proc = world()
+    # a group of its own for the barriers, with a timeout that the tail fits
+    barrier = dist.new_group(backend="gloo", timeout=_BARRIER_TIMEOUT) if n_proc > 1 else None
 
-    if not os.path.exists(args.output_dir):
+    try:
         os.mkdir(args.output_dir)
+    except FileExistsError:
+        pass
     args.output_dir = os.path.join(args.output_dir, "")
     outputdir = args.output_dir
 
     rows = _validated_samples(args.input_file)
     prefixes = {row[0] for row in rows}
 
-    _ingest_samples(args, outputdir, rows)
+    mine = [row for i, row in enumerate(rows) if i % n_proc == rank]
+    if n_proc > 1:
+        logging.info("process %d of %d ingests %d of %d samples", rank, n_proc, len(mine),
+                     len(rows))
+    _ingest_samples(args, outputdir, mine)
+    if barrier is not None:
+        dist.barrier(group=barrier)  # every sample is aligned
+        if rank != 0:
+            dist.barrier(group=barrier)  # rank 0 has written the outputs
+            return
 
     # concatenate per-reference alignments shared by >1 sample
     references = defaultdict(list)
@@ -260,6 +309,8 @@ def pipe(args):
     args.distance_file = outputdir + "transmission_distances.csv"
     args.output_file = outputdir + "transmission_clusters.csv"
     cluster(args)
+    if barrier is not None:
+        dist.barrier(group=barrier)
 
 
 def main(argv=None):
