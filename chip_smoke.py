@@ -30,12 +30,24 @@ Phases (each one passes or the script exits non-zero):
    four blocks of the main path's sweep (rb=1024 against the column suffixes
    m=4096, 3072, 2048, 1024), exact against their plain versions, timed as
    the launchers run them (the word axis cut into parts where whole tiles
-   would leave SMs idle) and with the cut forced off;
+   would leave SMs idle) and with the cut forced off.  Then the main path's
+   two device steps after the grams, exact against their plain versions
+   (``block_kernels``): ``partial_gram`` (the correction gram) at ragged
+   shapes and at the four blocks of the sweep with 2048 partial sites (64
+   words), and ``coo_extract`` (D/NN assembly, threshold, triangle mask and
+   row-major compaction) on synthetic grams at the four blocks, a mesh slab
+   whose last columns lie past n_valid, a ragged block and a 1 x 1 one, in
+   the three ways the engines call it and at the thresholds -1, 0, 200 and
+   2^31 - 1; each timed beside its plain version, which is the port's route
+   before the kernel (float64 unpack and ``mm``; D and NN assembled, then
+   ``torch.nonzero``);
 3. the distance slice through the normal entry point
    (``tracs_tpu_torch.cli.main(["distance", ...])``) on the headline
    workload: n=4096 samples x 1 Mb in clusters of 21, 2048 partial-IUPAC
-   columns, seed 0, written as an uncompressed FASTA in a temp dir.  Checks
-   that every row block launched the split-gram kernel, that the CSV holds
+   columns, seed 0, written as an uncompressed FASTA in a temp dir
+   (``tracs_tpu_torch.io.fasta.write_fasta``).  Checks that every row block
+   launched the split-gram, correction-gram and extraction kernels (the same
+   for every ``distance`` run below), that the CSV holds
    exactly the within-cluster pairs, and that 2,000 sampled rows agree with a
    host numpy popcount over the raw planes.  Prints wall seconds, pairs/s and
    the CSV's sha256.  Then the pack cache on the same FASTA: a cold
@@ -43,11 +55,14 @@ Phases (each one passes or the script exits non-zero):
    planes, which must be equal (both times printed), and one ``distance
    --pack-cache`` run served from the cache must write the same bytes;
 4. the sweep alone (``pairsnp_stream``) through both engines, cold and warm:
-   the popcount engine must launch ``popcount_gram`` once per row block and
-   yield, array for array, what the split engine yields.  Then, warm,
+   the popcount engine must launch ``popcount_gram`` and ``coo_extract`` once
+   per row block and yield, array for array, what the split engine yields.
+   The warm split sweep is split by step (CUDA events around K1,
+   ``partial_gram`` and ``coo_extract``; the rest is host time).  Then, warm,
    ``method="mxu"``, whose route on the card is ``popcount_gram`` (the
    15-channel gram of the JAX package's ``_gram_mxu`` is the kernel's own
-   15 subset grams): once per row block, the split engine's arrays, and the
+   15 subset grams): once per row block (``coo_extract`` too), the split
+   engine's arrays, and the
    route's (g, gq) at the first block against ``_gram_mxu``.  On the layouts
    that stay resident, ``mismatch_positions_kernel`` against its plain
    version, exact on the whole table: the first row block's emitted pairs at
@@ -96,7 +111,8 @@ Phases (each one passes or the script exits non-zero):
    ``transmission_distances.csv`` holds exactly the planted within-threshold
    pairs with the planted SNP distances and sites considered,
    ``transmission_clusters.csv`` groups exactly the planted clusters, the
-   split-gram kernel was launched, and both model functions were handed
+   split-gram, correction-gram and extraction kernels were launched once a
+   row block, and both model functions were handed
    their counts on the card and allocated there (the model ran there).  Then
    the run's combined alignment is packed and laid out as ``distance`` does
    and, at that shape, ``split_gram`` is held against its plain version
@@ -194,10 +210,10 @@ def bound(bytes_moved: float, ops: float, peak_ops: float):
 
 
 def gram_bound(what: str, na: int, nb, W: int, r0: int, rb: int, c0: int, *, planes: int,
-               products: int, peak_ops: float, popc: int, card):
+               products: int, peak_ops: float, popc: int, card, outputs: int = 2):
     """Bound of a gram kernel call, {bound_ms, bound_by}: every distinct input
-    row read once (``planes`` words per 32 sites) and both int32 outputs
-    written once, against the operations of the cheaper of the two routes
+    row read once (``planes`` words per 32 sites) and the ``outputs`` int32
+    outputs written once, against the operations of the cheaper of the two routes
     that compute the function: ``products`` bit-products per site pair as
     multiply-adds at the tensor cores' ``peak_ops`` (the peak of the operand
     type the kernel feeds them; single-bit for a kernel on the CUDA cores,
@@ -211,7 +227,7 @@ def gram_bound(what: str, na: int, nb, W: int, r0: int, rb: int, c0: int, *, pla
         rows = rb + m
     t_mma = 2 * products * rb * m * 32 * W / peak_ops * 1e3
     t_popc = popc * rb * m * W / (16 * card["sms"] * card["sm_hz"]) * 1e3
-    t_bytes = (rows * planes * W * 4 + 2 * rb * m * 4) / PEAK_BYTES * 1e3
+    t_bytes = (rows * planes * W * 4 + outputs * rb * m * 4) / PEAK_BYTES * 1e3
     t_ops = min(t_mma, t_popc)
     ms, by = (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
     print(f"# bound of {what}: {ms:.3f} ms by {by}; tensor-core route ({products} bit-products "
@@ -226,6 +242,7 @@ def reset_counts() -> None:
 
     kernels.SPLIT_GRAM_LAUNCHES = kernels.POPCOUNT_GRAM_LAUNCHES = 0
     kernels.MISM_POSITIONS_LAUNCHES = 0
+    kernels.COO_EXTRACT_LAUNCHES = kernels.PARTIAL_GRAM_LAUNCHES = 0
     for name in kernels.SPLIT_GRAM_VARIANT_LAUNCHES:
         kernels.SPLIT_GRAM_VARIANT_LAUNCHES[name] = 0
 
@@ -236,6 +253,8 @@ def read_counts() -> dict:
     return {"split_gram": kernels.SPLIT_GRAM_LAUNCHES,
             "popcount_gram": kernels.POPCOUNT_GRAM_LAUNCHES,
             "mism_positions": kernels.MISM_POSITIONS_LAUNCHES,
+            "coo_extract": kernels.COO_EXTRACT_LAUNCHES,
+            "partial_gram": kernels.PARTIAL_GRAM_LAUNCHES,
             **kernels.SPLIT_GRAM_VARIANT_LAUNCHES}
 
 
@@ -243,18 +262,16 @@ def read_counts() -> dict:
 # the headline workload (bench.py's make_clustered, from the package) on disk
 # ---------------------------------------------------------------------------
 
-def write_fasta(path: str, packed, batch: int = 128) -> None:
-    """Uncompressed FASTA of a PackedAlignment, one line per sequence."""
+def fasta_records(packed, batch: int = 128):
+    """(name, sequence) records of a PackedAlignment, unpacked ``batch``
+    sequences at a time, for ``tracs_tpu_torch.io.fasta.write_fasta``."""
     from tracs_tpu_torch.ops.packing import IUPAC_BY_NIBBLE, unpack_planes_to_nibbles
 
     chars = IUPAC_BY_NIBBLE.view(np.uint8)
-    with open(path, "wb") as fh:
-        for s in range(0, packed.n_seqs, batch):
-            text = chars[unpack_planes_to_nibbles(packed.planes[s : s + batch], packed.length)]
-            for k in range(text.shape[0]):
-                fh.write(b">" + packed.names[s + k].encode() + b"\n")
-                fh.write(text[k].tobytes())
-                fh.write(b"\n")
+    for s in range(0, packed.n_seqs, batch):
+        text = chars[unpack_planes_to_nibbles(packed.planes[s : s + batch], packed.length)]
+        for k in range(text.shape[0]):
+            yield packed.names[s + k], text[k].tobytes().decode("ascii")
 
 
 def oracle(planes: np.ndarray, length: int, i: np.ndarray, j: np.ndarray):
@@ -486,6 +503,149 @@ def phase_kernels(device, seed: int, card):
             del pa
         del args, got
         torch.cuda.empty_cache()
+    out.update(block_kernels(device, seed, card))
+    return out
+
+
+#: the main path's sweep at the headline: row block, samples, and the words
+#: of its 2048 partial-IUPAC sites
+MAIN_RB, MAIN_N, MAIN_WP = ROW_BLOCK, 4096, 64
+#: the synthetic blocks of ``coo_extract``: sites, and the bound of D, which is
+#: uniform below it, so that ~0.5% of the pairs lie within 200, as the
+#: headline's clusters of 21 in 4096 samples do
+COO_L, COO_DMAX = 1_000_000, 40_000
+INT32_MAX = 2**31 - 1
+
+
+def coo_needed(rb: int, m: int, r0: int, c0: int, n_valid: int, triangle: bool) -> int:
+    """Pairs of a block that the extraction has to look at: the columns below
+    ``n_valid`` and, on a triangle block, above the row."""
+    hi = min(m, max(0, n_valid - c0))
+    lo = np.maximum(0, r0 + np.arange(rb) - c0 + 1) if triangle else np.zeros(rb, np.int64)
+    return int(np.maximum(0, hi - lo).sum())
+
+
+def block_kernels(device, seed: int, card):
+    """``partial_gram`` and ``coo_extract`` against their plain versions on
+    the card, exact, at ragged shapes and at the main path's blocks: the
+    headline's first block (rb=1024 x m=4096, 2048 partial sites) and the
+    other three suffix widths of its sweep (m = 3072, 2048, 1024); for
+    ``coo_extract`` also a mesh slab whose last columns lie past n_valid, the
+    three ways the engines call it (split with the correction gram, split
+    without it as the mesh does, direct as the popcount engine does) and the
+    thresholds -1, 0, 200 and 2^31 - 1.  The grams of ``coo_extract`` are
+    synthetic, with D uniform below ``COO_DMAX``.  Returns the records of
+    ``partial_gram`` and of the three ways of ``coo_extract`` at the first
+    block (dist 200), each kernel's error pooled over its cases."""
+    import torch
+
+    from tracs_tpu_torch.ops import kernels
+
+    words = _random_words(device, seed + 1)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed + 2)
+
+    def ints(lo, hi, *shape):
+        return torch.randint(lo, hi, shape, dtype=torch.int32, device=device, generator=gen)
+
+    out = {}
+    n, rb, Wp = MAIN_N, MAIN_RB, MAIN_WP
+    rec = out["partial_gram"] = {"max_abs_err": 0}
+    pt = words(n, 4, Wp)
+    cases = [("ragged 37x11 Wp=3", None, words(37, 4, 3), words(11, 4, 3)),
+             ("ragged 300x129 Wp=1", None, words(300, 4, 1), words(129, 4, 1)),
+             ("ragged 65x100 Wp=100", None, words(65, 4, 100), words(100, 4, 100))]
+    cases += [(f"sweep block r0={r0} rb={rb} m={n - r0} Wp={Wp}", r0, pt[r0:r0 + rb], pt[r0:])
+              for r0 in range(0, n, rb)]
+    for name, r0, a, b in cases:
+        got = kernels.partial_gram(a, b)
+        torch.cuda.synchronize()
+        want = kernels.partial_gram_reference(a, b)
+        err = int((got.long() - want.long()).abs().max())
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        print(f"# partial_gram vs plain, {name}: out {tuple(got.shape)}, max |err| {err}")
+        if err:
+            fail(f"partial_gram disagrees with its plain version at {name}")
+        if r0 is None:
+            continue
+        ms = time_ms(lambda: kernels.partial_gram(a, b), 10)
+        bound_rec = gram_bound(f"partial_gram at {name}", n, None, Wp, r0, rb, r0, planes=4,
+                               products=10, popc=2, card=card, peak_ops=PEAK_B1, outputs=1)
+        if r0 == 0:
+            rec.update(ms=ms, plain_ms=time_ms(lambda: kernels.partial_gram_reference(a, b), 3),
+                       **bound_rec)
+            print(f"# partial_gram at {name}: kernel {ms:.3f} ms, plain {rec['plain_ms']:.3f} "
+                  f"ms (median; float64 unpack and mm, the port's route before this kernel)")
+        else:
+            print(f"# partial_gram at {name}: kernel {ms:.3f} ms")
+        del got, want
+    del pt, cases
+    torch.cuda.empty_cache()
+
+    L = COO_L
+
+    def grams(rb, m, way):
+        D = ints(0, COO_DMAX, rb, m)
+        if way == "direct":
+            return {"mode": "direct", "g": L - D, "gn": ints(0, L, rb, m)}
+        cnt_a, cnt_b = ints(0, 1000, rb), ints(0, 1000, m)
+        gp = ints(-64, 1, rb, m) if way == "split+gp" else None
+        g = L - D - cnt_a[:, None] - cnt_b[None, :] - (0 if gp is None else gp)
+        return {"mode": "split", "g": g, "gn": ints(0, L // 2, rb, m), "gp": gp,
+                "cnt_a": cnt_a, "cnt_b": cnt_b}
+
+    ways = {"split+gp": "coo_extract", "split": "coo_extract (split)",
+            "direct": "coo_extract (direct)"}
+    for kname in ways.values():
+        out[kname] = {"max_abs_err": 0}
+    cases = []  # (name, way, rb, m, r0, c0, n_valid, triangle, dists, timed)
+    for way in ways:
+        cases.append((f"main path block rb={rb} m={n}, {way}", way, rb, n, 0, 0, n, True,
+                      (-1, 0, 200, INT32_MAX), True))
+    cases += [(f"sweep block r0={r0} rb={rb} m={n - r0}, split+gp", "split+gp", rb, n - r0, r0,
+               r0, n, True, (200,), True) for r0 in range(rb, n, rb)]
+    cases += [
+        (f"mesh slab rb={rb} m=2048 r0=1024 c0=2048 n_valid=4000, triangle {tri}", "split",
+         rb, 2048, 1024, 2048, 4000, tri, (200, INT32_MAX), False) for tri in (False, True)]
+    cases += [("ragged rb=37 m=1500 r0=5 c0=3 n_valid=1400", "split+gp", 37, 1500, 5, 3, 1400,
+               True, (-1, 200, INT32_MAX), False),
+              ("1 x 1", "direct", 1, 1, 0, 1, 2, True, (INT32_MAX,), False)]
+    for name, way, rb_, m, r0, c0, n_valid, tri, dists, timed in cases:
+        gr = grams(rb_, m, way)
+        kname = ways[way]
+        rec = out[kname]
+        for dist in dists:
+            kw = dict(L=L, dist=dist, r0=r0, c0=c0, n_valid=n_valid, triangle=tri)
+            got = kernels.coo_extract(**gr, **kw)
+            torch.cuda.synchronize()
+            want = kernels.coo_extract_reference(**gr, **kw)
+            if got.shape != want.shape:
+                fail(f"coo_extract at {name}, dist {dist}: {tuple(got.shape)} pairs against the "
+                     f"plain version's {tuple(want.shape)}")
+            err = int((got.long() - want.long()).abs().max()) if want.numel() else 0
+            rec["max_abs_err"] = max(rec["max_abs_err"], err)
+            print(f"# {kname} vs plain, {name}, dist {dist}: {got.shape[1]} pairs, max |err| "
+                  f"{err}")
+            if err:
+                fail(f"coo_extract disagrees with its plain version at {name}, dist {dist}")
+            if not (timed and dist == 200):
+                continue
+            ms = time_ms(lambda: kernels.coo_extract(**gr, **kw), 10)
+            plain_ms = time_ms(lambda: kernels.coo_extract_reference(**gr, **kw), 3)
+            need, k = coo_needed(rb_, m, r0, c0, n_valid, tri), got.shape[1]
+            # each needed pair's g (and gp) once, each survivor's gn once and
+            # its 16 bytes out, the N counts; about 6 integer operations a pair
+            moved = need * 4 * (2 if way == "split+gp" else 1) + k * 20 + (rb_ + m) * 4
+            ms_b, by = bound(moved, 6 * need, PEAK_CUDA_CORE)
+            print(f"# {kname} at {name}: kernel {ms:.3f} ms (its one copy of the count "
+                  f"included), plain {plain_ms:.3f} ms (median; the port's route before this "
+                  f"kernel: D/NN assembled, masks, torch.nonzero, gathers); bound {ms_b:.4f} ms "
+                  f"by {by} ({need} pairs looked at, {k} kept)")
+            if r0 == 0:
+                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=ms_b, bound_by=by)
+            del got, want
+        del gr
+        torch.cuda.empty_cache()
     return out
 
 
@@ -493,11 +653,12 @@ def _headline(n: int, L: int, seed: int, tmp: str):
     """(packed alignment, FASTA path, cluster size) of the headline workload."""
     cluster_size = max(6, round(0.005 * n) + 1)
     from tracs_tpu_torch.experiments.workload import make_clustered
+    from tracs_tpu_torch.io.fasta import write_fasta
 
     t0 = time.perf_counter()
     packed = make_clustered(n, L, cluster_size=cluster_size, seed=seed)
     fasta = os.path.join(tmp, "clustered.fasta")
-    write_fasta(fasta, packed)
+    write_fasta(fasta, fasta_records(packed))
     print(f"# workload: n={n} L={L} clusters of {cluster_size}, FASTA "
           f"{os.path.getsize(fasta) / 1e9:.2f} GB written in {time.perf_counter() - t0:.1f} s")
     return packed, fasta, cluster_size
@@ -519,10 +680,13 @@ def _run_cli(argv, n: int, row_block: int, what: str, device):
     counts = read_counts()
     n_blocks = -(-n // row_block)
     print(f"# {what}: {wall:.3f} s wall, split_gram launches {counts['split_gram']} for "
-          f"{n_blocks} row blocks, popcount_gram launches {counts['popcount_gram']}, "
-          f"mism_positions launches {counts['mism_positions']}")
-    if counts["split_gram"] != n_blocks:
-        fail(f"{what}: {counts['split_gram']} split_gram launches for {n_blocks} row blocks")
+          f"{n_blocks} row blocks, partial_gram launches {counts['partial_gram']}, "
+          f"coo_extract launches {counts['coo_extract']}, popcount_gram launches "
+          f"{counts['popcount_gram']}, mism_positions launches {counts['mism_positions']}")
+    # the headline has partial-IUPAC columns: every split block needs the correction gram
+    for name in ("split_gram", "partial_gram", "coo_extract"):
+        if counts[name] != n_blocks:
+            fail(f"{what}: {counts[name]} {name} launches for {n_blocks} row blocks")
     with open(argv[argv.index("-o") + 1], "rb") as fh:
         data = fh.read()
     fields = [ln.split(",") for ln in data.decode().splitlines()[1:]]
@@ -531,8 +695,8 @@ def _run_cli(argv, n: int, row_block: int, what: str, device):
 
 def phase_slice(packed, fasta: str, cluster_size: int, row_block: int, seed: int, tmp: str,
                 device):
-    """The distance stage through the CLI entry point; returns (split_gram
-    launches, CSV rows)."""
+    """The distance stage through the CLI entry point; returns (every
+    kernel's launches in that run, CSV rows, the CSV's sha256)."""
     n, L = packed.n_seqs, packed.length
     out = os.path.join(tmp, "dists.csv")
     argv = ["distance", "--msa", fasta, "-o", out, "-D", "200", "--row-block", str(row_block)]
@@ -557,7 +721,7 @@ def phase_slice(packed, fasta: str, cluster_size: int, row_block: int, seed: int
     if not (np.array_equal(d_csv, d_ref) and np.array_equal(nn_csv, nn_ref)):
         fail("sampled CSV rows disagree with the host popcount oracle")
     print(f"# oracle: {len(pick)} sampled rows agree (SNP distance and sites considered)")
-    return counts["split_gram"], fields, sha
+    return counts, fields, sha
 
 
 def phase_mism_positions(packed, block, device):
@@ -665,12 +829,15 @@ def phase_sweeps(fasta: str, row_block: int, device, card):
     reset_counts()
     t_pc, pc_blocks = sweep(fresh["popcount"], "popcount")
     launches = kernels.POPCOUNT_GRAM_LAUNCHES
+    coo_launches = kernels.COO_EXTRACT_LAUNCHES
     print(f"# sweep cold (layout + upload): split {t_split:.3f} s, popcount {t_pc:.3f} s; "
-          f"popcount_gram launches {launches}, split_gram launches "
-          f"{kernels.SPLIT_GRAM_LAUNCHES} for {n_blocks} row blocks")
-    if launches != n_blocks or kernels.SPLIT_GRAM_LAUNCHES:
-        fail(f"the popcount sweep made {launches} popcount_gram launches for {n_blocks} "
-             f"row blocks and {kernels.SPLIT_GRAM_LAUNCHES} split_gram launches")
+          f"popcount_gram launches {launches}, coo_extract launches {coo_launches}, split_gram "
+          f"launches {kernels.SPLIT_GRAM_LAUNCHES} for {n_blocks} row blocks")
+    if launches != n_blocks or coo_launches != n_blocks or kernels.SPLIT_GRAM_LAUNCHES \
+            or kernels.PARTIAL_GRAM_LAUNCHES:
+        fail(f"the popcount sweep made {launches} popcount_gram and {coo_launches} coo_extract "
+             f"launches for {n_blocks} row blocks, and {kernels.SPLIT_GRAM_LAUNCHES} split_gram "
+             f"and {kernels.PARTIAL_GRAM_LAUNCHES} partial_gram launches")
     if len(pc_blocks) != len(split_blocks):
         fail("the popcount and split sweeps yield different numbers of blocks")
     for bp, bs in zip(pc_blocks, split_blocks):
@@ -685,10 +852,70 @@ def phase_sweeps(fasta: str, row_block: int, device, card):
     for method, ts in warm.items():
         print(f"# sweep warm {method}: median {float(np.median(ts)):.4f} s of "
               f"{', '.join(f'{t:.4f}' for t in ts)}")
+    sweep_by_step(fresh["split"], row_block, device, split_blocks)
     mxu = phase_mxu(fresh["popcount"], split_blocks, row_block, device, card)
     # both engines' layouts of one alignment object: the split layout is
     # resident on fresh["split"]; the raw planes follow at first use
-    return launches, phase_mism_positions(fresh["split"], split_blocks[0], device), mxu
+    return ((launches, coo_launches), phase_mism_positions(fresh["split"], split_blocks[0], device),
+            mxu)
+
+
+def sweep_by_step(packed, row_block: int, device, split_blocks, turns: int = 3):
+    """The warm split sweep split by step: CUDA events around each call of
+    ``split_gram`` (K1), ``partial_gram`` and ``coo_extract`` inside
+    ``pairsnp_stream`` (the last one's span holds its count copy and the
+    emit launch), summed over the row blocks, and the rest of the sweep's
+    host wall (the host copies, ``emit``, launch gaps).  Medians over
+    ``turns`` sweeps; each must yield the split engine's arrays."""
+    import torch
+
+    from tracs_tpu_torch.ops import pairsnp as port
+
+    steps = ("split_gram", "partial_gram", "coo_extract")
+    real = {name: getattr(port, name) for name in steps}
+    spans = {name: [] for name in steps}
+
+    def timed(name):
+        def call(*args, **kwargs):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = real[name](*args, **kwargs)
+            end.record()
+            spans[name].append((start, end))
+            return out
+        return call
+
+    rows = {name: [] for name in (*steps, "rest", "wall")}
+    for name in steps:  # only to read the steps' times; the kernels run as always
+        setattr(port, name, timed(name))
+    try:
+        for _ in range(turns):
+            for name in steps:
+                spans[name].clear()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            blocks = list(port.pairsnp_stream([packed], dist=200, row_block=row_block,
+                                              device=device, method="split"))
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            if len(blocks) != len(split_blocks) or not all(
+                    all(np.array_equal(x, y) for x, y in zip(b[3:], s[3:]))
+                    for b, s in zip(blocks, split_blocks)):
+                fail("the timed split sweep disagrees with the split sweep")
+            for name in steps:
+                rows[name].append(sum(s.elapsed_time(e) for s, e in spans[name]))
+            rows["wall"].append(wall)
+            rows["rest"].append(wall - sum(rows[name][-1] for name in steps))
+    finally:
+        for name, fn in real.items():
+            setattr(port, name, fn)
+    med = {name: float(np.median(v)) for name, v in rows.items()}
+    print(f"# warm split sweep by step (median of {turns}): wall {med['wall']:.3f} ms = K1 "
+          f"{med['split_gram']:.3f} + partial_gram {med['partial_gram']:.3f} + coo_extract "
+          f"{med['coo_extract']:.3f} + the rest {med['rest']:.3f} ms "
+          f"({len(spans['split_gram'])} blocks)")
+    return med
 
 
 def phase_mxu(packed, split_blocks, row_block: int, device, card):
@@ -712,10 +939,12 @@ def phase_mxu(packed, split_blocks, row_block: int, device, card):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = kernels.POPCOUNT_GRAM_LAUNCHES
-    print(f"# sweep warm mxu: {wall:.4f} s, popcount_gram launches {launches} for {n_blocks} "
-          f"row blocks")
-    if launches != n_blocks or kernels.SPLIT_GRAM_LAUNCHES:
-        fail(f"the mxu sweep made {launches} popcount_gram launches for {n_blocks} row blocks")
+    coo_launches = kernels.COO_EXTRACT_LAUNCHES
+    print(f"# sweep warm mxu: {wall:.4f} s, popcount_gram launches {launches}, coo_extract "
+          f"launches {coo_launches} for {n_blocks} row blocks")
+    if launches != n_blocks or coo_launches != n_blocks or kernels.SPLIT_GRAM_LAUNCHES:
+        fail(f"the mxu sweep made {launches} popcount_gram and {coo_launches} coo_extract "
+             f"launches for {n_blocks} row blocks")
     if len(blocks) != len(split_blocks) or not all(
             b[:2] == s[:2] and all(np.array_equal(x, y) for x, y in zip(b[3:], s[3:]))
             for b, s in zip(blocks, split_blocks)):
@@ -750,7 +979,7 @@ def phase_mxu(packed, split_blocks, row_block: int, device, card):
     print(f"# popcount_gram (mxu route) at {name}: kernel {rec['ms']:.3f} ms, plain "
           f"{rec['plain_ms']:.3f} ms (one run)")
     torch.cuda.empty_cache()
-    return launches, rec
+    return (launches, coo_launches), rec
 
 
 def phase_pack_cache(fasta: str, n: int, row_block: int, plain_csv: str, tmp: str, device):
@@ -808,7 +1037,7 @@ def write_dates(path: str, n: int, cluster_size: int, seed: int) -> None:
 def phase_meta(packed, fasta: str, cluster_size: int, row_block: int, seed: int,
                tmp: str, plain_fields, device):
     """``distance --meta`` through the CLI on the card; returns (wall s,
-    split_gram launches, the run's (N, delta) columns)."""
+    every kernel's launches in the run, the run's (N, delta) columns)."""
     from tracs_tpu_torch.models.transcluster import lprob_k_given_N, trans_dist
 
     n = packed.n_seqs
@@ -846,7 +1075,7 @@ def phase_meta(packed, fasta: str, cluster_size: int, row_block: int, seed: int,
           f"{err_scalar:.3e}; p0 vs CPU model {err_p0:.3e}, E(K) vs CPU model {err_ek:.3e}")
     if max(err_scalar, err_p0, err_ek) > 1e-9:
         fail("sampled --meta rows disagree with the scalar model or the CPU model at 1e-9")
-    return wall, counts["split_gram"], N, years
+    return wall, counts, N, years
 
 
 def phase_trans_dist(N, years, device):
@@ -891,8 +1120,8 @@ def host_filter(packed, i, j, d, chunk: int = 256) -> np.ndarray:
 
 def phase_filter(packed, fasta: str, row_block: int, seed: int, tmp: str, plain_fields,
                  device):
-    """``distance --filter`` through the CLI on the card; returns the
-    mismatch-position kernel's launches in that run and the CSV's sha256."""
+    """``distance --filter`` through the CLI on the card; returns every
+    kernel's launches in that run and the CSV's sha256."""
     import torch
 
     from tracs_tpu_torch.ops import pairsnp as port
@@ -937,7 +1166,7 @@ def phase_filter(packed, fasta: str, row_block: int, seed: int, tmp: str, plain_
         fail("sampled --filter rows disagree with the host bitset path")
     print(f"# --filter: {len(pick)} sampled rows equal the host bitset path; "
           f"{int((filt < d).sum())} of {len(fields)} rows lost SNPs to the filter")
-    return counts["mism_positions"], sha
+    return counts, sha
 
 
 def planted_alignment(n: int, L: int, seed: int):
@@ -984,9 +1213,12 @@ def phase_planted(L: int, seed: int, device):
     rows, cols, d, filt = (np.concatenate([b[k] for b in blocks]) for k in (3, 4, 5, 6))
     print(f"# planted: n={n} L={L}, {len(rows)} pairs in {wall:.3f} s, compacted "
           f"{packed.planes.shape[2]} -> {comp[0].planes.shape[2]} words, split_gram launches "
-          f"{counts['split_gram']}, mism_positions launches {counts['mism_positions']}")
-    if len(rows) != n * (n - 1) // 2 or counts["mism_positions"] < 1:
-        fail("planted case: pairs missing, or the mismatch-position kernel was not launched")
+          f"{counts['split_gram']}, coo_extract launches {counts['coo_extract']}, "
+          f"mism_positions launches {counts['mism_positions']}")
+    if len(rows) != n * (n - 1) // 2 or counts["mism_positions"] < 1 \
+            or counts["coo_extract"] != len(blocks):
+        fail("planted case: pairs missing, or the mismatch-position kernel not launched, or "
+             "not one coo_extract launch a block")
     tract = has_tract[rows] | has_tract[cols]
     if not np.all(filt[tract] < d[tract]) or not np.all(filt <= d):
         fail("planted case: a pair with a tract kept every SNP, or a filtered distance above d")
@@ -1174,8 +1406,8 @@ def pileup_bytes(ref: np.ndarray, sample: dict, contig: bytes = b"chr1") -> byte
 
 def phase_pipe(seed: int, tmp: str, device, card):
     """Reads to clusters through ``cli.main(["pipe", ...])`` on the card, at
-    PIPE_SITES x PIPE_SAMPLES; returns (the split-gram launches of the run,
-    the kernel's record at the run's shape for the JSON line)."""
+    PIPE_SITES x PIPE_SAMPLES; returns (every kernel's launches in the run,
+    the split-gram kernel's record at the run's shape for the JSON line)."""
     import gzip
     import zipfile
 
@@ -1322,12 +1554,17 @@ def phase_pipe(seed: int, tmp: str, device, card):
         + f", the rest (reference extraction, host statistics, FASTA) "
           f"{spent['align'] - inside:.3f} s")
     print(f"# pipe: find_dirichlet_priors took {min(iterations)}..{max(iterations)} iterations a "
-          f"sample; split_gram launches {counts['split_gram']}; peak device allocation above "
+          f"sample; split_gram launches {counts['split_gram']}, partial_gram "
+          f"{counts['partial_gram']}, coo_extract {counts['coo_extract']}; peak device allocation above "
           f"what was resident before, inside " + ", ".join(
               f"{k} {v / 1e6:.1f} MB" for k, v in model_peak.items())
           + f" (a count matrix is {L * 4 * 8 / 1e6:.1f} MB)")
-    if counts["split_gram"] < 1:
-        fail("pipe: the distance step did not launch the split-gram kernel")
+    # the called FASTAs hold two-allele IUPAC codes: every block needs the correction gram
+    if counts["split_gram"] < 1 or not \
+            counts["partial_gram"] == counts["coo_extract"] == counts["split_gram"]:
+        fail(f"pipe: the distance step launched split_gram {counts['split_gram']}, partial_gram "
+             f"{counts['partial_gram']} and coo_extract {counts['coo_extract']} times; one each "
+             f"a block expected")
     if len(iterations) != n or len(model_peak) != 2 \
             or min(model_peak.values()) <= L * 4 * 8:
         fail("pipe: a model function did not hold a count matrix on the card")
@@ -1489,7 +1726,7 @@ def phase_pipe(seed: int, tmp: str, device, card):
     if times["card"][2] != times["cpu"][2] or max(err_a, err_p) > 1e-9 \
             or not np.array_equal(pg == 0, pc == 0):
         fail("pipe: the model on the card disagrees with the model on the CPU at 1e-9")
-    return counts["split_gram"], rec
+    return counts, rec
 
 
 # ---------------------------------------------------------------------------
@@ -1642,20 +1879,25 @@ def _run_world(n: int, jobs: list, tmp: str, name: str) -> list:
     return recs
 
 
-def _report(what: str, recs: list, expect_split: int) -> int:
+def _report(what: str, recs: list, expect_split: int, expect_coo: int) -> dict:
     """Prints a run's wall, peak allocation and collective bytes over its
     ranks; fails unless every rank launched ``expect_split`` split-gram
-    kernels.  Returns their sum."""
+    kernels and as many correction grams (the headline has partial-IUPAC
+    columns), and ``expect_coo`` extractions.  Returns each kernel's launches
+    summed over the ranks."""
     walls = [r["wall"] for r in recs]
-    launches = [r["counts"]["split_gram"] for r in recs]
+    launches = {k: [r["counts"][k] for r in recs]
+                for k in ("split_gram", "partial_gram", "coo_extract", "mism_positions")}
     print(f"# mesh {what}: wall {max(walls):.3f} s (ranks {', '.join(f'{w:.3f}' for w in walls)}),"
           f" peak device allocation per rank "
           f"{', '.join(f'{r["peak"] / 1e9:.2f}' for r in recs)} GB, bytes through the "
-          f"collectives {sum(r['bytes'] for r in recs):,}, split_gram launches {launches}, "
-          f"mism_positions launches {[r['counts']['mism_positions'] for r in recs]}")
-    if launches != [expect_split] * len(recs):
-        fail(f"mesh {what}: split_gram launches {launches}, {expect_split} expected a rank")
-    return sum(launches)
+          f"collectives {sum(r['bytes'] for r in recs):,}, launches a rank "
+          f"{', '.join(f'{k} {v}' for k, v in launches.items())}")
+    want = {"split_gram": expect_split, "partial_gram": expect_split, "coo_extract": expect_coo}
+    for k, n in want.items():
+        if launches[k] != [n] * len(recs):
+            fail(f"mesh {what}: {k} launches {launches[k]}, {n} expected a rank")
+    return {k: sum(v) for k, v in launches.items()}
 
 
 def _sha(path: str) -> str:
@@ -1676,8 +1918,8 @@ def phase_mesh(packed, fasta: str, cache: str, row_block: int, sha_plain: str,
     from row 1024 on 2 x 2, equal to the one-device arrays, and one shard's
     ring block against ``split_gram_reference``.  Nothing here is a scaling
     number: the ranks share one card's SMs and talk through host memory.
-    Returns (the 2 x 2 run's split-gram launches over its ranks, the
-    kernel's record at the shard's shape)."""
+    Returns (the 2 x 2 run's launches of each kernel over its ranks, the
+    split-gram kernel's record at the shard's shape)."""
     import datetime
 
     import torch
@@ -1723,8 +1965,16 @@ def phase_mesh(packed, fasta: str, cache: str, row_block: int, sha_plain: str,
                 what = f"{'1x1 mesh' if on_mesh else 'one device'} from row {start}"
                 print(f"# mesh (a) nccl, {what}: {wall:.3f} s, {len(blocks)} blocks, "
                       f"{len(cat[0])} pairs, split_gram launches "
-                      f"{kernels.SPLIT_GRAM_LAUNCHES}, bytes through nccl "
+                      f"{kernels.SPLIT_GRAM_LAUNCHES}, partial_gram launches "
+                      f"{kernels.PARTIAL_GRAM_LAUNCHES}, coo_extract launches "
+                      f"{kernels.COO_EXTRACT_LAUNCHES}, bytes through nccl "
                       f"{mesh_mod.COLLECTIVE_BYTES:,}")
+                # a world of one: the ring's one stripe is its one block
+                if kernels.COO_EXTRACT_LAUNCHES != len(blocks) or \
+                        kernels.PARTIAL_GRAM_LAUNCHES != kernels.SPLIT_GRAM_LAUNCHES:
+                    fail(f"mesh (a), {what}: {kernels.COO_EXTRACT_LAUNCHES} coo_extract "
+                         f"launches for {len(blocks)} blocks, {kernels.PARTIAL_GRAM_LAUNCHES} "
+                         f"partial_gram for {kernels.SPLIT_GRAM_LAUNCHES} split_gram")
                 if not on_mesh:
                     single[start] = (spans, cat)
                     continue
@@ -1763,8 +2013,8 @@ def phase_mesh(packed, fasta: str, cache: str, row_block: int, sha_plain: str,
     jobs_a = [cli_job("2x1", "2x1"), cli_job("1x2", "1x2")]
     recs = _run_world(2, jobs_a, tmp, "two")
     print(f"# mesh world of 2 gloo ranks: {time.perf_counter() - t0:.3f} s with start-up")
-    _report("2x1 (the ring)", recs["2x1"], 2)
-    _report("1x2 (sp only)", recs["1x2"], 1)
+    _report("2x1 (the ring)", recs["2x1"], 2, 1)
+    _report("1x2 (sp only)", recs["1x2"], 1, 1)
     check_csvs(jobs_a[0], 2, sha_plain)
     check_csvs(jobs_a[1], 2, sha_plain)
 
@@ -1774,11 +2024,12 @@ def phase_mesh(packed, fasta: str, cache: str, row_block: int, sha_plain: str,
     jobs_b = [cli_job("2x2f", "2x2", "--filter"), sweep]
     recs = _run_world(4, jobs_b, tmp, "four")
     print(f"# mesh world of 4 gloo ranks: {time.perf_counter() - t0:.3f} s with start-up")
-    launches = _report("2x2 --filter", recs["2x2f"], 2)
+    launches = _report("2x2 --filter", recs["2x2f"], 2, 1)
     if any(r["counts"]["mism_positions"] < 1 for r in recs["2x2f"]):
         fail("mesh 2x2 --filter: a rank did not launch the mismatch-position kernel")
     check_csvs(jobs_b[0], 4, sha_filter)
-    _report("2x2 block sweep from row 1024", recs["sweep"], -(-(n - 1024) // row_block))
+    blocks = -(-(n - 1024) // row_block)
+    _report("2x2 block sweep from row 1024", recs["sweep"], blocks, blocks)
     spans, cat = single[1024]
     for r in range(4):
         got = np.load(os.path.join(tmp, "mesh_four", f"sweep.{r}.npz"))
@@ -1856,17 +2107,18 @@ def main() -> None:
     recs = phase_kernels(device, args.seed, card)
     with tempfile.TemporaryDirectory() as tmp:
         packed, fasta, cluster_size = _headline(args.n, args.length, args.seed, tmp)
-        split_launches, fields, sha_plain = phase_slice(packed, fasta, cluster_size, ROW_BLOCK,
+        slice_launches, fields, sha_plain = phase_slice(packed, fasta, cluster_size, ROW_BLOCK,
                                                         args.seed, tmp, device)
         cache = phase_pack_cache(fasta, args.n, ROW_BLOCK, os.path.join(tmp, "dists.csv"), tmp,
                                  device)
-        pc_launches, recs["mism_positions"], (mxu_launches, recs["mxu route"]) = phase_sweeps(
+        ((pc_launches, pc_coo_launches), recs["mism_positions"],
+         ((mxu_launches, mxu_coo_launches), recs["mxu route"])) = phase_sweeps(
             fasta, ROW_BLOCK, device, card)
-        _, _, N, years = phase_meta(packed, fasta, cluster_size, ROW_BLOCK, args.seed, tmp,
-                                    fields, device)
+        _, meta_launches, N, years = phase_meta(packed, fasta, cluster_size, ROW_BLOCK,
+                                                args.seed, tmp, fields, device)
         phase_trans_dist(N, years, device)
-        mism_launches, sha_filter = phase_filter(packed, fasta, ROW_BLOCK, args.seed, tmp,
-                                                 fields, device)
+        filter_launches, sha_filter = phase_filter(packed, fasta, ROW_BLOCK, args.seed, tmp,
+                                                   fields, device)
         mesh_launches, recs["split_gram (mesh path)"] = phase_mesh(
             packed, fasta, cache, ROW_BLOCK, sha_plain, sha_filter, tmp, device, card)
     del packed, fields
@@ -1887,21 +2139,25 @@ def main() -> None:
     from tracs_tpu_torch.ops import kernels as K
 
     pallas = "tracs_tpu/ops/pallas_kernels.py"
+    jax_pairsnp = "tracs_tpu/ops/pairsnp.py"
+    # the other runs of the split engine: name, every kernel's launches there
+    others = [("--meta run", meta_launches), ("--filter run", filter_launches),
+              ("pipe path", pipe_launches), ("mesh path", mesh_launches)]
     # K2 and K3 are one fused kernel: both entries carry its launch count and
     # time, each with the error of its own output (matches, nunion).  No
     # single PyTorch call computes any of these functions: library_ms is null.
     print(json.dumps({"kernels": [
-        entry("split_gram", "split_gram", "split_gram", f"{pallas}:157", split_launches,
-              (0, 1)),
+        entry("split_gram", "split_gram", "split_gram", f"{pallas}:157",
+              slice_launches["split_gram"], (0, 1)),
         # the same kernel on the reads-to-clusters path: its launches in the
         # pipe run, its error, times and bound at that run's shape
         entry("split_gram (pipe path)", "split_gram at pipe's shape", "split_gram",
-              f"{pallas}:157", pipe_launches, (0, 1)),
+              f"{pallas}:157", pipe_launches["split_gram"], (0, 1)),
         # the same kernel on the mesh path: its launches over the four gloo
         # ranks of the 2x2 --filter run, error, times and bound at one ring
         # block of that mesh (rank 0's stripe against rank 1's, a word shard)
         entry("split_gram (mesh path)", "split_gram (mesh path)", "split_gram",
-              f"{pallas}:157", mesh_launches, (0, 1)),
+              f"{pallas}:157", mesh_launches["split_gram"], (0, 1)),
         entry("popcount_gram (K2 matches)", "popcount_gram", "popcount_gram", f"{pallas}:45",
               pc_launches, (0,)),
         entry("popcount_gram (K3 nunion)", "popcount_gram", "popcount_gram", f"{pallas}:65",
@@ -1914,7 +2170,31 @@ def main() -> None:
                 "scripts/kernel_experiments.py:22", exp_counts[name], (0, 1))
           for name in (K.variant_name(*v) for v in K.SPLIT_GRAM_VARIANTS)),
         entry("mism_positions", "mism_positions", "mism_positions",
-              "tracs_tpu/ops/pairsnp.py:1501", mism_launches),
+              "tracs_tpu/ops/pairsnp.py:1501", filter_launches["mism_positions"]),
+        # the main path's two device steps after the grams, as hand-written
+        # kernels: launches in the distance CLI run; error, times and bound
+        # at the first block of the headline's sweep (phase 2)
+        entry("partial_gram", "partial_gram", "partial_gram", f"{jax_pairsnp}:184",
+              slice_launches["partial_gram"]),
+        # its launches in the --meta and --filter runs, in the pipe run, and
+        # over the four gloo ranks of the 2x2 --filter run
+        *(entry(f"partial_gram ({what})", "partial_gram", "partial_gram", f"{jax_pairsnp}:184",
+                launches["partial_gram"]) for what, launches in others),
+        entry("coo_extract", "coo_extract", "coo_extract", f"{jax_pairsnp}:928",
+              slice_launches["coo_extract"]),
+        *(entry(f"coo_extract ({what})", "coo_extract", "coo_extract", f"{jax_pairsnp}:928",
+                launches["coo_extract"]) for what, launches in others[:3]),
+        # the same kernel in direct mode (D = L - matches): its launches in the
+        # cold popcount sweep and in the mxu sweep, its error, times and bound
+        # in that mode at the first block
+        entry("coo_extract (popcount path)", "coo_extract (direct)", "coo_extract",
+              f"{jax_pairsnp}:928", pc_coo_launches),
+        entry("coo_extract (mxu route)", "coo_extract (direct)", "coo_extract",
+              f"{jax_pairsnp}:928", mxu_coo_launches),
+        # split mode without a correction gram (the mesh folds it into g before
+        # the sp sum): its launches over the ranks of the 2x2 --filter run
+        entry("coo_extract (mesh path)", "coo_extract (split)", "coo_extract",
+              f"{jax_pairsnp}:928", mesh_launches["coo_extract"]),
     ]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

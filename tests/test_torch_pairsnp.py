@@ -116,7 +116,7 @@ def test_gram_partial_matches_reference():
     pt = split_alignment(p).partial
     assert pt.shape[2] > 1
     want = np.asarray(jref._gram_partial(jnp.asarray(pt[2:7]), jnp.asarray(pt)))
-    got = port._gram_partial(port._as_words(pt[2:7]), port._as_words(pt))
+    got = port.partial_gram(port._as_words(pt[2:7]), port._as_words(pt))
     assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
 
 
@@ -248,8 +248,10 @@ def test_extract_coo_order_matches_reference(triangle, r0, c0):
         jnp.int32(c0), capacity=9 * 14, triangle=triangle,
     ))
     want = jref._unpack_survivors(packed, 9 * 14, int(packed[0]), 14, c0)
-    got = port._extract_coo(torch.from_numpy(D), torch.from_numpy(NN), 20, r0, n_valid,
-                            c0, triangle=triangle)
+    # the popcount engine's grams of these blocks: D = L - matches, NN = L - nunion
+    L = 1000
+    grams = {"mode": "direct", "g": torch.from_numpy(L - D), "gn": torch.from_numpy(L - NN)}
+    got = port._extract_coo(grams, L, 20, r0, n_valid, c0, triangle=triangle)
     assert len(got[0]) == int(packed[0]) > 0
     for g, w in zip(got, want):
         assert np.array_equal(g, w)

@@ -1,0 +1,229 @@
+"""The port's correction gram (ops/kernels.py ``partial_gram``: the signed sum
+of the 6 plane-pair and 4 plane-triple AND grams over the partial-IUPAC
+sites) against the JAX package's ``_gram_partial`` on the same numpy-seeded
+words, and the split engine around it against tracs_tpu.  Tolerance 0: every
+output is an integer.  The CUDA kernel is held against its plain version
+where a card exists; its per-site identity (the 10 products add up to
+-([k >= 2] + [k >= 3]) for k planes in common) is held against
+``_gram_partial`` here through a numpy model of it.
+
+jax is imported inside the tests that need it, so the card-only tests run on
+a machine without it."""
+
+import numpy as np
+import pytest
+import torch
+
+from tracs_tpu_torch.ops import kernels
+from tracs_tpu_torch.ops import pairsnp as port
+from tracs_tpu_torch.ops.packing import from_reference, popcount_words, split_alignment
+
+IUPAC = np.array(list("ACGTMRWSYKVHDBN-"))
+#: the partial-site word counts of the cases: one word, a ragged few, and the
+#: headline's 2048 partial sites
+WORD_COUNTS = [1, 3, 64]
+
+
+@pytest.fixture(scope="module")
+def jax_ref():
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from tracs_tpu.ops import packing as jpacking
+    from tracs_tpu.ops import pairsnp as jref
+
+    return jnp, jpacking, jref
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+def _random_words(rng, n, Wp):
+    """uint32 [n, 4, Wp]: every bit pattern, 4-plane sites included."""
+    return rng.integers(0, 2**32, size=(n, 4, Wp), dtype=np.uint64).astype(np.uint32)
+
+
+def _seqs_with_partial(rng, n, Wp):
+    """Sequences whose union of partial-IUPAC sites fills ``Wp`` words: 32 * Wp
+    - 5 partial columns in a conserved genome (exactly 2048 = 64 words at
+    Wp = 64)."""
+    n_partial = 32 * Wp if Wp == 64 else 32 * Wp - 5
+    L = n_partial + 300
+    base = rng.choice(np.array(list("ACGT")), size=L)
+    cols = rng.choice(L, size=n_partial, replace=False)
+    seqs = np.repeat(base[None, :], n, axis=0)
+    noise = rng.random((n, L)) < 0.05
+    seqs[noise] = rng.choice(np.array(list("ACGTN-")), size=int(noise.sum()))
+    owner = rng.integers(0, n, size=n_partial)
+    seqs[owner, cols] = rng.choice(np.array(list("MRWSYKVHDB")), size=n_partial)
+    return ["".join(s) for s in seqs]
+
+
+def _jax_gram(jax_ref, a, b):
+    jnp, _, jref = jax_ref
+    return np.asarray(jref._gram_partial(jnp.asarray(a), jnp.asarray(b)))
+
+
+@pytest.mark.parametrize("Wp", WORD_COUNTS)
+@pytest.mark.parametrize("na,nb", [(1, 1), (9, 23), (70, 5), (0, 4)])
+def test_partial_gram_random_words_match_reference(jax_ref, na, nb, Wp):
+    rng = np.random.default_rng([na, nb, Wp])
+    a, b = _random_words(rng, na, Wp), _random_words(rng, nb, Wp)
+    got = kernels.partial_gram(kernels._as_words(a), kernels._as_words(b))
+    assert got.dtype == torch.int32 and got.shape == (na, nb)
+    if na:
+        assert np.array_equal(got.numpy(), _jax_gram(jax_ref, a, b))
+
+
+@pytest.mark.parametrize("Wp", WORD_COUNTS)
+@pytest.mark.parametrize("r0,r1,c0", [(0, 11, 0), (3, 8, 3), (10, 11, 2)])
+def test_partial_gram_of_a_layout_matches_reference(jax_ref, Wp, r0, r1, c0):
+    """The split layout's own partial planes, the rows and column suffix of a
+    sweep block, as ``_split_grams`` slices them."""
+    _, jpacking, _ = jax_ref
+    rng = np.random.default_rng(Wp + r0)
+    j = jpacking.pack_sequences(_seqs_with_partial(rng, 11, Wp))
+    sa = split_alignment(from_reference(j.planes, j.length, j.names))
+    pt = sa.partial
+    assert pt.shape[2] == Wp and sa.n_partial == (32 * Wp if Wp == 64 else 32 * Wp - 5)
+    assert np.array_equal(pt, jpacking.split_alignment(j).partial)
+    got = kernels.partial_gram(kernels._as_words(pt)[r0:r1], kernels._as_words(pt)[c0:])
+    assert np.array_equal(got.numpy(), _jax_gram(jax_ref, pt[r0:r1], pt[c0:]))
+
+
+def _identity_model(a, b):
+    """numpy model of the kernel's arithmetic: per word pair, x_p = a_p & b_p,
+    the carry-save half adders of x_0 + x_1 and x_2 + x_3, and
+    -(popc(k >= 2) + popc(k >= 3))."""
+    x = a[:, None] & b[None, :]  # [na, nb, 4, Wp]
+    c1, s1 = x[:, :, 0] & x[:, :, 1], x[:, :, 0] ^ x[:, :, 1]
+    c2, s2 = x[:, :, 2] & x[:, :, 3], x[:, :, 2] ^ x[:, :, 3]
+    ge2 = c1 | c2 | (s1 & s2)
+    ge3 = (c1 & c2) | ((c1 | c2) & (s1 | s2))
+    return -(popcount_words(ge2).sum(-1) + popcount_words(ge3).sum(-1)).astype(np.int64)
+
+
+@pytest.mark.parametrize("Wp", WORD_COUNTS)
+def test_kernel_identity_matches_reference(jax_ref, Wp):
+    """The kernel's 4 ANDs and 2 POPC a word pair give the 10-channel gram on
+    every bit pattern: sites with 0 to 4 planes in common on random words,
+    and each of the 16 codes against each on whole words."""
+    rng = np.random.default_rng(Wp)
+    a, b = _random_words(rng, 13, Wp), _random_words(rng, 17, Wp)
+    assert np.array_equal(_identity_model(a, b), _jax_gram(jax_ref, a, b))
+    codes = np.zeros((16, 4, Wp), dtype=np.uint32)
+    for code in range(16):
+        for x in range(4):
+            if code >> x & 1:
+                codes[code, x] = 0xFFFFFFFF
+    want = _jax_gram(jax_ref, codes, codes)
+    assert np.array_equal(_identity_model(codes, codes), want)
+    k = np.array([[bin(s & t).count("1") for t in range(16)] for s in range(16)])
+    per_site = np.array([0, 0, -1, -2, -2])[k]
+    assert np.array_equal(want, per_site * 32 * Wp)
+
+
+def test_reference_chunking_is_exact(monkeypatch):
+    """One-word chunks (the memory bound at its tightest) give the same gram
+    as one chunk."""
+    rng = np.random.default_rng(2)
+    a = kernels._as_words(_random_words(rng, 7, 5))
+    b = kernels._as_words(_random_words(rng, 9, 5))
+    want = kernels.partial_gram_reference(a, b)
+    monkeypatch.setattr(kernels, "_REFERENCE_BYTES", 1)
+    assert torch.equal(kernels.partial_gram_reference(a, b), want)
+
+
+@pytest.mark.parametrize("Wp", WORD_COUNTS)
+@pytest.mark.parametrize("two", [False, True], ids=["self", "query-vs-db"])
+def test_split_engine_with_partial_sites_matches_reference(jax_ref, Wp, two):
+    """The slice as a whole on partial-heavy alignments: the dense matrices
+    and the stream of the split engine (K1, ``partial_gram``, ``coo_extract``)
+    equal tracs_tpu's."""
+    _, jpacking, jref = jax_ref
+    rng = np.random.default_rng(40 + Wp)
+    seqs = _seqs_with_partial(rng, 14, Wp)
+    ja = jpacking.pack_sequences(seqs[:9] if two else seqs)
+    jb = jpacking.pack_sequences(seqs[9:]) if two else None
+    pa = from_reference(ja.planes, ja.length, ja.names)
+    pb = from_reference(jb.planes, jb.length, jb.names) if two else None
+    D, NN = port.snp_distance_dense(pa, pb, device="cpu", row_block=4)
+    Dj, NNj = jref.snp_distance_dense(ja, jb, method="split")
+    assert np.array_equal(D, Dj) and np.array_equal(NN, NNj)
+    dist = int(np.median(Dj))
+    fasta_j, fasta_p = ([ja, jb], [pa, pb]) if two else ([ja], [pa])
+    want = list(jref.pairsnp_stream(fasta_j, dist=dist, method="split", row_block=4))
+    before = kernels.PARTIAL_GRAM_LAUNCHES
+    got = list(port.pairsnp_stream(fasta_p, dist=dist, device="cpu", row_block=4,
+                                   compact=False))
+    assert kernels.PARTIAL_GRAM_LAUNCHES == before  # the CPU counts no launch
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert g[:2] == w[:2]
+        for k in range(3, 8):
+            assert np.array_equal(np.asarray(g[k]), np.asarray(w[k])), k
+
+
+def test_refusals():
+    rng = np.random.default_rng(4)
+    a = kernels._as_words(_random_words(rng, 5, 3))
+    b = kernels._as_words(_random_words(rng, 6, 3))
+    with pytest.raises(TypeError, match="int32"):
+        kernels.partial_gram(a.long(), b)
+    with pytest.raises(ValueError, match=r"\[n, 4, W\]"):
+        kernels.partial_gram(a[:, :3].contiguous(), b)
+    with pytest.raises(ValueError, match="words"):
+        kernels.partial_gram(a, b[:, :, :2].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.partial_gram(a, b[:, :, ::2])
+
+
+def test_a_device_without_a_kernel_raises():
+    """Off the CPU the wrapper launches the kernel or raises: a tensor on the
+    ``meta`` device gets no plain version."""
+    a = torch.empty((5, 4, 3), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="runs on cuda or cpu"):
+        kernels.partial_gram(a, a)
+
+
+# -- on the card --
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("na,nb,Wp", [(1, 1, 1), (37, 70, 3), (65, 129, 64), (300, 33, 100),
+                                      (1024, 200, 9)])
+def test_partial_gram_cuda_matches_plain(cuda_device, na, nb, Wp):
+    gen = torch.Generator(device=cuda_device)
+    gen.manual_seed(na * Wp)
+
+    def words(*shape):
+        return torch.randint(-2**31, 2**31, shape, dtype=torch.int32, device=cuda_device,
+                             generator=gen)
+
+    a, b = words(na, 4, Wp), words(nb, 4, Wp)
+    before = kernels.PARTIAL_GRAM_LAUNCHES
+    got = kernels.partial_gram(a, b)
+    torch.cuda.synchronize()
+    assert kernels.PARTIAL_GRAM_LAUNCHES == before + 1
+    assert torch.equal(got, kernels.partial_gram_reference(a, b))
+    # rows of a resident layout, as the sweep slices them: storage offsets
+    assert torch.equal(kernels.partial_gram(a[1:], b[na // 3:]),
+                       kernels.partial_gram_reference(a[1:], b[na // 3:]))
+
+
+@pytest.mark.cuda
+def test_split_stream_cuda_launches_partial_gram_each_block(cuda_device):
+    rng = np.random.default_rng(9)
+    from tracs_tpu_torch.ops.packing import pack_sequences
+
+    p = pack_sequences(_seqs_with_partial(rng, 70, 3))
+    before = kernels.PARTIAL_GRAM_LAUNCHES
+    got = list(port.pairsnp_stream([p], row_block=16, device=cuda_device, dist=60))
+    assert kernels.PARTIAL_GRAM_LAUNCHES == before + 5
+    want = list(port.pairsnp_stream([p], row_block=16, device="cpu", dist=60))
+    for g, w in zip(got, want):
+        assert g[:2] == w[:2]
+        assert all(np.array_equal(x, y) for x, y in zip(g[3:], w[3:]))

@@ -1,4 +1,4 @@
-"""Minimal, dependency-free FASTA reader (gzip-capable).
+"""Minimal, dependency-free FASTA reader and writer (gzip-capable).
 
 Counterpart of tracs_tpu/io/fasta.py.  The bulk packing of sequences into
 bit-planes is vectorised in numpy or native code (ops/packing.py), not here.
@@ -39,3 +39,18 @@ def read_fasta(path: str | os.PathLike) -> Iterator[Tuple[str, str]]:
         if name is not None:
             yield name, "".join(chunks)
 
+
+def write_fasta(path: str | os.PathLike, records, width: int = 0) -> None:
+    """Write (name, seq) records, gzipped when ``path`` ends in ``.gz``.
+    ``width`` > 0 wraps each sequence at that many characters a line; 0 writes
+    it on one line (the reference align stage's output)."""
+    path = os.fspath(path)
+    opener = gzip.open if path.endswith(".gz") else open
+    with opener(path, "wt") as fh:
+        for name, seq in records:
+            fh.write(f">{name}\n")
+            if width and width > 0:
+                for i in range(0, len(seq), width):
+                    fh.write(seq[i : i + width] + "\n")
+            else:
+                fh.write(seq + "\n")

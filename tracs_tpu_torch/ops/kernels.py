@@ -25,6 +25,15 @@ ascending positions of the sites where the two share no allele, from the
 CUDA kernel ``csrc/mism_positions.cu`` (the recombination filter's device
 step); launches counted in ``MISM_POSITIONS_LAUNCHES``.
 
+``partial_gram`` — the split engine's correction gram over the partial-IUPAC
+sites (the 10 plane-pair and plane-triple AND grams, signed), from the CUDA
+kernel ``csrc/partial_gram.cu``; launches counted in
+``PARTIAL_GRAM_LAUNCHES``.
+
+``coo_extract`` — one block's D/NN assembly, threshold, triangle mask and
+row-major COO compaction, from the CUDA kernel ``csrc/coo_extract.cu`` (no D
+or NN block is written); calls counted in ``COO_EXTRACT_LAUNCHES``.
+
 On a CUDA tensor each wrapper launches its kernel (built for sm_90a at first
 use, runtime/build.py) and counts the launch; on a CPU tensor it returns its
 ``*_reference``, the plain exact version.  There is no fallback from one to
@@ -56,6 +65,11 @@ SPLIT_GRAM_LAUNCHES = 0
 POPCOUNT_GRAM_LAUNCHES = 0
 #: launches of the CUDA mismatch-position kernel in this process
 MISM_POSITIONS_LAUNCHES = 0
+#: launches of the CUDA correction-gram kernel in this process
+PARTIAL_GRAM_LAUNCHES = 0
+#: calls of the CUDA COO-extraction kernel in this process (one count: its
+#: count, scan and emit launches serve one block)
+COO_EXTRACT_LAUNCHES = 0
 
 #: the tensor-core split-gram variants as (dot, tile, unpack): the operand
 #: type of the ``mma``, the block's square output tile, and for ``s8`` the
@@ -617,4 +631,233 @@ def mismatch_positions_kernel(pa, pb, ii, jj, length: int, capacity: int,
     if rc != 0:
         raise RuntimeError(f"mism_positions kernel launch failed: CUDA error {rc}")
     MISM_POSITIONS_LAUNCHES += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the partial-IUPAC correction gram (the split engine's third gram)
+# ---------------------------------------------------------------------------
+
+#: partial-correction channels: AND-products over plane pairs (sign -1) and
+#: plane triples (sign +1); the quad is structurally zero on exclusive planes
+_PAIR_SUBSETS = [s for s in _SUBSETS if bin(s).count("1") == 2]
+_TRIPLE_SUBSETS = [s for s in _SUBSETS if bin(s).count("1") == 3]
+_PARTIAL_SIGNS = [-1.0] * 6 + [1.0] * 4
+
+#: ``partial_gram``'s kernel sums 2 counts of 32 sites a word in one int32
+#: accumulator: 64 * Wp stays below 2^31 for Wp below this
+_PARTIAL_GRAM_MAX_WORDS = 2**25
+#: rows of A the kernel's grid holds: 65535 tiles of 64 rows
+_PARTIAL_GRAM_MAX_ROWS = 65535 * 64
+
+
+def _partial_operands(part_a, part_b) -> None:
+    """Raises unless (part_a, part_b) are [n, 4, Wp] int32 planes of one word
+    count on one device."""
+    _check_planes(part_a, "part_a")
+    _check_planes(part_b, "part_b")
+    if part_a.shape[2] != part_b.shape[2]:
+        raise ValueError(f"part_a has {part_a.shape[2]} words, part_b has {part_b.shape[2]}")
+    if part_a.device != part_b.device:
+        raise ValueError(f"operands on several devices: {part_a.device}, {part_b.device}")
+
+
+def partial_gram_reference(part_a, part_b):
+    """Plain exact version of ``partial_gram``: the 10 pair and triple
+    AND-channels of each operand unpacked to 0/1 and contracted in float64
+    (exact: every sum is an integer far below 2^53; int8 ``torch.mm`` would
+    wrap and CUDA has no int32 ``mm``), the triples' grams added and the
+    pairs' subtracted, chunked over words so the unpacked operands stay under
+    ~512 MB."""
+    _partial_operands(part_a, part_b)
+    na, nb = part_a.shape[0], part_b.shape[0]
+    f64 = dict(dtype=torch.float64, device=part_a.device)
+    acc = torch.zeros((na, nb), **f64)
+    if na == 0 or nb == 0:
+        return acc.to(torch.int32)
+    channels = [s - 1 for s in _PAIR_SUBSETS + _TRIPLE_SUBSETS]
+    ca, cb = _subset_products(part_a)[:, channels], _subset_products(part_b)[:, channels]
+    Wp = ca.shape[2]
+    signs = torch.tensor(_PARTIAL_SIGNS, **f64)[None, :, None]
+    chunk = max(1, _REFERENCE_BYTES // max(1, (na + nb) * 10 * 32 * 8))
+    for w0 in range(0, Wp, chunk):
+        w1 = min(Wp, w0 + chunk)
+        xa = _unpack_bits(ca[:, :, w0:w1]).to(torch.float64).reshape(na, -1)
+        xb = (_unpack_bits(cb[:, :, w0:w1]).to(torch.float64) * signs).reshape(nb, -1)
+        acc += xa @ xb.T
+        del xa, xb
+    return acc.to(torch.int32)
+
+
+def partial_gram(part_a, part_b):
+    """The split decomposition's correction gram, int32 [na, nb]:
+    ``sum_{|S|=3} G_S - sum_{|S|=2} G_S`` over the plane pairs and triples
+    S, G_S[i, j] the popcount of the AND over S of sample i's words and of
+    sample j's, which ADDS to the match count (counterpart of
+    tracs_tpu.ops.pairsnp._gram_partial).
+
+    part_a, part_b : int32 [n, 4, Wp] exclusive planes gathered at the
+    partial-IUPAC sites (the split layout's ``partial``, or rows of it).
+    CPU tensors take ``partial_gram_reference``; CUDA tensors launch the
+    kernel ``csrc/partial_gram.cu`` or raise.  The kernel reads 4-byte words,
+    so the partial planes have no pitch rule."""
+    global PARTIAL_GRAM_LAUNCHES
+    if part_a.device.type == "cpu":
+        return partial_gram_reference(part_a, part_b)
+    _partial_operands(part_a, part_b)
+    na, nb, Wp = part_a.shape[0], part_b.shape[0], part_a.shape[2]
+    _check_cuda(part_a, "partial_gram", max(na, nb))
+    if Wp >= _PARTIAL_GRAM_MAX_WORDS or na > _PARTIAL_GRAM_MAX_ROWS:
+        raise ValueError(f"partial_gram: {na} rows of {Wp} words; the kernel takes at most "
+                         f"{_PARTIAL_GRAM_MAX_ROWS} rows and fewer than "
+                         f"{_PARTIAL_GRAM_MAX_WORDS} words")
+    out = torch.empty((na, nb), dtype=torch.int32, device=part_a.device)
+    if na == 0 or nb == 0:
+        return out
+    if Wp == 0:
+        return out.zero_()
+    fn = _kernel_entry("partial_gram", [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3
+                       + [ctypes.c_void_p] * 2)
+    with torch.cuda.device(part_a.device):
+        stream = torch.cuda.current_stream(part_a.device).cuda_stream
+        rc = fn(part_a.data_ptr(), part_b.data_ptr(), na, nb, Wp, out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"partial_gram kernel launch failed: CUDA error {rc}")
+    PARTIAL_GRAM_LAUNCHES += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# the block's D/NN assembly, threshold and row-major COO compaction
+# ---------------------------------------------------------------------------
+
+#: the modes of ``coo_extract``: how D and NN come from the grams
+COO_MODES = ("split", "direct")
+
+#: columns a warp of ``coo_extract``'s kernel walks (a multiple of 32)
+_COO_SEGMENT = 1024
+
+
+def clamp_threshold(dist: int) -> int:
+    """``dist`` clamped to [-1, 2^31 - 1], the int32 value D is compared with
+    (D is never negative, so every threshold below 0 keeps nothing)."""
+    return max(-1, min(int(dist), 2**31 - 1))
+
+
+def _coo_operands(g, gn, mode, L, r0, c0, n_valid, gp, cnt_a, cnt_b) -> None:
+    """Raises unless the arguments are a valid ``coo_extract`` call."""
+    if mode not in COO_MODES:
+        raise ValueError(f"unknown mode {mode!r}; one of {COO_MODES}")
+    blocks = [g, gn] + ([] if gp is None else [gp])
+    for name, t in zip(("g", "gn", "gp"), blocks):
+        if t.dtype != torch.int32 or t.dim() != 2:
+            raise TypeError(f"{name}: want an int32 [rb, m] block, got {t.dtype} "
+                            f"{tuple(t.shape)}")
+        if t.shape != g.shape:
+            raise ValueError(f"{name} is {tuple(t.shape)}, g is {tuple(g.shape)}")
+    rb, m = g.shape
+    if mode == "split":
+        if cnt_a is None or cnt_b is None:
+            raise ValueError("split mode needs cnt_a and cnt_b")
+        for name, t, n in (("cnt_a", cnt_a, rb), ("cnt_b", cnt_b, m)):
+            if t.dtype != torch.int32 or tuple(t.shape) != (n,):
+                raise ValueError(f"{name}: want int32 [{n}], got {t.dtype} {tuple(t.shape)}")
+        blocks += [cnt_a, cnt_b]
+    elif gp is not None or cnt_a is not None or cnt_b is not None:
+        raise ValueError("direct mode takes no gp, cnt_a or cnt_b")
+    if not all(t.is_contiguous() for t in blocks):
+        raise ValueError("coo_extract: tensors must be contiguous")
+    if len({t.device for t in blocks}) != 1:
+        raise ValueError("coo_extract: operands on several devices")
+    if not 0 <= L < 2**31:
+        raise ValueError(f"length {L} outside [0, 2^31)")
+    if min(r0, c0, n_valid) < 0:
+        raise ValueError(f"r0 {r0}, c0 {c0} and n_valid {n_valid} must be >= 0")
+    if max(rb, m) >= 2**31:
+        raise ValueError("a block dimension beyond the output's int32 indices")
+
+
+def coo_extract_reference(g, gn, *, mode: str, L: int, dist: int, r0: int, c0: int,
+                          n_valid: int, triangle: bool, gp=None, cnt_a=None, cnt_b=None):
+    """Plain version of ``coo_extract`` (the port's route before the kernel):
+    D and NN assembled as whole int32 blocks, the three masks, ``torch.nonzero``
+    (row-major) and four gathers."""
+    _coo_operands(g, gn, mode, L, r0, c0, n_valid, gp, cnt_a, cnt_b)
+    rb, m = g.shape
+    if mode == "split":
+        match = g + cnt_a[:, None] + cnt_b[None, :]
+        if gp is not None:
+            match = match + gp
+        D = L - match
+        NN = L - cnt_a[:, None] - cnt_b[None, :] + gn
+    else:
+        D, NN = L - g, L - gn
+    cols = torch.arange(m, device=g.device, dtype=torch.int64) + c0
+    mask = (D <= clamp_threshold(dist)) & (cols < n_valid)[None, :]
+    if triangle:
+        rows = torch.arange(rb, device=g.device, dtype=torch.int64) + r0
+        mask &= cols[None, :] > rows[:, None]
+    i, j = torch.nonzero(mask).unbind(1)  # row-major
+    return torch.stack([i.to(torch.int32), j.to(torch.int32), D[i, j], NN[i, j]])
+
+
+def coo_extract(g, gn, *, mode: str, L: int, dist: int, r0: int, c0: int, n_valid: int,
+                triangle: bool, gp=None, cnt_a=None, cnt_b=None):
+    """Survivors of one block of the all-pairs sweep, int32 [4, k] =
+    (local row, local column, d, nn), in row-major order (tracs_tpu's
+    emission order; counterpart of tracs_tpu.ops.pairsnp._extract_coo_packed
+    with the block assembly before it).
+
+    g, gn : the engine's int32 [rb, m] gram blocks of rows [r0, r0 + rb)
+    against global columns [c0, c0 + m).  ``mode``:
+
+    * ``split``: D = L - (g + gp + cnt_a + cnt_b), NN = L - cnt_a - cnt_b + gn
+      (``gp`` the correction gram or None; ``cnt_a`` [rb], ``cnt_b`` [m] the
+      samples' N counts);
+    * ``direct``: D = L - g, NN = L - gn (g = matches, gn = nunion).
+
+    A pair survives when d <= ``clamp_threshold(dist)``, its global column is
+    below ``n_valid`` and, with ``triangle``, above its global row.  CPU
+    tensors take ``coo_extract_reference``; CUDA tensors launch the kernel
+    ``csrc/coo_extract.cu`` (count, scan, then emit once one 8-byte copy of
+    the total has sized the output) or raise.  No D or NN block is made."""
+    global COO_EXTRACT_LAUNCHES
+    if g.device.type == "cpu":
+        return coo_extract_reference(g, gn, mode=mode, L=L, dist=dist, r0=r0, c0=c0,
+                                     n_valid=n_valid, triangle=triangle, gp=gp, cnt_a=cnt_a,
+                                     cnt_b=cnt_b)
+    _coo_operands(g, gn, mode, L, r0, c0, n_valid, gp, cnt_a, cnt_b)
+    rb, m = g.shape
+    _check_cuda(g, "coo_extract", rb)
+    dev = g.device
+    if rb == 0 or m == 0:
+        return torch.empty((4, 0), dtype=torch.int32, device=dev)
+    nw = rb * -(-m // _COO_SEGMENT)
+    counts = torch.empty(nw, dtype=torch.int32, device=dev)
+    offsets = torch.empty(nw + 1, dtype=torch.int64, device=dev)
+    fn = _kernel_entry("coo_extract", (
+        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
+        + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+
+        def launch(phase, k, out):
+            rc = fn(phase, g.data_ptr(), gn.data_ptr(), ptr(gp), ptr(cnt_a), ptr(cnt_b), rb, m,
+                    L, clamp_threshold(dist), r0 - c0, int(bool(triangle)),
+                    min(m, max(0, n_valid - c0)), int(mode == "split"), _COO_SEGMENT,
+                    counts.data_ptr(), offsets.data_ptr(), k, ptr(out), stream)
+            if rc != 0:
+                raise RuntimeError(f"coo_extract kernel launch failed: CUDA error {rc}")
+
+        launch(0, 0, None)
+        COO_EXTRACT_LAUNCHES += 1
+        k = int(offsets[nw])  # the one copy that sizes the output
+        out = torch.empty((4, k), dtype=torch.int32, device=dev)
+        if k:
+            launch(1, k, out)
     return out

@@ -16,11 +16,12 @@ Split decomposition.  With û = the N-exclusive planes and n = the N mask:
 G4 and Gn come from the hand-written gram kernel (ops/kernels.py
 ``split_gram``) straight from the packed words; Gpartial is a 10-channel
 correction gram over the few sites where some sample holds a 2- or 3-bit
-IUPAC code, in plain torch (float64, exact).  The self all-pairs sweep
+IUPAC code, from the kernel ``partial_gram``.  The self all-pairs sweep
 computes, for a row block [r0, r1), only the columns j >= r0: the triangle
-mask of the survivor extraction drops j <= i anyway.  Survivors (d <= dist)
-are compacted on the device in row-major order and copied to the host once
-per block.
+mask of the survivor extraction drops j <= i anyway.  The kernel
+``coo_extract`` forms each pair's D and NN from the grams, keeps the
+survivors (d <= dist) and compacts them in row-major order, so no D or NN
+block is made; they are copied to the host once per block.
 
 Popcount engine (``method="popcount"``).  matches = sum popc(OR_x(a_x & b_x))
 and nunion = sum popc(N_i | N_j) come straight from the raw planes through
@@ -60,8 +61,10 @@ from tracs_tpu_torch.ops.kernels import (
     _as_words,
     _subset_products,
     _unpack_bits,
+    coo_extract,
     mismatch_positions_kernel,
     pad_planes,
+    partial_gram,
     popcount_gram,
     split_gram,
 )
@@ -79,13 +82,7 @@ from tracs_tpu_torch.runtime.device import resolve_device, to_host
 
 INT32_MAX = 2**31 - 1
 
-# partial-correction channels: AND-products over plane pairs (sign -1) and
-# plane triples (sign +1); the quad is structurally zero on exclusive planes
-_PAIR_SUBSETS = [s for s in range(1, 16) if bin(s).count("1") == 2]
-_TRIPLE_SUBSETS = [s for s in range(1, 16) if bin(s).count("1") == 3]
-_PARTIAL_SIGNS = [-1.0] * 6 + [1.0] * 4
-
-# bytes of unpacked float64 operands per chunk of the correction gram
+# bytes of unpacked float64 operands per chunk of ``_gram_mxu``
 _PARTIAL_CHUNK_BYTES = 256 << 20
 
 # bytes of one launch's [pairs, 1 + capacity] int32 position table
@@ -150,31 +147,6 @@ def _cnt_device(sa: SplitAlignment, device: torch.device) -> torch.Tensor:
     return cache[1]
 
 
-def _partial_channels(p: torch.Tensor) -> torch.Tensor:
-    """[n, 4, Wp] exclusive planes -> [n, 10, Wp] pair and triple AND-products."""
-    return _subset_products(p)[:, [s - 1 for s in _PAIR_SUBSETS + _TRIPLE_SUBSETS]]
-
-
-def _gram_partial(part_a: torch.Tensor, part_b: torch.Tensor) -> torch.Tensor:
-    """Correction gram over gathered partial-ambiguity sites.
-
-    part_* : [n, 4, Wp] int32 exclusive planes at partial sites
-    returns [na, nb] int32 = sum_{|S|=2} -G_S + sum_{|S|=3} +G_S, which ADDS
-    to the match count.  Contracted in float64, which is exact here; int8
-    ``torch.mm`` would wrap and CUDA has no int32 ``mm``."""
-    ca, cb = _partial_channels(part_a), _partial_channels(part_b)
-    na, nb, Wp = ca.shape[0], cb.shape[0], ca.shape[2]
-    signs = torch.tensor(_PARTIAL_SIGNS, dtype=torch.float64, device=ca.device)[None, :, None]
-    acc = torch.zeros((na, nb), dtype=torch.float64, device=ca.device)
-    chunk = max(1, _PARTIAL_CHUNK_BYTES // max(1, (na + nb) * 10 * 32 * 8))
-    for w0 in range(0, Wp, chunk):
-        w1 = min(Wp, w0 + chunk)
-        xa = _unpack_bits(ca[:, :, w0:w1]).to(torch.float64).reshape(na, -1)
-        xb = (_unpack_bits(cb[:, :, w0:w1]).to(torch.float64) * signs).reshape(nb, -1)
-        acc += xa @ xb.T
-    return acc.to(torch.int32)
-
-
 def _assemble_d(m, gp, cnt_a, cnt_b, L: int) -> torch.Tensor:
     match = m + cnt_a[:, None] + cnt_b[None, :]
     if gp is not None:
@@ -188,11 +160,6 @@ def _assemble_nn(gn, cnt_a, cnt_b, L: int) -> torch.Tensor:
 
 def _assemble_popcount(matches, nunion, L: int):
     return (L - matches).to(torch.int32), (L - nunion).to(torch.int32)
-
-
-def _assemble_mxu(g, gq, cnt_a, cnt_b, L: int):
-    """(D, NN) blocks from the signed 15-channel gram and the quad gram."""
-    return (g + L).to(torch.int32), (L - cnt_a[:, None] - cnt_b[None, :] + gq).to(torch.int32)
 
 
 def _gram_mxu(pa: torch.Tensor, pb: torch.Tensor):
@@ -216,14 +183,20 @@ def _gram_mxu(pa: torch.Tensor, pb: torch.Tensor):
     return acc.to(torch.int32), accq.to(torch.int32)
 
 
-def _popcount_block(a: PackedAlignment, b: PackedAlignment, r0: int, r1: int,
-                    c0: int, device: torch.device):
-    """(D, NN) int32 device blocks of rows [r0, r1) of ``a`` against
-    columns [c0, n_b) of ``b`` through the popcount engine."""
+# The engines' grams of one block, rows [r0, r1) against columns [c0, n_b):
+# each returns the keyword arguments of ``kernels.coo_extract`` that carry
+# the block (its mode and gram blocks; the split engine's correction gram
+# and N counts), from which the stream extracts the survivors and the dense
+# functions assemble D and NN (``_assemble_block``).
+
+def _popcount_grams(a: PackedAlignment, b: PackedAlignment, r0: int, r1: int, c0: int,
+                    device: torch.device) -> dict:
+    """The popcount engine's block: (matches, nunion) from the kernel
+    ``popcount_gram``, so D = L - matches, NN = L - nunion."""
     pa = _planes_device(a, device)
     pb = None if b is a else _planes_device(b, device)
     matches, nunion = popcount_gram(pa, r0, r1 - r0, c0, pb)
-    return _assemble_popcount(matches, nunion, a.length)
+    return {"mode": "direct", "g": matches, "gn": nunion}
 
 
 def _cnt_n(packed: PackedAlignment, r0: int, r1: int | None) -> torch.Tensor:
@@ -234,37 +207,66 @@ def _cnt_n(packed: PackedAlignment, r0: int, r1: int | None) -> torch.Tensor:
     return torch.from_numpy(cnt.astype(np.int32))
 
 
-def _mxu_block(a: PackedAlignment, b: PackedAlignment, r0: int, r1: int, c0: int,
-               device: torch.device):
-    """(D, NN) int32 device blocks of rows [r0, r1) of ``a`` against columns
-    [c0, n_b) of ``b`` through the inclusion-exclusion engine.  On the card
-    its 15 subset grams are the popcount kernel's own (g = -matches and
-    gq = cntN_a + cntN_b - nunion, which ``_assemble_mxu`` turns back into
-    D = L - matches and NN = L - nunion), so the block is the popcount
-    engine's; on the CPU ``_gram_mxu`` forms g and gq in plain torch."""
+def _mxu_grams(a: PackedAlignment, b: PackedAlignment, r0: int, r1: int, c0: int,
+               device: torch.device) -> dict:
+    """The inclusion-exclusion engine's block as (matches, nunion).  On the
+    card its 15 subset grams are the popcount kernel's own (g = -matches,
+    gq = cntN_a + cntN_b - nunion), so the block is the popcount engine's;
+    on the CPU ``_gram_mxu`` forms g and gq in plain torch and
+    matches = -g, nunion = cntN_a + cntN_b - gq follow (D = L + g and
+    NN = L - cntN_a - cntN_b + gq, tracs_tpu's ``_assemble_mxu``)."""
     if device.type != "cpu":
-        return _popcount_block(a, b, r0, r1, c0, device)
+        return _popcount_grams(a, b, r0, r1, c0, device)
     pa = _planes_device(a, device)
     pb = pa if b is a else _planes_device(b, device)
     g, gq = _gram_mxu(pa[r0:r1], pb[c0:])
-    return _assemble_mxu(g, gq, _cnt_n(a, r0, r1), _cnt_n(b, c0, None), a.length)
+    nunion = _cnt_n(a, r0, r1)[:, None] + _cnt_n(b, c0, None)[None, :] - gq
+    return {"mode": "direct", "g": -g, "gn": nunion}
 
 
-def _split_block(sa: SplitAlignment, sb: SplitAlignment, r0: int, r1: int,
-                 c0: int, device: torch.device):
-    """(D, NN) int32 device blocks of rows [r0, r1) of ``sa`` against
-    columns [c0, n_b) of ``sb``."""
+def _split_grams(sa: SplitAlignment, sb: SplitAlignment, r0: int, r1: int, c0: int,
+                 device: torch.device) -> dict:
+    """The split engine's block: (g, gn) from the kernel ``split_gram``, the
+    correction gram from ``partial_gram`` where some sample holds a partial
+    IUPAC code, and the rows' and columns' N counts."""
     ea, nm, pa = _split_device(sa, device)
     if sb is sa:
         eb = nmb = None
         pb = pa
     else:
         eb, nmb, pb = _split_device(sb, device)
-    m, gn = split_gram(ea, nm, r0, r1 - r0, c0, eb, nmb)
-    gp = _gram_partial(pa[r0:r1], pb[c0:]) if (sa.n_partial or sb.n_partial) else None
-    cnt_a = _cnt_device(sa, device)[r0:r1]
-    cnt_b = _cnt_device(sb, device)[c0:]
-    return _assemble_d(m, gp, cnt_a, cnt_b, sa.length), _assemble_nn(gn, cnt_a, cnt_b, sa.length)
+    g, gn = split_gram(ea, nm, r0, r1 - r0, c0, eb, nmb)
+    gp = partial_gram(pa[r0:r1], pb[c0:]) if (sa.n_partial or sb.n_partial) else None
+    return {"mode": "split", "g": g, "gn": gn, "gp": gp,
+            "cnt_a": _cnt_device(sa, device)[r0:r1], "cnt_b": _cnt_device(sb, device)[c0:]}
+
+
+def _block_grams(engine: str, a: PackedAlignment, b: PackedAlignment, r0: int, r1: int,
+                 c0: int, device: torch.device) -> dict:
+    """The grams of rows [r0, r1) of ``a`` against columns [c0, n_b) of ``b``
+    through ``engine``."""
+    if engine == "popcount":
+        return _popcount_grams(a, b, r0, r1, c0, device)
+    if engine == "mxu":
+        return _mxu_grams(a, b, r0, r1, c0, device)
+    sa, sb = _split_pair(a, b)
+    return _split_grams(sa, sb, r0, r1, c0, device)
+
+
+def _assemble_block(grams: dict, L: int):
+    """(D, NN) int32 device blocks of an engine's block grams."""
+    if grams["mode"] == "direct":
+        return _assemble_popcount(grams["g"], grams["gn"], L)
+    cnt_a, cnt_b = grams["cnt_a"], grams["cnt_b"]
+    return (_assemble_d(grams["g"], grams["gp"], cnt_a, cnt_b, L),
+            _assemble_nn(grams["gn"], cnt_a, cnt_b, L))
+
+
+def _split_block(sa: SplitAlignment, sb: SplitAlignment, r0: int, r1: int,
+                 c0: int, device: torch.device):
+    """(D, NN) int32 device blocks of rows [r0, r1) of ``sa`` against
+    columns [c0, n_b) of ``sb``."""
+    return _assemble_block(_split_grams(sa, sb, r0, r1, c0, device), sa.length)
 
 
 def snp_distance_split_prefix_device(sa: SplitAlignment, r0: int, r1: int, *,
@@ -282,6 +284,19 @@ def snp_distance_split_prefix_device(sa: SplitAlignment, r0: int, r1: int, *,
     return D, NN, r0
 
 
+def _check_split_pair(sa: SplitAlignment, sb: SplitAlignment) -> None:
+    """Raises unless the two layouts can be compared: one sequence length
+    and, for a query-vs-db pair, one partial-site gather axis
+    (``_split_pair`` builds them so)."""
+    if sa.length != sb.length:
+        raise ValueError("alignments must share sequence length")
+    if sb is not sa and not np.array_equal(sa.partial_pos, sb.partial_pos):
+        raise ValueError(
+            "SplitAlignments of a pair must share the partial-site gather "
+            "axis — build them with _split_pair(a, b)"
+        )
+
+
 def snp_distance_split_device(sa: SplitAlignment, sb: SplitAlignment | None = None,
                               *, device: torch.device, r0: int = 0, r1: int | None = None):
     """(D, NN) int32 device blocks of rows [r0, r1) of ``sa`` against every
@@ -290,36 +305,70 @@ def snp_distance_split_device(sa: SplitAlignment, sb: SplitAlignment | None = No
     so)."""
     if sb is None:
         sb = sa
-    if sa.length != sb.length:
-        raise ValueError("alignments must share sequence length")
-    if sb is not sa and not np.array_equal(sa.partial_pos, sb.partial_pos):
-        raise ValueError(
-            "SplitAlignments of a pair must share the partial-site gather "
-            "axis — build them with _split_pair(a, b)"
-        )
+    _check_split_pair(sa, sb)
     r1 = sa.n_seqs if r1 is None else r1
     if not 0 <= r0 <= r1 <= sa.n_seqs:
         raise ValueError(f"row range [{r0}, {r1}) outside [0, {sa.n_seqs}]")
     return _split_block(sa, sb, r0, r1, 0, device)
 
 
-def _extract_coo(D, NN, dist: int, r0: int, n_valid: int, c0: int, *, triangle: bool):
-    """Threshold + row-major compaction of one block on its device, with
-    ONE device-to-host copy.  Keeps ``D <= dist``, global column ``< n_valid``
+def snp_distance_dense_split(sa: SplitAlignment, sb: SplitAlignment | None = None, *,
+                             device: str | torch.device, with_nn: bool = True):
+    """Host (numpy) wrapper of ``snp_distance_split_device``: int32 [n_a, n_b]
+    D and NN of two SplitAlignments (``sb`` defaults to ``sa``), NN None
+    unless ``with_nn`` (counterpart of
+    tracs_tpu.ops.pairsnp.snp_distance_dense_split, whose ``chunk_sites``
+    sizes the TPU's word chunks: the kernels stage their own)."""
+    D, NN = snp_distance_split_device(sa, sb, device=resolve_device(device))
+    return to_host(D), (to_host(NN) if with_nn else None)
+
+
+def comparable_sites_dense(sa: SplitAlignment, sb: SplitAlignment, *,
+                           device: str | torch.device) -> np.ndarray:
+    """Dense NN matrix, int32 numpy [n_a, n_b], of two SplitAlignments:
+    L - cntN_i - cntN_j + Gn with Gn, the N-mask gram, from ``split_gram``
+    (on the card the kernel's ``gn``, on the CPU its plain version)
+    (counterpart of tracs_tpu.ops.pairsnp.comparable_sites_dense)."""
+    device = resolve_device(device)
+    _check_split_pair(sa, sb)
+    ea, nm, _ = _split_device(sa, device)
+    eb, nmb = (None, None) if sb is sa else _split_device(sb, device)[:2]
+    _, gn = split_gram(ea, nm, 0, sa.n_seqs, 0, eb, nmb)
+    NN = _assemble_nn(gn, _cnt_device(sa, device), _cnt_device(sb, device), sa.length)
+    return to_host(NN)
+
+
+def comparable_sites_pairs(sa: SplitAlignment, sb: SplitAlignment, pairs_i, pairs_j, *,
+                           device: str | torch.device, batch: int = 65536) -> np.ndarray:
+    """nn = L - popcount(N_i | N_j), int64 numpy, for the listed pairs only:
+    a host popcount over the packed N masks in batches of ``batch`` pairs, so
+    that millions of pairs never gather pairs x W words at once (counterpart
+    of tracs_tpu.ops.pairsnp.comparable_sites_pairs).  ``device`` is checked
+    as every entry point's is; the popcount runs on the host whatever it
+    is, as in tracs_tpu."""
+    resolve_device(device)
+    pairs_i = np.asarray(pairs_i, dtype=np.int64)
+    pairs_j = np.asarray(pairs_j, dtype=np.int64)
+    out = np.empty(len(pairs_i), dtype=np.int64)
+    for s in range(0, len(pairs_i), batch):
+        e = min(len(pairs_i), s + batch)
+        ni = sa.nmask[pairs_i[s:e]]
+        nj = sb.nmask[pairs_j[s:e]]
+        out[s:e] = sa.length - popcount_words(ni | nj).sum(axis=-1)
+    return out
+
+
+def _extract_coo(grams: dict, L: int, dist: int, r0: int, n_valid: int, c0: int, *,
+                 triangle: bool):
+    """Threshold + row-major compaction of one block's grams on their device
+    (``kernels.coo_extract``: no D or NN block is made), with ONE
+    device-to-host copy.  Keeps ``D <= dist``, global column ``< n_valid``
     and, on triangle blocks, global column > global row.  Returns
     (rows_local, cols_global, dvals, nvals) as int64 numpy arrays in
     row-major order, the emission order of ``tracs_tpu``."""
-    na, nb = D.shape
-    dist = max(-1, min(int(dist), INT32_MAX))
-    cols = torch.arange(nb, device=D.device, dtype=torch.int64) + c0
-    mask = (D <= dist) & (cols < n_valid)[None, :]
-    if triangle:
-        rows = torch.arange(na, device=D.device, dtype=torch.int64) + r0
-        mask &= cols[None, :] > rows[:, None]
-    ij = torch.nonzero(mask)  # [k, 2], row-major
-    i, j = ij[:, 0], ij[:, 1]
-    packed = torch.stack([i.to(torch.int32), j.to(torch.int32), D[i, j], NN[i, j]])
-    rows_l, cols_l, dvals, nvals = to_host(packed).astype(np.int64)
+    coo = coo_extract(**grams, L=L, dist=dist, r0=r0, c0=c0, n_valid=n_valid,
+                      triangle=triangle)
+    rows_l, cols_l, dvals, nvals = to_host(coo).astype(np.int64)
     return rows_l, cols_l + c0, dvals, nvals
 
 
@@ -456,18 +505,11 @@ def snp_distance_dense(
     if a.length != b.length:
         raise ValueError("alignments must share sequence length")
     engine = _engine(method, a, b)
-    if engine == "split":
-        sa, sb = _split_pair(a, b)
     D = np.empty((a.n_seqs, b.n_seqs), dtype=np.int32)
     NN = np.empty((a.n_seqs, b.n_seqs), dtype=np.int32)
     for r0 in range(0, a.n_seqs, row_block):
         r1 = min(a.n_seqs, r0 + row_block)
-        if engine == "split":
-            Dd, Nd = snp_distance_split_device(sa, sb, device=device, r0=r0, r1=r1)
-        elif engine == "mxu":
-            Dd, Nd = _mxu_block(a, b, r0, r1, 0, device)
-        else:
-            Dd, Nd = _popcount_block(a, b, r0, r1, 0, device)
+        Dd, Nd = _assemble_block(_block_grams(engine, a, b, r0, r1, 0, device), a.length)
         D[r0:r1] = to_host(Dd)
         NN[r0:r1] = to_host(Nd)
     return D, NN
@@ -580,15 +622,10 @@ def pairsnp_stream(
             continue
         # triangle blocks sweep the column suffix c0 = r0; rectangles c0 = 0
         c0 = r0 if triangle else 0
-        if engine == "popcount":
-            D, NN = _popcount_block(a_k, b_k, r0, r1, c0, device)
-        elif engine == "mxu":
-            D, NN = _mxu_block(a_k, b_k, r0, r1, c0, device)
-        elif triangle:
-            D, NN, c0 = snp_distance_split_prefix_device(sa, r0, r1, device=device)
-        else:
-            D, NN = snp_distance_split_device(sa, sb, device=device, r0=r0, r1=r1)
-        yield emit(r0, r1, *_extract_coo(D, NN, dist, r0, b.n_seqs, c0, triangle=triangle))
+        grams = _block_grams(engine, a_k, b_k, r0, r1, c0, device)
+        coo = _extract_coo(grams, a_k.length, dist, r0, b.n_seqs, c0, triangle=triangle)
+        del grams  # the block's grams leave the card before the caller takes the block
+        yield emit(r0, r1, *coo)
 
 
 def pairsnp(

@@ -1,14 +1,14 @@
 """All-pairs SNP distances over a dp x sp process mesh (counterpart of
 tracs_tpu/parallel/allpairs.py, on torch.distributed).
 
-Every engine is the one-device split path (ops/pairsnp.py: the gram kernel
-``split_gram``, the correction gram, the D/NN assembly, the threshold and
-COO compaction) applied to one rank's shard: samples split over ``dp``,
-packed words over ``sp``.  A rank uploads only its shard, as the raw planes,
-and derives the N-exclusive planes and the N mask on its device, as
-``_split_device`` does.  Word shards are ``pad_to(W, 8 * sp) / sp`` words,
-a multiple of the kernels' word pitch; ``pad_layout`` is applied all the
-same.  The sp ranks hold partial grams of the same pairs, which one ``psum``
+Every engine is the one-device split path (ops/pairsnp.py: the gram kernels
+``split_gram`` and ``partial_gram``, then ``coo_extract``: the D/NN assembly,
+the threshold and the COO compaction in one kernel) applied to one rank's
+shard: samples split over ``dp``, packed words over ``sp``.  A rank uploads
+only its shard, as the raw planes, and derives the N-exclusive planes and
+the N mask on its device, as ``_split_device`` does.  Word shards are
+``pad_to(W, 8 * sp) / sp`` words, a multiple of the kernels' word pitch;
+``pad_layout`` is applied all the same.  The sp ranks hold partial grams of the same pairs, which one ``psum``
 adds; every value is an exact int32 sum, so every output equals the
 one-device run bit for bit whatever the mesh's shape.
 
@@ -29,8 +29,9 @@ one-device run bit for bit whatever the mesh's shape.
 
 SPMD: every rank of the mesh calls the same engine with the same arguments
 and gets the same results.  Left out of the port (ROADMAP.md): the ring's
-sticky capacity, survivor-density hint and overflow re-extract; the port
-compacts with ``torch.nonzero`` and has no capacity.
+sticky capacity, survivor-density hint and overflow re-extract; the port's
+compaction (``coo_extract``) sizes its output from the block's own count
+and has no capacity.
 """
 
 from __future__ import annotations
@@ -38,14 +39,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tracs_tpu_torch.ops.kernels import _as_words, pad_layout, split_gram
+from tracs_tpu_torch.ops.kernels import _as_words, pad_layout, partial_gram, split_gram
 from tracs_tpu_torch.ops.packing import PackedAlignment, compact_variant_columns
 from tracs_tpu_torch.ops.pairsnp import (
-    _assemble_d,
-    _assemble_nn,
     _derive_split_planes,
     _extract_coo,
-    _gram_partial,
     _split_pair,
     snp_distance_dense,
 )
@@ -150,18 +148,17 @@ class ShardedSweep:
         self.partial = bool(sa.n_partial or sb.n_partial)
         self._db = _Shard(sb, self.c0, self.bn, self.ranks, self.device)
 
-    def launch(self, r0: int, r1: int):
-        """(D, NN) int32 [r1 - r0, bn] of rows [r0, r1) against this rank's
-        column slab, summed over the sp ranks."""
+    def launch(self, r0: int, r1: int) -> dict:
+        """The grams of rows [r0, r1) against this rank's column slab, int32
+        [r1 - r0, bn] summed over the sp ranks (the correction gram inside
+        g), with both sides' N counts: the keyword arguments of
+        ``kernels.coo_extract`` (split mode) for the block."""
         row = _Shard(self.sa, r0, r1 - r0, self.ranks, self.device)
         g, gn = split_gram(row.ex, row.nm, 0, r1 - r0, 0, self._db.ex, self._db.nm)
         if self.partial:
-            g = g + _gram_partial(row.pt, self._db.pt)
-        g = psum(g, self.ranks.sp_group)
-        gn = psum(gn, self.ranks.sp_group)
-        L = self.sa.length
-        return (_assemble_d(g, None, row.cnt, self._db.cnt, L),
-                _assemble_nn(gn, row.cnt, self._db.cnt, L))
+            g += partial_gram(row.pt, self._db.pt)
+        return {"mode": "split", "g": psum(g, self.ranks.sp_group),
+                "gn": psum(gn, self.ranks.sp_group), "cnt_a": row.cnt, "cnt_b": self._db.cnt}
 
     def block(self, r0: int, r1: int, threshold: int, *, triangle: bool):
         """(rows_local, cols, dvals, nvals) of rows [r0, r1), as
@@ -169,8 +166,8 @@ class ShardedSweep:
         compacts its own slab (global columns, padded ones dropped), one
         gather brings every slab to every rank, and a stable sort on
         ``row * n + col`` restores row-major order."""
-        D, NN = self.launch(r0, r1)
-        mine = _extract_coo(D, NN, threshold, r0, self.sb.n_seqs, self.c0, triangle=triangle)
+        mine = _extract_coo(self.launch(r0, r1), self.sa.length, threshold, r0,
+                            self.sb.n_seqs, self.c0, triangle=triangle)
         coo = np.concatenate(_gather_coo(mine, self.ranks, self.device))
         order = np.argsort(coo[:, 0] * self.sb.n_seqs + coo[:, 1], kind="stable")
         return tuple(coo[order].T)
@@ -198,7 +195,7 @@ def _ring_grams(shard: _Shard, ranks: _Ranks, partial: bool):
         else:
             g, gn = split_gram(shard.ex, shard.nm, 0, B, 0, trav[0], trav[1])
         if partial:
-            g = g + _gram_partial(shard.pt, trav[2])
+            g += partial_gram(shard.pt, trav[2])
         origin = (my - step) % n_dp
         m_rows[:, origin * B:(origin + 1) * B] = g
         n_rows[:, origin * B:(origin + 1) * B] = gn
@@ -228,8 +225,9 @@ class RingCoo:
 
     @staticmethod
     def stripe_bytes(n: int, mesh) -> int:
-        """Peak per-rank bytes of the stripe tensors: m and n gram rows plus
-        the assembled D and NN, all [B, n_pad] int32."""
+        """Peak per-rank bytes of the stripe tensors, four [B, n_pad] int32
+        (tracs_tpu's arithmetic: m and n gram rows plus the assembled D and
+        NN; the port's extraction assembles none, which leaves headroom)."""
         dp, _ = _dims(mesh)
         B = pad_to(max(n, 1), dp) // dp
         return 4 * B * (B * dp) * 4
@@ -275,12 +273,10 @@ class RingCoo:
         sa, ranks, B = self.sa, self.ranks, self.B
         m_rows, n_rows = _ring_grams(self._shard, ranks, bool(sa.n_partial))
         r0 = ranks.my_dp * B
-        cnt = self._shard.cnt
-        D = _assemble_d(m_rows, None, cnt, self._cnt_all, sa.length)
-        NN = _assemble_nn(n_rows, cnt, self._cnt_all, sa.length)
-        del m_rows, n_rows
-        mine = _extract_coo(D, NN, self.threshold, r0, sa.n_seqs, 0, triangle=True)
-        del D, NN
+        grams = {"mode": "split", "g": m_rows, "gn": n_rows, "cnt_a": self._shard.cnt,
+                 "cnt_b": self._cnt_all}
+        mine = _extract_coo(grams, sa.length, self.threshold, r0, sa.n_seqs, 0, triangle=True)
+        del grams, m_rows, n_rows
         parts = _gather_coo(mine, ranks, self.device)
         for d, coo in enumerate(parts):
             r0 = d * B
