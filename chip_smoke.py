@@ -32,15 +32,18 @@ Phases (each one passes or the script exits non-zero):
    the launchers run them (the word axis cut into parts where whole tiles
    would leave SMs idle) and with the cut forced off.  Then the main path's
    two device steps after the grams, exact against their plain versions
-   (``block_kernels``): ``partial_gram`` (the correction gram) at ragged
-   shapes and at the four blocks of the sweep with 2048 partial sites (64
-   words), and ``coo_extract`` (D/NN assembly, threshold, triangle mask and
-   row-major compaction) on synthetic grams at the four blocks, a mesh slab
-   whose last columns lie past n_valid, a ragged block and a 1 x 1 one, in
-   the three ways the engines call it and at the thresholds -1, 0, 200 and
-   2^31 - 1; each timed beside its plain version, which is the port's route
-   before the kernel (float64 unpack and ``mm``; D and NN assembled, then
-   ``torch.nonzero``);
+   (``block_kernels``): ``partial_gram`` (the correction gram, on the b1
+   tensor cores) at ragged shapes whose partial planes ``pad_planes`` brings
+   to the card's pitch and at the four blocks of the sweep with 2048 partial
+   sites (64 words), and ``coo_extract`` (D/NN assembly, threshold,
+   triangle mask and row-major compaction in one launch, its output sized
+   on the host) on synthetic grams at the four blocks, a mesh slab whose
+   last columns lie past n_valid, a ragged block and a 1 x 1 one, in the
+   three ways the engines call it and at the thresholds -1, 0, 200 and 2^31 - 1, where the
+   output must be exactly filled; each timed beside its plain version, which
+   is the port's route before the kernels (float64 unpack and ``mm``; D and
+   NN assembled, then ``torch.nonzero``), with its build facts (registers,
+   local and shared bytes, from ``cudaFuncGetAttributes``);
 3. the distance slice through the normal entry point
    (``tracs_tpu_torch.cli.main(["distance", ...])``) on the headline
    workload: n=4096 samples x 1 Mb in clusters of 21, 2048 partial-IUPAC
@@ -139,7 +142,10 @@ Phases (each one passes or the script exits non-zero):
    7's with ``--filter``); the block sweep through the API from row 1024 on
    2 x 2, every rank's arrays equal to the one-device stream's; one shard's
    ring block against ``split_gram_reference``.  Prints each run's wall, the
-   ranks' peak device allocation and the bytes through the collectives.
+   ranks' peak device allocation and the bytes through the collectives; for
+   the three ring runs (1x1, 2x1, 1x2) the peak against the ring's plan
+   (``RingCoo.stripe_bytes`` + ``operand_bytes``), failing where it exceeds
+   the plan with its temporaries' budget.
    None of it is a scaling number: the ranks share one card's SMs and talk
    through host memory.
 
@@ -313,6 +319,26 @@ def time_ms(fn, reps: int) -> float:
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
     return float(np.median(times))
+
+
+def device_ms(fn, reps: int = 20) -> float:
+    """Milliseconds of the card's own work a run of ``fn()``, which must not
+    wait for the card: ``reps`` runs queued back to back behind a spin of
+    ~10 ms on the card (``torch.cuda._sleep``), so that the host's time to
+    queue them is hidden and CUDA events around them time the card alone."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(20_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def _random_words(device, seed: int):
@@ -525,18 +551,39 @@ def coo_needed(rb: int, m: int, r0: int, c0: int, n_valid: int, triangle: bool) 
     return int(np.maximum(0, hi - lo).sum())
 
 
+def build_facts(name: str, *variant) -> dict:
+    """Registers a thread, local memory a thread (spills) and shared memory a
+    block of the built kernel ``csrc/<name>.cu`` (its variant ``variant``),
+    from ``cudaFuncGetAttributes`` through the library's own entry point."""
+    import ctypes
+
+    from tracs_tpu_torch.runtime.build import load_cuda_library
+
+    fn = getattr(load_cuda_library(name), f"tracs_{name}_attributes")
+    vals = [ctypes.c_int() for _ in range(3)]
+    rc = fn(*variant, *(ctypes.byref(v) for v in vals))
+    if rc != 0:
+        fail(f"{name}: cudaFuncGetAttributes failed with CUDA error {rc}")
+    return dict(zip(("registers", "local_bytes", "shared_bytes"), (v.value for v in vals)))
+
+
 def block_kernels(device, seed: int, card):
     """``partial_gram`` and ``coo_extract`` against their plain versions on
     the card, exact, at ragged shapes and at the main path's blocks: the
     headline's first block (rb=1024 x m=4096, 2048 partial sites) and the
     other three suffix widths of its sweep (m = 3072, 2048, 1024); for
+    ``partial_gram`` also partial planes of unpadded word counts brought to
+    the card's pitch by ``pad_planes`` (against the plain version on the
+    unpadded words); for
     ``coo_extract`` also a mesh slab whose last columns lie past n_valid, the
     three ways the engines call it (split with the correction gram, split
     without it as the mesh does, direct as the popcount engine does) and the
-    thresholds -1, 0, 200 and 2^31 - 1.  The grams of ``coo_extract`` are
-    synthetic, with D uniform below ``COO_DMAX``.  Returns the records of
+    thresholds -1, 0, 200 and 2^31 - 1, where the output sized on the host
+    (``coo_capacity``) must be exactly filled.  The grams of ``coo_extract``
+    are synthetic, with D uniform below ``COO_DMAX``.  Returns the records of
     ``partial_gram`` and of the three ways of ``coo_extract`` at the first
-    block (dist 200), each kernel's error pooled over its cases."""
+    block (dist 200), each kernel's error pooled over its cases, with the
+    build facts of the kernel on the path."""
     import torch
 
     from tracs_tpu_torch.ops import kernels
@@ -550,15 +597,20 @@ def block_kernels(device, seed: int, card):
 
     out = {}
     n, rb, Wp = MAIN_N, MAIN_RB, MAIN_WP
-    rec = out["partial_gram"] = {"max_abs_err": 0}
+    rec = out["partial_gram"] = {"max_abs_err": 0, **build_facts("partial_gram")}
+    print(f"# partial_gram: {rec['registers']} registers, {rec['local_bytes']} B local, "
+          f"{rec['shared_bytes']} B shared")
     pt = words(n, 4, Wp)
-    cases = [("ragged 37x11 Wp=3", None, words(37, 4, 3), words(11, 4, 3)),
-             ("ragged 300x129 Wp=1", None, words(300, 4, 1), words(129, 4, 1)),
-             ("ragged 65x100 Wp=100", None, words(65, 4, 100), words(100, 4, 100))]
+    # unpadded word counts, brought to the card's pitch as the layouts are;
+    # the plain version runs on the unpadded words
+    cases = [(f"ragged {na}x{nb} Wp={w} (padded to {kernels.padded_words(w)})", None,
+              words(na, 4, w), words(nb, 4, w))
+             for na, nb, w in ((37, 11, 3), (300, 129, 1), (65, 100, 100), (rb, n, 61))]
     cases += [(f"sweep block r0={r0} rb={rb} m={n - r0} Wp={Wp}", r0, pt[r0:r0 + rb], pt[r0:])
               for r0 in range(0, n, rb)]
     for name, r0, a, b in cases:
-        got = kernels.partial_gram(a, b)
+        pa, pb = kernels.pad_planes(a), kernels.pad_planes(b)
+        got = kernels.partial_gram(pa, pb)
         torch.cuda.synchronize()
         want = kernels.partial_gram_reference(a, b)
         err = int((got.long() - want.long()).abs().max())
@@ -566,19 +618,23 @@ def block_kernels(device, seed: int, card):
         print(f"# partial_gram vs plain, {name}: out {tuple(got.shape)}, max |err| {err}")
         if err:
             fail(f"partial_gram disagrees with its plain version at {name}")
+        del got, want
         if r0 is None:
             continue
-        ms = time_ms(lambda: kernels.partial_gram(a, b), 10)
+        ms = time_ms(lambda: kernels.partial_gram(pa, pb), 10)
+        alone = device_ms(lambda: kernels.partial_gram(pa, pb))
         bound_rec = gram_bound(f"partial_gram at {name}", n, None, Wp, r0, rb, r0, planes=4,
                                products=10, popc=2, card=card, peak_ops=PEAK_B1, outputs=1)
         if r0 == 0:
-            rec.update(ms=ms, plain_ms=time_ms(lambda: kernels.partial_gram_reference(a, b), 3),
+            rec.update(ms=ms, device_ms=alone,
+                       plain_ms=time_ms(lambda: kernels.partial_gram_reference(a, b), 3),
                        **bound_rec)
-            print(f"# partial_gram at {name}: kernel {ms:.3f} ms, plain {rec['plain_ms']:.3f} "
-                  f"ms (median; float64 unpack and mm, the port's route before this kernel)")
+            print(f"# partial_gram at {name}: kernel {ms:.3f} ms (on the card alone "
+                  f"{alone:.4f} ms), plain {rec['plain_ms']:.3f} ms (median; float64 unpack "
+                  f"and mm, the port's route before the kernels)")
         else:
-            print(f"# partial_gram at {name}: kernel {ms:.3f} ms")
-        del got, want
+            print(f"# partial_gram at {name}: kernel {ms:.3f} ms; on the card alone "
+                  f"{alone:.4f} ms")
     del pt, cases
     torch.cuda.empty_cache()
 
@@ -596,8 +652,11 @@ def block_kernels(device, seed: int, card):
 
     ways = {"split+gp": "coo_extract", "split": "coo_extract (split)",
             "direct": "coo_extract (direct)"}
-    for kname in ways.values():
-        out[kname] = {"max_abs_err": 0}
+    for way, kname in ways.items():
+        facts = build_facts("coo_extract", int(way != "direct"), int(way == "split+gp"))
+        print(f"# {kname}: {facts['registers']} registers, {facts['local_bytes']} B local, "
+              f"{facts['shared_bytes']} B shared")
+        out[kname] = {"max_abs_err": 0, **facts}
     cases = []  # (name, way, rb, m, r0, c0, n_valid, triangle, dists, timed)
     for way in ways:
         cases.append((f"main path block rb={rb} m={n}, {way}", way, rb, n, 0, 0, n, True,
@@ -622,6 +681,11 @@ def block_kernels(device, seed: int, card):
             if got.shape != want.shape:
                 fail(f"coo_extract at {name}, dist {dist}: {tuple(got.shape)} pairs against the "
                      f"plain version's {tuple(want.shape)}")
+            need = coo_needed(rb_, m, r0, c0, n_valid, tri)
+            if kernels.coo_capacity(rb_, m, r0, c0, n_valid, tri) != need or (
+                    dist == INT32_MAX and got.shape[1] != need):
+                fail(f"coo_extract at {name}, dist {dist}: {got.shape[1]} pairs kept, capacity "
+                     f"{kernels.coo_capacity(rb_, m, r0, c0, n_valid, tri)}, {need} in range")
             err = int((got.long() - want.long()).abs().max()) if want.numel() else 0
             rec["max_abs_err"] = max(rec["max_abs_err"], err)
             print(f"# {kname} vs plain, {name}, dist {dist}: {got.shape[1]} pairs, max |err| "
@@ -631,18 +695,22 @@ def block_kernels(device, seed: int, card):
             if not (timed and dist == 200):
                 continue
             ms = time_ms(lambda: kernels.coo_extract(**gr, **kw), 10)
+            alone = device_ms(lambda: kernels._coo_launch(
+                gr["g"], gr["gn"], gr["mode"], L, dist, r0, c0, n_valid, tri, gr.get("gp"),
+                gr.get("cnt_a"), gr.get("cnt_b")))
             plain_ms = time_ms(lambda: kernels.coo_extract_reference(**gr, **kw), 3)
-            need, k = coo_needed(rb_, m, r0, c0, n_valid, tri), got.shape[1]
+            k = got.shape[1]
             # each needed pair's g (and gp) once, each survivor's gn once and
             # its 16 bytes out, the N counts; about 6 integer operations a pair
             moved = need * 4 * (2 if way == "split+gp" else 1) + k * 20 + (rb_ + m) * 4
             ms_b, by = bound(moved, 6 * need, PEAK_CUDA_CORE)
-            print(f"# {kname} at {name}: kernel {ms:.3f} ms (its one copy of the count "
-                  f"included), plain {plain_ms:.3f} ms (median; the port's route before this "
+            print(f"# {kname} at {name}: kernel {ms:.3f} ms (its one launch and its wait for "
+                  f"the total; the launch alone on the card {alone:.4f} ms), plain "
+                  f"{plain_ms:.3f} ms (median; the port's route before this "
                   f"kernel: D/NN assembled, masks, torch.nonzero, gathers); bound {ms_b:.4f} ms "
                   f"by {by} ({need} pairs looked at, {k} kept)")
             if r0 == 0:
-                rec.update(ms=ms, plain_ms=plain_ms, bound_ms=ms_b, bound_by=by)
+                rec.update(ms=ms, device_ms=alone, plain_ms=plain_ms, bound_ms=ms_b, bound_by=by)
             del got, want
         del gr
         torch.cuda.empty_cache()
@@ -863,8 +931,8 @@ def phase_sweeps(fasta: str, row_block: int, device, card):
 def sweep_by_step(packed, row_block: int, device, split_blocks, turns: int = 3):
     """The warm split sweep split by step: CUDA events around each call of
     ``split_gram`` (K1), ``partial_gram`` and ``coo_extract`` inside
-    ``pairsnp_stream`` (the last one's span holds its count copy and the
-    emit launch), summed over the row blocks, and the rest of the sweep's
+    ``pairsnp_stream`` (the last one's span holds its one launch and its wait
+    for the total), summed over the row blocks, and the rest of the sweep's
     host wall (the host copies, ``emit``, launch gaps).  Medians over
     ``turns`` sweeps; each must yield the split engine's arrays."""
     import torch
@@ -1879,6 +1947,20 @@ def _run_world(n: int, jobs: list, tmp: str, name: str) -> list:
     return recs
 
 
+def _ring_plan(what: str, peaks: list, plan: tuple) -> None:
+    """Prints a ring run's peak device allocation per rank against the plan
+    ``RingCoo.fits`` made, (stripes, operands, the temporaries' budget), and
+    fails if a rank's peak exceeds the plan's total."""
+    stripes, operands, chunk = plan
+    print(f"# mesh {what}: peak device allocation per rank "
+          f"{', '.join(f'{p:,}' for p in peaks)} B against the ring's plan: stripes "
+          f"(RingCoo.stripe_bytes) {stripes:,} + operands {operands:,} = "
+          f"{stripes + operands:,} B, {max(peaks) / (stripes + operands):.3f} of it, "
+          f"+ {chunk:,} B of temporaries' budget")
+    if max(peaks) > stripes + operands + chunk:
+        fail(f"mesh {what}: a rank's peak allocation {max(peaks):,} B exceeds the ring's plan")
+
+
 def _report(what: str, recs: list, expect_split: int, expect_coo: int) -> dict:
     """Prints a run's wall, peak allocation and collective bytes over its
     ranks; fails unless every rank launched ``expect_split`` split-gram
@@ -1927,7 +2009,7 @@ def phase_mesh(packed, fasta: str, cache: str, row_block: int, sha_plain: str,
 
     from tracs_tpu_torch.ops import kernels
     from tracs_tpu_torch.ops.packing import pack_fasta
-    from tracs_tpu_torch.ops.pairsnp import pairsnp_stream
+    from tracs_tpu_torch.ops.pairsnp import _cached_compact, _split_pair, pairsnp_stream
     from tracs_tpu_torch.parallel import allpairs, mesh as mesh_mod, multihost
 
     n = packed.n_seqs
@@ -1935,6 +2017,13 @@ def phase_mesh(packed, fasta: str, cache: str, row_block: int, sha_plain: str,
     print(f"# mesh: card memory {props.total_memory:,} B; the ring plans with "
           f"{allpairs.device_bytes(device):,} B (less {allpairs._CUDA_HEADROOM_BYTES:,} B "
           f"of headroom)")
+    # the ring's plan at a shape, on the compacted split layout the stream uses
+    comp = _cached_compact(packed, packed)
+    n_words = _split_pair(packed if comp is None else comp[0], None)[0].excl.shape[2]
+
+    def plan(shape):
+        return (allpairs.RingCoo.stripe_bytes(n, shape),
+                allpairs.RingCoo.operand_bytes(n, shape, n_words), allpairs._CHUNK_BYTES_BUDGET)
     torch.cuda.empty_cache()
 
     # (a) nccl, a world of one
@@ -1955,12 +2044,18 @@ def phase_mesh(packed, fasta: str, cache: str, row_block: int, sha_plain: str,
             for on_mesh in (False, True):
                 reset_counts()
                 mesh_mod.COLLECTIVE_BYTES = 0
+                torch.cuda.synchronize()
+                base = torch.cuda.memory_allocated(device)
+                torch.cuda.reset_peak_memory_stats(device)
                 t0 = time.perf_counter()
                 blocks = list(pairsnp_stream([pc], dist=200, row_block=row_block,
                                              start_row=start, device=device,
                                              mesh=mesh if on_mesh else None))
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
+                if on_mesh and start == 0:  # the ring: its growth over what was resident
+                    _ring_plan("(a) 1x1 ring", [torch.cuda.max_memory_allocated(device) - base],
+                               plan((1, 1)))
                 spans, cat = _stream_arrays(blocks)
                 what = f"{'1x1 mesh' if on_mesh else 'one device'} from row {start}"
                 print(f"# mesh (a) nccl, {what}: {wall:.3f} s, {len(blocks)} blocks, "
@@ -2015,6 +2110,9 @@ def phase_mesh(packed, fasta: str, cache: str, row_block: int, sha_plain: str,
     print(f"# mesh world of 2 gloo ranks: {time.perf_counter() - t0:.3f} s with start-up")
     _report("2x1 (the ring)", recs["2x1"], 2, 1)
     _report("1x2 (sp only)", recs["1x2"], 1, 1)
+    for tag, shape in (("2x1", (2, 1)), ("1x2", (1, 2))):
+        _ring_plan(f"{tag} ring (the whole CLI run)", [r["peak"] for r in recs[tag]],
+                   plan(shape))
     check_csvs(jobs_a[0], 2, sha_plain)
     check_csvs(jobs_a[1], 2, sha_plain)
 

@@ -215,6 +215,52 @@ def test_stream_through_coo_extract_matches_reference(jax_ref, method, dist, two
             assert np.array_equal(np.asarray(g[k]), np.asarray(w[k])), k
 
 
+#: capacity geometries beyond GEOMETRIES: (name, rb, m, r0, c0, n_valid, triangle)
+CAPACITY_EXTRA = [
+    ("1 x 1", 1, 1, 3, 4, 5, True),
+    ("1 x 1 below the diagonal", 1, 1, 4, 4, 5, True),
+    ("no row", 0, 7, 0, 0, 7, True),
+    ("no column", 6, 0, 2, 2, 9, False),
+    ("every column past n_valid", 5, 8, 0, 10, 9, False),
+]
+
+
+@pytest.mark.parametrize("geometry", GEOMETRIES + CAPACITY_EXTRA,
+                         ids=[g[0] for g in GEOMETRIES + CAPACITY_EXTRA])
+def test_capacity_counts_every_pair_in_range(jax_ref, geometry):
+    """The wrapper's output size, arithmetic on the block's geometry, is the
+    number of pairs tracs_tpu keeps at a threshold of 2^31 - 1: the card's
+    output is exactly filled there."""
+    _, rb, m, r0, c0, n_valid, triangle = geometry
+    cap = kernels.coo_capacity(rb, m, r0, c0, n_valid, triangle)
+    grams = _grams(np.random.default_rng([rb, m, r0]), rb, m, "split", True)
+    got = port._extract_coo(_torch(grams), L, INT32_MAX, r0, n_valid, c0, triangle=triangle)
+    assert len(got[0]) == cap
+    if rb and m:
+        want = _jax_coo(jax_ref, grams, INT32_MAX, r0, c0, n_valid, triangle)
+        assert len(want[0]) == cap
+    else:
+        assert cap == 0
+
+
+def test_capacity_arithmetic_over_small_geometries():
+    """``coo_capacity`` against a row-by-row count of the two masks on every
+    small geometry: r0 above, at and below c0, n_valid inside, at and past
+    the block, triangle or not."""
+    for rb in range(0, 6):
+        for m in range(0, 6):
+            for r0 in range(0, 8):
+                for c0 in range(0, 8):
+                    for n_valid in range(0, 13):
+                        cols = np.arange(m) + c0
+                        keep = np.broadcast_to((cols < n_valid)[None, :], (rb, m))
+                        for triangle in (False, True):
+                            k = keep & (cols[None, :] > (np.arange(rb) + r0)[:, None]) \
+                                if triangle else keep
+                            assert kernels.coo_capacity(rb, m, r0, c0, n_valid, triangle) \
+                                == int(k.sum()), (rb, m, r0, c0, n_valid, triangle)
+
+
 def test_refusals():
     grams = _torch(_grams(np.random.default_rng(5), 4, 6, "split", True))
     kw = dict(L=L, dist=10, r0=0, c0=0, n_valid=6, triangle=True)
@@ -274,7 +320,7 @@ def test_coo_extract_cuda_matches_plain(cuda_device, mode, with_gp, dist, rb, m,
 @pytest.mark.cuda
 def test_coo_extract_cuda_dense_block(cuda_device):
     """Every pair of a 700 x 5000 block survives: 3.5 M pairs, placed in
-    row-major order across many segments and scan chunks."""
+    row-major order across many segments and tiles of the scan."""
     grams = _torch(_grams(np.random.default_rng(1), 700, 5000, "split", True), cuda_device)
     kw = dict(L=L, dist=INT32_MAX, r0=0, c0=0, n_valid=5000, triangle=False)
     got = kernels.coo_extract(**grams, **kw)
@@ -300,3 +346,46 @@ def test_stream_cuda_extracts_every_block(cuda_device):
         for g, w in zip(got, want):
             assert g[:2] == w[:2]
             assert all(np.array_equal(x, y) for x, y in zip(g[3:], w[3:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,with_gp", VARIANTS, ids=["split+gp", "split", "direct"])
+def test_coo_extract_cuda_fills_its_capacity(cuda_device, mode, with_gp):
+    """The main path's first block, 1024 x 4096 triangle pairs, at a threshold
+    of 2^31 - 1: every pair in range survives, so the 3,669,504 rows sized on
+    the host are exactly filled, in row-major order."""
+    grams = _torch(_grams(np.random.default_rng(21), 1024, 4096, mode, with_gp), cuda_device)
+    kw = dict(L=L, dist=INT32_MAX, r0=0, c0=0, n_valid=4096, triangle=True)
+    got = kernels.coo_extract(**grams, **kw)
+    torch.cuda.synchronize()
+    assert got.shape == (4, kernels.coo_capacity(1024, 4096, 0, 0, 4096, True)) == (4, 3669504)
+    assert torch.equal(got, kernels.coo_extract_reference(**grams, **kw))
+
+
+@pytest.mark.cuda
+def test_coo_extract_cuda_look_back_crosses_waves(cuda_device):
+    """A block of 2048 x 16384 pairs: 32,768 segments of 1024 columns, 4,096
+    tiles of 8, more than the card holds at once, so tiles wait on tiles of
+    an earlier wave of blocks."""
+    grams = _torch(_grams(np.random.default_rng(22), 2048, 16384, "split", True, dmax=2000),
+                   cuda_device)
+    for dist, triangle in ((200, False), (1000, True)):
+        kw = dict(L=L, dist=dist, r0=100, c0=0, n_valid=16000, triangle=triangle)
+        got = kernels.coo_extract(**grams, **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(got, kernels.coo_extract_reference(**grams, **kw))
+
+
+@pytest.mark.cuda
+def test_coo_extract_cuda_repeated_launches_agree(cuda_device):
+    """20 launches on the same block give the same rows, whatever order the
+    blocks took their tickets in; each is one launch."""
+    grams = _torch(_grams(np.random.default_rng(23), 1024, 3072, "direct", False, dmax=3000),
+                   cuda_device)
+    kw = dict(L=L, dist=200, r0=1024, c0=1024, n_valid=4000, triangle=True)
+    want = kernels.coo_extract_reference(**grams, **kw)
+    before = kernels.COO_EXTRACT_LAUNCHES
+    for _ in range(20):
+        got = kernels.coo_extract(**grams, **kw)
+        assert torch.equal(got, want)
+    assert kernels.COO_EXTRACT_LAUNCHES == before + 20

@@ -61,15 +61,18 @@ def test_shape_policy_grid():
 
 @pytest.mark.parametrize("shape", [(1, 1), (2, 1), (1, 2), (2, 2), (4, 2), (3, 2), (8, 1)])
 def test_ring_fits_matches_reference(shape, monkeypatch):
-    """RingCoo.fits, stripe_bytes and operand_bytes with tracs_tpu's
-    arithmetic on the CPU, at its budgets and at budgets patched low (as
-    tests/test_mesh_auto.py::test_ring_fits_is_length_aware does)."""
+    """RingCoo.fits and operand_bytes with tracs_tpu's arithmetic on the CPU,
+    at its budgets and at budgets patched low (as
+    tests/test_mesh_auto.py::test_ring_fits_is_length_aware does).  The
+    stripes are the port's own figure (its extraction's output is not
+    tracs_tpu's four stripes), so tracs_tpu's rule is run on that figure."""
     dp, sp = shape
     jmesh = jax_make_mesh(dp, sp, devices=jax.devices()[: dp * sp])
+    monkeypatch.setattr(jax_ap.RingCoo, "stripe_bytes",
+                        staticmethod(lambda n, mesh: port_ap.RingCoo.stripe_bytes(n, shape)))
 
     def compare():
         for n in SAMPLES:
-            assert port_ap.RingCoo.stripe_bytes(n, shape) == jax_ap.RingCoo.stripe_bytes(n, jmesh)
             for w in WORDS:
                 if w is not None:
                     assert (port_ap.RingCoo.operand_bytes(n, shape, w)
@@ -88,6 +91,22 @@ def test_ring_fits_matches_reference(shape, monkeypatch):
     compare()
     assert port_ap.RingCoo.fits(64, (2, 1), n_words=64)
     assert not port_ap.RingCoo.fits(64, (2, 1), n_words=10_000)
+
+
+@pytest.mark.parametrize("n", [1, 7, 13, 100, 513])
+@pytest.mark.parametrize("dp", [1, 2, 3, 4, 8])
+def test_ring_stripe_bytes_counts_the_ports_peak(dp, n):
+    """RingCoo.stripe_bytes: the two int32 gram rows of a stripe, [B, dp B],
+    beside the larger of the extraction's 16-byte rows for every pair of the
+    triangle a rank's stripe holds, counted pair by pair here, over the
+    ranks, and a ring step's [B, B] int32 blocks (3, or 6 at dp >= 3)."""
+    B = -(-n // dp)
+    i, j = np.meshgrid(np.arange(dp * B), np.arange(n), indexing="ij")
+    in_range = (j > i).sum(axis=1)
+    most = max(int(in_range[r * B:(r + 1) * B].sum()) for r in range(dp))
+    step = (6 if dp >= 3 else 3) * B * B * 4
+    assert port_ap.RingCoo.stripe_bytes(n, (dp, 1)) == 8 * B * dp * B + max(16 * most, step)
+    assert port_ap.RingCoo.stripe_bytes(n, (dp, 2)) == port_ap.RingCoo.stripe_bytes(n, (dp, 1))
 
 
 @pytest.mark.parametrize("spec", [None, "off", "OFF", "auto", " auto ", "global", "1x1"])

@@ -132,8 +132,8 @@ def test_derive_split_planes_matches_host_layout():
 @pytest.mark.parametrize("W", [1, 3, 4, 5, 17])
 def test_split_device_pads_the_word_pitch(W):
     """The resident split layout gets the card's word pitch: the host
-    layout's words, then zero words up to a multiple of 4; the blocks computed
-    from it equal tracs_tpu's."""
+    layout's words, then zero words up to a multiple of 4 (the partial planes
+    on their own axis too); the blocks computed from it equal tracs_tpu's."""
     from tracs_tpu_torch.ops import kernels
 
     rng = np.random.default_rng(50 + W)
@@ -149,7 +149,11 @@ def test_split_device_pads_the_word_pitch(W):
     assert np.array_equal(ea.numpy().view(np.uint32)[:, :, :W], sa.excl)
     assert np.array_equal(nm.numpy().view(np.uint32)[:, :W], sa.nmask)
     assert not ea[:, :, W:].any() and not nm[:, W:].any()
-    assert np.array_equal(pt.numpy().view(np.uint32), sa.partial)  # its own axis: not padded
+    # the partial planes: their own word axis, padded by the same rule
+    Wq = sa.partial.shape[2]
+    assert pt.shape == (9, 4, kernels.padded_words(Wq)) and pt.is_contiguous()
+    assert np.array_equal(pt.numpy().view(np.uint32)[:, :, :Wq], sa.partial)
+    assert not pt[:, :, Wq:].any()
     assert port._split_device(sa, CPU)[0] is ea  # cached, padded once
     D, NN = port.snp_distance_dense(p, device="cpu")
     Dj, NNj = jref.snp_distance_dense(j)

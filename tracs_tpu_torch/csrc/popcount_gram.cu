@@ -40,8 +40,9 @@
 // none for the fragments, hence the narrower tile; the wide warp tile keeps
 // the ANDs down (16 operand registers a subset for 8 mma).
 //
-// Staging.  The block walks the word axis in chunks of 32 words (four k256
-// steps) through a ring of two stages in shared memory, each the 4 planes of
+// Staging (csrc/plane_ring.cuh, shared with csrc/partial_gram.cu).  The
+// block walks the word axis in chunks of 32 words (four k256 steps) through
+// a ring of two stages in shared memory, each the 4 planes of
 // 128 A rows and 64 B rows (98,304 B).  The copies are TMA tensor loads
 // (cp.async.bulk.tensor): a box of rows x 32 words of one plane lands as rows
 // of 128 B in the 128-byte swizzle, eight boxes a chunk, issued by the
@@ -107,107 +108,26 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include "plane_ring.cuh"
+
 namespace {
 
-constexpr int kBM = 128;     // output rows per block
-constexpr int kBN = 64;      // output columns per block
-constexpr int kKW = 32;      // words per staged chunk: a row of 128 B, four k256 steps
-constexpr int kPlanes = 4;   // the raw planes; the subsets are formed in registers
-constexpr int kStages = 2;   // chunk buffers in the ring
-constexpr int kMT = 2;       // 16-row mma tiles per warp (32 rows)
-constexpr int kNT = 4;       // 8-column mma tiles per warp (32 columns)
-constexpr int kWarpsN = kBN / (8 * kNT);                          // warps across a tile: 2
-constexpr int kWarpsM = kBM / (16 * kMT);                         // warps down a tile: 4
-constexpr int kThreads = kWarpsM * kWarpsN * 32;                  // 256
-constexpr int kTileBytesA = kBM * kKW * 4;                        // one plane's A rows: 16,384
-constexpr int kTileBytesB = kBN * kKW * 4;                        // one plane's B rows: 8,192
-constexpr int kPlaneBytes = kTileBytesA + kTileBytesB;
-constexpr int kStageBytes = kPlanes * kPlaneBytes;                // 98,304
-constexpr int kSmemBytes = kStages * kStageBytes + 1024;          // + room to align to 1,024 B
-constexpr int kMaxSplits = 16;      // most parts of the word axis
-constexpr int kMinSplitChunks = 1024 / kKW;   // fewest chunks a part is worth
-constexpr unsigned kSpinLimit = 1u << 22;     // polls of a barrier before the kernel gives up
-
-static_assert(kKW == 32, "a staged row is the 128 bytes of the swizzle");
-static_assert(kStages >= 2 && kSmemBytes <= 227 * 1024, "the ring fits an SM");
-static_assert(kTileBytesA % 1024 == 0 && kTileBytesB % 1024 == 0,
-              "every tile starts at a multiple of the swizzle's period");
-static_assert((kWarpsM & (kWarpsM - 1)) == 0 && (kWarpsN & (kWarpsN - 1)) == 0,
-              "the warps take turns at the row counts by chunk & (warps - 1)");
-
-struct PlaneMaps {
-  CUtensorMap a, b;   // the [n, 4, W] planes of the two operands
-};
-
-__device__ __forceinline__ void mma_b1(int (&d)[4], const uint32_t (&a)[4],
-                                       const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k256.row.col.s32.b1.b1.s32.and.popc "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-// waits for the phase of parity ``parity`` to complete; a barrier that never
-// completes (a fault in the ring) traps instead of hanging the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  for (unsigned spins = 0;; ++spins) {
-    uint32_t done;
-    asm volatile(
-        "{\n"
-        ".reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n"
-        "}\n"
-        : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-    if (done) return;
-    if (spins > kSpinLimit) __trap();
-  }
-}
-
-// one box (rows x 128 B of one plane) from global to this block's shared
-// memory; completes, with its bytes, on the mbarrier ``bar``
-__device__ __forceinline__ void tma_load_3d(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                            int word, int plane, int row) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(map), "r"(bar), "r"(word), "r"(plane), "r"(row) : "memory");
-}
-
-// the AND of the registers of x whose plane is in subset S (a bit mask)
-template <int S>
-__device__ __forceinline__ uint32_t subset_and(uint32_t x0, uint32_t x1, uint32_t x2,
-                                               uint32_t x3) {
-  uint32_t v = 0xFFFFFFFFu;
-  if constexpr (S & 1) v &= x0;
-  if constexpr (S & 2) v &= x1;
-  if constexpr (S & 4) v &= x2;
-  if constexpr (S & 8) v &= x3;
-  return v;
-}
+using namespace plane_ring;
+using PTile = Tile<64, 2>;          // 128 x 64 outputs, a ring of two chunks
+constexpr int kBN = PTile::kBN;
+constexpr int kNT = PTile::kNT;     // 8-column mma tiles per warp (32 columns)
+static_assert(PTile::kStageBytes == 98304 && PTile::kSmemBytes == 197632,
+              "the ring described above");
 
 // the accumulator set of subset S: 0 odd size, 1 pairs, 2 the 4-plane subset
 template <int S>
 constexpr int kSubsetSet =
     ((S & 1) + ((S >> 1) & 1) + ((S >> 2) & 1) + ((S >> 3) & 1)) == 2 ? 1 : S == 15 ? 2 : 0;
 
-// One k256 step of subset S: the operands from the plane fragments ra (rows
-// grp and grp + 8 of each mma tile; .x and .y the two k halves) and rb, then
-// the warp's mma into the subset's accumulator set.  For the 4-plane subset,
-// the N mask, also the popcounts of the operands this warp is due to count.
+// One k256 step of subset S: the operands from the plane fragments ra and
+// rb, then the warp's mma into the subset's accumulator set.  For the
+// 4-plane subset, the N mask, also the popcounts of the operands this warp is
+// due to count.
 template <int S>
 __device__ __forceinline__ void subset_step(int (&acc)[3][kMT][kNT][4],
                                             const uint2 (&ra)[kPlanes][kMT][2],
@@ -215,18 +135,7 @@ __device__ __forceinline__ void subset_step(int (&acc)[3][kMT][kNT][4],
                                             bool count_a, bool count_b,
                                             int (&cnt_a)[kMT][2], int (&cnt_b)[kNT]) {
   uint32_t a[kMT][4], b[kNT][2];
-#pragma unroll
-  for (int i = 0; i < kMT; ++i) {
-    a[i][0] = subset_and<S>(ra[0][i][0].x, ra[1][i][0].x, ra[2][i][0].x, ra[3][i][0].x);
-    a[i][1] = subset_and<S>(ra[0][i][1].x, ra[1][i][1].x, ra[2][i][1].x, ra[3][i][1].x);
-    a[i][2] = subset_and<S>(ra[0][i][0].y, ra[1][i][0].y, ra[2][i][0].y, ra[3][i][0].y);
-    a[i][3] = subset_and<S>(ra[0][i][1].y, ra[1][i][1].y, ra[2][i][1].y, ra[3][i][1].y);
-  }
-#pragma unroll
-  for (int j = 0; j < kNT; ++j) {
-    b[j][0] = subset_and<S>(rb[0][j].x, rb[1][j].x, rb[2][j].x, rb[3][j].x);
-    b[j][1] = subset_and<S>(rb[0][j].y, rb[1][j].y, rb[2][j].y, rb[3][j].y);
-  }
+  subset_operands<S>(ra, rb, a, b);
 #pragma unroll
   for (int i = 0; i < kMT; ++i)
 #pragma unroll
@@ -250,24 +159,13 @@ __global__ void __launch_bounds__(kThreads, 1)
 popcount_gram_kernel(const __grid_constant__ PlaneMaps maps, int64_t W, int r0, int rb, int c0,
                      int m, int part_chunks, int32_t* __restrict__ matches,
                      int32_t* __restrict__ nunion) {
-  // the ring: stage s holds, plane by plane, [A rows | B rows][128 B] of one
-  // chunk, every tile at a multiple of 1,024 B (the swizzle's period)
   extern __shared__ uint8_t smem_raw[];
-  __shared__ __align__(8) uint64_t bars[2 * kStages];   // full[s], then empty[s]
+  __shared__ __align__(8) uint64_t bars[2 * PTile::kStages];   // full[s], then empty[s]
   __shared__ int row_cnt[kBM];   // N sites of the tile's A rows, this block's words
   __shared__ int col_cnt[kBN];   // and of its B rows
-  const uint32_t pad = (1024u - ((uint32_t)__cvta_generic_to_shared(smem_raw) & 1023u)) & 1023u;
-  const uint8_t* ring = smem_raw + pad;
-  const uint32_t ring_addr = (uint32_t)__cvta_generic_to_shared(ring);
-  const uint32_t bar0 = (uint32_t)__cvta_generic_to_shared(bars);
-  auto full = [&](int s) { return bar0 + 8 * s; };
-  auto empty = [&](int s) { return bar0 + 8 * (kStages + s); };
 
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const int row0 = blockIdx.y * kBM;
   const int col0 = blockIdx.x * kBN;
-
   // this block's part of the word axis, in chunks
   const int n_chunks = (int)((W + kKW - 1) / kKW);
   const int chunk0 = blockIdx.z * part_chunks;
@@ -275,48 +173,8 @@ popcount_gram_kernel(const __grid_constant__ PlaneMaps maps, int64_t W, int r0, 
 
   if (threadIdx.x < kBM) row_cnt[threadIdx.x] = 0;
   if (threadIdx.x < kBN) col_cnt[threadIdx.x] = 0;
-  if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full(s), 1);                    // the copying thread's arrive; the copies add bytes
-      mbar_init(empty(s), kThreads / 32);       // one arrive a warp
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-  }
-  __syncthreads();
 
-  // the copies of one chunk into its stage, by the block's first thread.
-  // What a box reads past the operand's last row or word arrives as zeros.
-  auto load = [&](int chunk) {
-    const int s = (chunk - chunk0) % kStages;
-    mbar_expect_tx(full(s), kStageBytes);
-    const uint32_t dst = ring_addr + s * kStageBytes;
-#pragma unroll
-    for (int p = 0; p < kPlanes; ++p) {
-      tma_load_3d(dst + p * kPlaneBytes, &maps.a, full(s), chunk * kKW, p, r0 + row0);
-      tma_load_3d(dst + p * kPlaneBytes + kTileBytesA, &maps.b, full(s), chunk * kKW, p,
-                  c0 + col0);
-    }
-  };
-  if (threadIdx.x == 0)
-    for (int chunk = chunk0; chunk < min(chunk1, chunk0 + kStages); ++chunk) load(chunk);
-
-  const int grp = lane >> 2;   // row of a 16x8 tile's A fragment, column of its B fragment
-  const int tig = lane & 3;    // k slot of the fragments, column pair of the accumulator
-  const int wy = warp / kWarpsN, wx = warp % kWarpsN;
-  const int wm = wy * 16 * kMT;   // the warp's rows inside the block tile
-  const int wn = wx * 8 * kNT;    // the warp's columns inside the block tile
-
-  // Which staged row plays row ``grp`` of a fragment is free, as long as the
-  // stores follow: fragment row (column) g of a group of 8 is staged row
-  // perm(g) = 2 (g % 4) + g / 4, so that the 4 rows a half-warp loads from
-  // differ in the bits the swizzle mixes into the address and its 8-byte
-  // loads fall on all 32 banks once.  Piece q (16 bytes) of staged row r lies
-  // at piece q ^ (r % 8): the 128-byte swizzle of the tensor maps.
-  auto perm = [](int g) { return 2 * (g & 3) + (g >> 2); };
-  const int prow = perm(grp);
-  const int frag_a = (wm + prow) * (kKW * 4) + 8 * (tig & 1);
-  const int frag_b = kTileBytesA + (wn + prow) * (kKW * 4) + 8 * (tig & 1);
-
+  const WarpPos<PTile> wp;
   int acc[3][kMT][kNT][4];   // odd-size subsets, pairs, the 4-plane subset
 #pragma unroll
   for (int s = 0; s < 3; ++s)
@@ -328,59 +186,29 @@ popcount_gram_kernel(const __grid_constant__ PlaneMaps maps, int64_t W, int r0, 
         for (int e = 0; e < 4; ++e) acc[s][i][j][e] = 0;
   int cnt_a[kMT][2] = {}, cnt_b[kNT] = {};
 
-  for (int chunk = chunk0; chunk < chunk1; ++chunk) {
-    const int it = chunk - chunk0, s = it % kStages;
-    // the stage of the chunk before this one is refilled, kStages chunks on,
-    // as soon as every warp has read it
-    if (threadIdx.x == 0 && it >= 1 && chunk - 1 + kStages < chunk1) {
-      mbar_wait(empty((it - 1) % kStages), ((it - 1) / kStages) & 1);
-      load(chunk - 1 + kStages);
-    }
-    __syncwarp();
-    mbar_wait(full(s), (it / kStages) & 1);
-    const uint8_t* cur = ring + s * kStageBytes;
+  auto step = [&](const uint2 (&ra)[kPlanes][kMT][2], const uint2 (&rbv)[kPlanes][kNT],
+                  int chunk) {
     // the warps that share this warp's A rows (B rows) take turns by chunk
-    const bool count_a = wx == (chunk & (kWarpsN - 1));
-    const bool count_b = wy == (chunk & (kWarpsM - 1));
-#pragma unroll
-    for (int ks = 0; ks < kKW / 8; ++ks) {
-      // the thread's 8 bytes of the k256 step: the two k halves of its mma
-      const int piece = ((2 * ks + (tig >> 1)) ^ prow) * 16;
-      uint2 ra[kPlanes][kMT][2], rbv[kPlanes][kNT];
-#pragma unroll
-      for (int p = 0; p < kPlanes; ++p) {
-        const uint8_t* Ap = cur + p * kPlaneBytes + frag_a + piece;
-        const uint8_t* Bp = cur + p * kPlaneBytes + frag_b + piece;
-#pragma unroll
-        for (int i = 0; i < kMT; ++i) {
-          ra[p][i][0] = *reinterpret_cast<const uint2*>(Ap + (i * 16) * (kKW * 4));
-          ra[p][i][1] = *reinterpret_cast<const uint2*>(Ap + (i * 16 + 8) * (kKW * 4));
-        }
-#pragma unroll
-        for (int j = 0; j < kNT; ++j)
-          rbv[p][j] = *reinterpret_cast<const uint2*>(Bp + (j * 8) * (kKW * 4));
-      }
-      // the 15 subsets, in an order in which each shares planes with the last
-      subset_step<1>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
-      subset_step<3>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
-      subset_step<2>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
-      subset_step<6>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
-      subset_step<7>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
-      subset_step<5>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
-      subset_step<4>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
-      subset_step<12>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
-      subset_step<13>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
-      subset_step<15>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
-      subset_step<14>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
-      subset_step<10>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
-      subset_step<11>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
-      subset_step<9>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
-      subset_step<8>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
-    }
-    // this warp has read the stage: it may be filled again
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty(s));
-  }
+    const bool count_a = wp.wx == (chunk & (kWarpsN - 1));
+    const bool count_b = wp.wy == (chunk & (kWarpsM - 1));
+    // the 15 subsets, in an order in which each shares planes with the last
+    subset_step<1>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+    subset_step<3>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+    subset_step<2>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+    subset_step<6>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+    subset_step<7>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+    subset_step<5>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+    subset_step<4>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+    subset_step<12>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+    subset_step<13>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+    subset_step<15>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+    subset_step<14>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+    subset_step<10>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+    subset_step<11>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+    subset_step<9>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+    subset_step<8>(acc, ra, rbv, count_a, count_b, cnt_a, cnt_b);
+  };
+  walk_chunks<PTile>(maps, smem_raw, bars, r0 + row0, c0 + col0, chunk0, chunk1, step);
 
   // the row counts: a row's words lie with the 4 threads of its group
 #pragma unroll
@@ -390,14 +218,14 @@ popcount_gram_kernel(const __grid_constant__ PlaneMaps maps, int64_t W, int r0, 
       int v = cnt_a[i][h];
       v += __shfl_xor_sync(0xFFFFFFFFu, v, 1);
       v += __shfl_xor_sync(0xFFFFFFFFu, v, 2);
-      if (tig == 0 && v) atomicAdd(&row_cnt[wm + i * 16 + 8 * h + prow], v);
+      if (wp.tig == 0 && v) atomicAdd(&row_cnt[wp.wm + i * 16 + 8 * h + wp.prow], v);
     }
 #pragma unroll
   for (int j = 0; j < kNT; ++j) {
     int v = cnt_b[j];
     v += __shfl_xor_sync(0xFFFFFFFFu, v, 1);
     v += __shfl_xor_sync(0xFFFFFFFFu, v, 2);
-    if (tig == 0 && v) atomicAdd(&col_cnt[wn + j * 8 + prow], v);
+    if (wp.tig == 0 && v) atomicAdd(&col_cnt[wp.wn + j * 8 + wp.prow], v);
   }
   __syncthreads();
 
@@ -408,10 +236,7 @@ popcount_gram_kernel(const __grid_constant__ PlaneMaps maps, int64_t W, int r0, 
     for (int j = 0; j < kNT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        // accumulator element e: fragment row grp + 8 (e / 2), fragment column
-        // 2 tig + e % 2, each the staged row perm() gives it
-        const int lr = wm + i * 16 + 8 * (e >> 1) + prow;
-        const int lc = wn + j * 8 + perm(2 * tig + (e & 1));
+        const int lr = wp.row(i, e), lc = wp.col(j, e);
         const int r = row0 + lr, c = col0 + lc;
         if (r >= rb || c >= m) continue;
         const int64_t o = (int64_t)r * m + c;
@@ -426,43 +251,6 @@ popcount_gram_kernel(const __grid_constant__ PlaneMaps maps, int64_t W, int r0, 
           nunion[o] = vu;
         }
       }
-}
-
-// parts of the word axis for ``tiles`` output tiles on ``sms`` SMs (one block
-// an SM): the smallest s that minimises ceil(tiles * s / sms) / s, the sweep's
-// time in units of one whole tile, while a part keeps kMinSplitChunks chunks
-int choose_splits(long long tiles, int sms, int n_chunks) {
-  int best = 1;
-  double best_cost = (double)((tiles + sms - 1) / sms);
-  for (int s = 2; s <= kMaxSplits && n_chunks / s >= kMinSplitChunks; ++s) {
-    const double cost = (double)((tiles * s + sms - 1) / sms) / s;
-    if (cost < best_cost * 0.98) {
-      best = s;
-      best_cost = cost;
-    }
-  }
-  return best;
-}
-
-using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                   const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                   const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                   CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// the tensor map of the first ``n`` rows of [.., 4, W] planes with a box of
-// ``box_rows`` rows x 128 B of one plane in the 128-byte swizzle; what a box
-// reads past the tensor's edge arrives as zeros
-int encode_map(EncodeTiledFn encode, CUtensorMap* map, const void* base, long long W,
-               long long n, int box_rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)W, 4, (cuuint64_t)n};
-  const cuuint64_t strides[2] = {(cuuint64_t)W * 4, (cuuint64_t)W * 16};
-  const cuuint32_t box[3] = {kKW, 1, (cuuint32_t)box_rows};
-  const cuuint32_t ones[3] = {1, 1, 1};
-  const CUresult rc = encode(
-      map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 3, const_cast<void*>(base), dims, strides, box, ones,
-      CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return rc == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -487,53 +275,37 @@ extern "C" int tracs_popcount_gram(const void* pa, const void* pb, long long W,
   if (rb <= 0 || m <= 0) return 0;
   if (W % 4 || W >= (1LL << 23)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const size_t bytes = (size_t)rb * m * sizeof(int32_t);
   cudaError_t err;
   if (W == 0) {   // no site: both counts are zero, and a tensor map cannot be empty
-    const size_t bytes = (size_t)rb * m * sizeof(int32_t);
     if ((err = cudaMemsetAsync(matches, 0, bytes, st)) == cudaSuccess)
       err = cudaMemsetAsync(nunion, 0, bytes, st);
     return static_cast<int>(err);
   }
-  // libcuda's encoder, reached through the runtime: the build links nothing else
-  static EncodeTiledFn encode = nullptr;
-  if (encode == nullptr) {
-    void* fn = nullptr;
-    err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (fn == nullptr) return static_cast<int>(cudaErrorNotSupported);
-    encode = reinterpret_cast<EncodeTiledFn>(fn);
-  }
+  EncodeTiledFn encode;
+  if ((err = encoder(&encode)) != cudaSuccess) return static_cast<int>(err);
   // the maps end at the block's last row and at n_b = c0 + m
   PlaneMaps maps;
   int rc;
   if ((rc = encode_map(encode, &maps.a, pa, W, (long long)r0 + rb, kBM))) return rc;
   if ((rc = encode_map(encode, &maps.b, pb, W, (long long)c0 + m, kBN))) return rc;
   err = cudaFuncSetAttribute(
-      popcount_gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes);
+      popcount_gram_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, PTile::kSmemBytes);
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const int tiles_n = (m + kBN - 1) / kBN, tiles_m = (rb + kBM - 1) / kBM;
   const int n_chunks = (int)((W + kKW - 1) / kKW);
-  int splits = word_splits;
-  if (splits <= 0) {
-    int dev = 0, sms = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return static_cast<int>(err);
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    splits = choose_splits((long long)tiles_n * tiles_m, sms, n_chunks);
-  }
-  if (splits > n_chunks) splits = n_chunks;
-  const int part_chunks = (n_chunks + splits - 1) / splits;
-  splits = (n_chunks + part_chunks - 1) / part_chunks;  // no part is empty
+  int splits, part_chunks;
+  err = plan_splits(word_splits, (long long)tiles_n * tiles_m, n_chunks, &splits, &part_chunks);
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (splits > 1) {
-    const size_t bytes = (size_t)rb * m * sizeof(int32_t);
     if ((err = cudaMemsetAsync(matches, 0, bytes, st)) != cudaSuccess)
       return static_cast<int>(err);
     if ((err = cudaMemsetAsync(nunion, 0, bytes, st)) != cudaSuccess)
       return static_cast<int>(err);
   }
   const dim3 grid(tiles_n, tiles_m, splits);
-  popcount_gram_kernel<<<grid, kThreads, kSmemBytes, st>>>(
+  popcount_gram_kernel<<<grid, kThreads, PTile::kSmemBytes, st>>>(
       maps, static_cast<int64_t>(W), r0, rb, c0, m, part_chunks,
       static_cast<int32_t*>(matches), static_cast<int32_t*>(nunion));
   return static_cast<int>(cudaGetLastError());

@@ -27,12 +27,15 @@ step); launches counted in ``MISM_POSITIONS_LAUNCHES``.
 
 ``partial_gram`` — the split engine's correction gram over the partial-IUPAC
 sites (the 10 plane-pair and plane-triple AND grams, signed), from the CUDA
-kernel ``csrc/partial_gram.cu``; launches counted in
-``PARTIAL_GRAM_LAUNCHES``.
+kernel ``csrc/partial_gram.cu`` (the 10 grams as b1 ``mma.sync`` on subset
+operands formed in registers, on ``popcount_gram``'s TMA ring, shared through
+``csrc/plane_ring.cuh``); launches counted in ``PARTIAL_GRAM_LAUNCHES``.
 
 ``coo_extract`` — one block's D/NN assembly, threshold, triangle mask and
-row-major COO compaction, from the CUDA kernel ``csrc/coo_extract.cu`` (no D
-or NN block is written); calls counted in ``COO_EXTRACT_LAUNCHES``.
+row-major COO compaction, from the CUDA kernel ``csrc/coo_extract.cu`` in one
+launch (count, a single-pass scan by decoupled look-back, emit; no D or NN
+block is written, the output is sized on the host by ``coo_capacity``);
+launches counted in ``COO_EXTRACT_LAUNCHES``.
 
 On a CUDA tensor each wrapper launches its kernel (built for sm_90a at first
 use, runtime/build.py) and counts the launch; on a CPU tensor it returns its
@@ -42,11 +45,11 @@ the other.
 Layouts: packed words are ``int32`` tensors holding the bits of the uint32
 planes; the kernel reads them as ``uint32``.  The gram kernels copy their
 operands (the split layout's [n, 4, W] planes and [n, W] masks, the popcount
-engine's [n, 4, W] raw planes) to shared memory 16 bytes at a time, so on the
-card the word pitch ``W`` is a multiple of ``LAYOUT_WORD_MULTIPLE`` and the
-storage 16-byte aligned: ``pad_layout`` and ``pad_planes`` add the zero
-words, which add nothing to any count, and a CUDA operand that breaks the
-rule is refused, not copied.
+engine's [n, 4, W] raw planes, the split layout's [n, 4, Wp] partial planes)
+to shared memory 16 bytes at a time, so on the card the word pitch ``W`` is
+a multiple of ``LAYOUT_WORD_MULTIPLE`` and the storage 16-byte aligned:
+``pad_layout`` and ``pad_planes`` add the zero words, which add nothing to
+any count, and a CUDA operand that breaks the rule is refused, not copied.
 """
 
 from __future__ import annotations
@@ -67,8 +70,7 @@ POPCOUNT_GRAM_LAUNCHES = 0
 MISM_POSITIONS_LAUNCHES = 0
 #: launches of the CUDA correction-gram kernel in this process
 PARTIAL_GRAM_LAUNCHES = 0
-#: calls of the CUDA COO-extraction kernel in this process (one count: its
-#: count, scan and emit launches serve one block)
+#: launches of the CUDA COO-extraction kernel in this process
 COO_EXTRACT_LAUNCHES = 0
 
 #: the tensor-core split-gram variants as (dot, tile, unpack): the operand
@@ -247,14 +249,15 @@ def split_gram_reference(ea, nm, r0: int, rb: int, c0: int, eb=None, nmb=None):
     return (acc4 - accn).to(torch.int32), accn.to(torch.int32)
 
 
-def _kernel_entry(name: str, argtypes):
-    """C entry point ``tracs_<name>`` of the kernel library ``csrc/<name>.cu``,
-    built and typed on first use."""
+def _kernel_entry(name: str, argtypes, symbol: str | None = None, restype=ctypes.c_int):
+    """C function ``tracs_<symbol>`` (default ``tracs_<name>``, the entry
+    point) of the kernel library ``csrc/<name>.cu``, built and typed on
+    first use."""
     from tracs_tpu_torch.runtime.build import load_cuda_library
 
-    fn = getattr(load_cuda_library(name), f"tracs_{name}")
+    fn = getattr(load_cuda_library(name), f"tracs_{symbol or name}")
     if fn.argtypes is None:
-        fn.restype = ctypes.c_int
+        fn.restype = restype
         fn.argtypes = argtypes
     return fn
 
@@ -644,11 +647,14 @@ _PAIR_SUBSETS = [s for s in _SUBSETS if bin(s).count("1") == 2]
 _TRIPLE_SUBSETS = [s for s in _SUBSETS if bin(s).count("1") == 3]
 _PARTIAL_SIGNS = [-1.0] * 6 + [1.0] * 4
 
-#: ``partial_gram``'s kernel sums 2 counts of 32 sites a word in one int32
-#: accumulator: 64 * Wp stays below 2^31 for Wp below this
-_PARTIAL_GRAM_MAX_WORDS = 2**25
-#: rows of A the kernel's grid holds: 65535 tiles of 64 rows
-_PARTIAL_GRAM_MAX_ROWS = 65535 * 64
+#: ``partial_gram``'s kernel sums 6 plane-pair grams of 32 sites a word in
+#: one int32 accumulator: 192 * Wp stays below 2^31 for Wp below this
+_PARTIAL_GRAM_MAX_WORDS = 2**23
+#: rows of A the kernel's grid holds: 65535 tiles of 128 rows
+_PARTIAL_GRAM_MAX_ROWS = 65535 * 128
+#: parts into which ``partial_gram``'s kernel cuts the word axis; 0: the
+#: launcher chooses, as for ``popcount_gram``
+_PARTIAL_GRAM_WORD_SPLITS = 0
 
 
 def _partial_operands(part_a, part_b) -> None:
@@ -699,28 +705,33 @@ def partial_gram(part_a, part_b):
     part_a, part_b : int32 [n, 4, Wp] exclusive planes gathered at the
     partial-IUPAC sites (the split layout's ``partial``, or rows of it).
     CPU tensors take ``partial_gram_reference``; CUDA tensors launch the
-    kernel ``csrc/partial_gram.cu`` or raise.  The kernel reads 4-byte words,
-    so the partial planes have no pitch rule."""
+    kernel ``csrc/partial_gram.cu`` or raise: their word pitch must be a
+    multiple of ``LAYOUT_WORD_MULTIPLE`` and their storage 16-byte aligned
+    (``pad_planes`` pads; a zero word adds nothing to any gram), and ``Wp``
+    below ``_PARTIAL_GRAM_MAX_WORDS``, the range of the kernel's int32 sums."""
     global PARTIAL_GRAM_LAUNCHES
     if part_a.device.type == "cpu":
         return partial_gram_reference(part_a, part_b)
     _partial_operands(part_a, part_b)
     na, nb, Wp = part_a.shape[0], part_b.shape[0], part_a.shape[2]
-    _check_cuda(part_a, "partial_gram", max(na, nb))
     if Wp >= _PARTIAL_GRAM_MAX_WORDS or na > _PARTIAL_GRAM_MAX_ROWS:
         raise ValueError(f"partial_gram: {na} rows of {Wp} words; the kernel takes at most "
                          f"{_PARTIAL_GRAM_MAX_ROWS} rows and fewer than "
-                         f"{_PARTIAL_GRAM_MAX_WORDS} words")
+                         f"{_PARTIAL_GRAM_MAX_WORDS} words (its int32 sums)")
+    _check_cuda(part_a, "partial_gram", max(na, nb))
+    _check_pitch((part_a,), Wp, "part_a", "pad_planes(p)")
+    _check_pitch((part_b,), Wp, "part_b", "pad_planes(p)")
     out = torch.empty((na, nb), dtype=torch.int32, device=part_a.device)
     if na == 0 or nb == 0:
         return out
     if Wp == 0:
         return out.zero_()
     fn = _kernel_entry("partial_gram", [ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 3
-                       + [ctypes.c_void_p] * 2)
+                       + [ctypes.c_int] + [ctypes.c_void_p] * 2)
     with torch.cuda.device(part_a.device):
         stream = torch.cuda.current_stream(part_a.device).cuda_stream
-        rc = fn(part_a.data_ptr(), part_b.data_ptr(), na, nb, Wp, out.data_ptr(), stream)
+        rc = fn(part_a.data_ptr(), part_b.data_ptr(), na, nb, Wp, _PARTIAL_GRAM_WORD_SPLITS,
+                out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"partial_gram kernel launch failed: CUDA error {rc}")
     PARTIAL_GRAM_LAUNCHES += 1
@@ -733,10 +744,6 @@ def partial_gram(part_a, part_b):
 
 #: the modes of ``coo_extract``: how D and NN come from the grams
 COO_MODES = ("split", "direct")
-
-#: columns a warp of ``coo_extract``'s kernel walks (a multiple of 32)
-_COO_SEGMENT = 1024
-
 
 def clamp_threshold(dist: int) -> int:
     """``dist`` clamped to [-1, 2^31 - 1], the int32 value D is compared with
@@ -801,6 +808,62 @@ def coo_extract_reference(g, gn, *, mode: str, L: int, dist: int, r0: int, c0: i
     return torch.stack([i.to(torch.int32), j.to(torch.int32), D[i, j], NN[i, j]])
 
 
+def coo_capacity(rb: int, m: int, r0: int, c0: int, n_valid: int, triangle: bool) -> int:
+    """The most pairs ``coo_extract`` can keep from an rb x m block of rows
+    [r0, r0 + rb) against global columns [c0, c0 + m): those whose global
+    column is below ``n_valid`` and, with ``triangle``, above the row.  Every
+    one of them survives at a threshold of 2^31 - 1.  Plain arithmetic on the
+    geometry: local row i keeps local columns [max(0, r0 + i - c0 + 1), hi)
+    on a triangle block, [0, hi) otherwise, with hi = min(m, n_valid - c0)."""
+    hi = min(m, max(0, n_valid - c0))
+    if rb <= 0 or hi == 0:
+        return 0
+    if not triangle:
+        return rb * hi
+    d = r0 - c0 + 1              # row i starts at column max(0, d + i)
+    whole = min(rb, max(0, 1 - d))   # rows with d + i <= 0 keep all hi columns
+    end = min(rb, max(whole, hi - d))  # rows below it with d + i < hi keep hi - d - i
+    k = end - whole
+    return whole * hi + k * (hi - d) - k * (whole + end - 1) // 2
+
+
+def _coo_launch(g, gn, mode, L, dist, r0, c0, n_valid, triangle, gp, cnt_a, cnt_b):
+    """``coo_extract``'s one launch on the current stream of the grams' card,
+    validated and counted: (out int32 [capacity, 4], the kernel's scratch,
+    whose word 1 holds the number of survivors k once the launch has run).
+    Nothing here waits for the card."""
+    global COO_EXTRACT_LAUNCHES
+    _coo_operands(g, gn, mode, L, r0, c0, n_valid, gp, cnt_a, cnt_b)
+    rb, m = g.shape
+    _check_cuda(g, "coo_extract", rb)
+    dev = g.device
+    out = torch.empty((coo_capacity(rb, m, r0, c0, n_valid, triangle), 4), dtype=torch.int32,
+                      device=dev)
+    # the ticket counter, the total and the scan's status words, at the
+    # length the kernel's library gives; zeroed by the entry point
+    words = _kernel_entry("coo_extract", [ctypes.c_longlong] * 2, "coo_extract_scratch_words",
+                          ctypes.c_longlong)(rb, m)
+    scratch = torch.empty(words, dtype=torch.int64, device=dev)
+    fn = _kernel_entry("coo_extract", (
+        [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
+        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int]
+        + [ctypes.c_void_p, ctypes.c_longlong] + [ctypes.c_void_p] * 2))
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    with torch.cuda.device(dev):
+        rc = fn(g.data_ptr(), gn.data_ptr(), ptr(gp), ptr(cnt_a), ptr(cnt_b), rb, m, L,
+                clamp_threshold(dist), r0 - c0, int(bool(triangle)),
+                min(m, max(0, n_valid - c0)), int(mode == "split"), scratch.data_ptr(), words,
+                ptr(out), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"coo_extract kernel launch failed: CUDA error {rc}")
+    if words > 2:  # a block with a tile: the kernel was launched
+        COO_EXTRACT_LAUNCHES += 1
+    return out, scratch
+
+
 def coo_extract(g, gn, *, mode: str, L: int, dist: int, r0: int, c0: int, n_valid: int,
                 triangle: bool, gp=None, cnt_a=None, cnt_b=None):
     """Survivors of one block of the all-pairs sweep, int32 [4, k] =
@@ -819,45 +882,23 @@ def coo_extract(g, gn, *, mode: str, L: int, dist: int, r0: int, c0: int, n_vali
     A pair survives when d <= ``clamp_threshold(dist)``, its global column is
     below ``n_valid`` and, with ``triangle``, above its global row.  CPU
     tensors take ``coo_extract_reference``; CUDA tensors launch the kernel
-    ``csrc/coo_extract.cu`` (count, scan, then emit once one 8-byte copy of
-    the total has sized the output) or raise.  No D or NN block is made."""
-    global COO_EXTRACT_LAUNCHES
+    ``csrc/coo_extract.cu`` once or raise.  The output is sized on the host
+    by ``coo_capacity`` as [capacity, 4] rows; the kernel counts, scans and
+    emits, so the k survivors are its first k rows, and the only wait is for
+    k, copied to a pinned host word after the launch.  On the card the result
+    is the [4, k] transpose of those rows: ``coo.T`` is one contiguous piece
+    of k x 16 bytes (it keeps the capacity's storage alive while it lives).
+    No D or NN block is made."""
     if g.device.type == "cpu":
         return coo_extract_reference(g, gn, mode=mode, L=L, dist=dist, r0=r0, c0=c0,
                                      n_valid=n_valid, triangle=triangle, gp=gp, cnt_a=cnt_a,
                                      cnt_b=cnt_b)
-    _coo_operands(g, gn, mode, L, r0, c0, n_valid, gp, cnt_a, cnt_b)
-    rb, m = g.shape
-    _check_cuda(g, "coo_extract", rb)
-    dev = g.device
-    if rb == 0 or m == 0:
-        return torch.empty((4, 0), dtype=torch.int32, device=dev)
-    nw = rb * -(-m // _COO_SEGMENT)
-    counts = torch.empty(nw, dtype=torch.int32, device=dev)
-    offsets = torch.empty(nw + 1, dtype=torch.int64, device=dev)
-    fn = _kernel_entry("coo_extract", (
-        [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 2
-        + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong]
-        + [ctypes.c_void_p] * 2 + [ctypes.c_longlong] + [ctypes.c_void_p] * 2))
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-
-        def launch(phase, k, out):
-            rc = fn(phase, g.data_ptr(), gn.data_ptr(), ptr(gp), ptr(cnt_a), ptr(cnt_b), rb, m,
-                    L, clamp_threshold(dist), r0 - c0, int(bool(triangle)),
-                    min(m, max(0, n_valid - c0)), int(mode == "split"), _COO_SEGMENT,
-                    counts.data_ptr(), offsets.data_ptr(), k, ptr(out), stream)
-            if rc != 0:
-                raise RuntimeError(f"coo_extract kernel launch failed: CUDA error {rc}")
-
-        launch(0, 0, None)
-        COO_EXTRACT_LAUNCHES += 1
-        k = int(offsets[nw])  # the one copy that sizes the output
-        out = torch.empty((4, k), dtype=torch.int32, device=dev)
-        if k:
-            launch(1, k, out)
-    return out
+    out, scratch = _coo_launch(g, gn, mode, L, dist, r0, c0, n_valid, triangle, gp, cnt_a,
+                               cnt_b)
+    # the one wait of the call: for the total, copied after the launch
+    k = torch.empty(1, dtype=torch.int64, pin_memory=True)
+    k.copy_(scratch[1:2], non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(g.device))
+    done.synchronize()
+    return out[:int(k)].T

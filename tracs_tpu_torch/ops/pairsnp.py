@@ -110,13 +110,15 @@ def _split_device(sa: SplitAlignment, device: torch.device):
     there; the raw upload is freed after the derive.  excl and nmask get the
     word pitch ``padded_words(W)``: the raw planes are padded with zero words
     on the device, which derive to zero words of both, so a plane row starts
-    on a 16-byte boundary whatever the sequence length."""
+    on a 16-byte boundary whatever the sequence length.  The partial planes
+    get the same rule on their own word axis (``pad_planes``): a zero word
+    adds nothing to the correction gram."""
     cache = getattr(sa, "_dev_cache", None)
     if cache is None or cache[0] != device:
         planes = pad_planes(_as_words(sa.src.planes).to(device))
         ea, nm = _derive_split_planes(planes)
         del planes
-        pt = _as_words(sa.partial).to(device)
+        pt = pad_planes(_as_words(sa.partial).to(device))
         cache = (device, ea, nm, pt)
         sa._dev_cache = cache
     return cache[1:]
@@ -362,13 +364,14 @@ def _extract_coo(grams: dict, L: int, dist: int, r0: int, n_valid: int, c0: int,
                  triangle: bool):
     """Threshold + row-major compaction of one block's grams on their device
     (``kernels.coo_extract``: no D or NN block is made), with ONE
-    device-to-host copy.  Keeps ``D <= dist``, global column ``< n_valid``
+    device-to-host copy: the survivors' rows, ``coo.T``, are one contiguous
+    piece on the card.  Keeps ``D <= dist``, global column ``< n_valid``
     and, on triangle blocks, global column > global row.  Returns
     (rows_local, cols_global, dvals, nvals) as int64 numpy arrays in
     row-major order, the emission order of ``tracs_tpu``."""
     coo = coo_extract(**grams, L=L, dist=dist, r0=r0, c0=c0, n_valid=n_valid,
                       triangle=triangle)
-    rows_l, cols_l, dvals, nvals = to_host(coo).astype(np.int64)
+    rows_l, cols_l, dvals, nvals = to_host(coo.T).astype(np.int64).T
     return rows_l, cols_l + c0, dvals, nvals
 
 

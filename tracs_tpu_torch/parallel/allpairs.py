@@ -30,8 +30,8 @@ one-device run bit for bit whatever the mesh's shape.
 SPMD: every rank of the mesh calls the same engine with the same arguments
 and gets the same results.  Left out of the port (ROADMAP.md): the ring's
 sticky capacity, survivor-density hint and overflow re-extract; the port's
-compaction (``coo_extract``) sizes its output from the block's own count
-and has no capacity.
+compaction (``coo_extract``) sizes its output on the host from the block's
+geometry (``coo_capacity``: every pair in range fits), so nothing overflows.
 """
 
 from __future__ import annotations
@@ -39,7 +39,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tracs_tpu_torch.ops.kernels import _as_words, pad_layout, partial_gram, split_gram
+from tracs_tpu_torch.ops.kernels import (_as_words, coo_capacity, pad_layout, pad_planes,
+                                         partial_gram, split_gram)
 from tracs_tpu_torch.ops.packing import PackedAlignment, compact_variant_columns
 from tracs_tpu_torch.ops.pairsnp import (
     _derive_split_planes,
@@ -105,8 +106,8 @@ def _host_slice(arr: np.ndarray, r0: int, r1: int, rows: int, w0: int, w1: int) 
 class _Shard:
     """Rows [r0, r0 + rows) of a SplitAlignment and this rank's word shard,
     on ``device``: N-exclusive planes and N mask derived there from the raw
-    planes, the partial-site words and the N counts.  Rows past the
-    alignment are zero and count no N."""
+    planes, the partial-site words (at the card's word pitch, ``pad_planes``)
+    and the N counts.  Rows past the alignment are zero and count no N."""
 
     def __init__(self, sa, r0: int, rows: int, ranks: _Ranks, device: torch.device):
         W, Wp = sa.excl.shape[2], sa.partial.shape[2]
@@ -115,8 +116,8 @@ class _Shard:
         s = ranks.my_sp
         planes = _host_slice(sa.src.planes, r0, r0 + rows, rows, s * ws, (s + 1) * ws)
         self.ex, self.nm = pad_layout(*_derive_split_planes(_as_words(planes).to(device)))
-        self.pt = _as_words(
-            _host_slice(sa.partial, r0, r0 + rows, rows, s * wps, (s + 1) * wps)).to(device)
+        self.pt = pad_planes(_as_words(
+            _host_slice(sa.partial, r0, r0 + rows, rows, s * wps, (s + 1) * wps)).to(device))
         cnt = np.zeros(rows, dtype=np.int32)
         r1 = min(r0 + rows, sa.n_seqs)
         if r1 > r0:
@@ -225,12 +226,19 @@ class RingCoo:
 
     @staticmethod
     def stripe_bytes(n: int, mesh) -> int:
-        """Peak per-rank bytes of the stripe tensors, four [B, n_pad] int32
-        (tracs_tpu's arithmetic: m and n gram rows plus the assembled D and
-        NN; the port's extraction assembles none, which leaves headroom)."""
+        """Peak per-rank bytes of the ring's own tensors, the largest over
+        the ranks: the m and n gram rows, two [B, n_pad] int32, beside the
+        larger of ``coo_extract``'s output (16 B for each pair it can keep
+        from the rank's stripe, ``coo_capacity``) and a ring step's blocks
+        (g, gn and the correction gram, three [B, B] int32; at dp >= 3 a
+        step also sends its g, gn back and receives the partner's, six).
+        tracs_tpu counts 16 B a stripe pair instead: its four stripes."""
         dp, _ = _dims(mesh)
         B = pad_to(max(n, 1), dp) // dp
-        return 4 * B * (B * dp) * 4
+        rows = 2 * B * (B * dp) * 4
+        out = max(coo_capacity(B, B * dp, r * B, 0, n, True) for r in range(dp)) * 16
+        step = (6 if dp >= 3 else 3) * B * B * 4
+        return rows + max(out, step)
 
     @staticmethod
     def operand_bytes(n: int, mesh, n_words: int) -> int:
@@ -246,8 +254,8 @@ class RingCoo:
         """Whether a ring at (n, mesh[, n_words]) stays inside the budgets:
         the stripes within ``RING_STRIPE_BYTES``, and with ``n_words`` the
         stripes, the operands and ``_CHUNK_BYTES_BUDGET`` within the
-        device's memory (``device_bytes``).  Off the card the arithmetic is
-        tracs_tpu's."""
+        device's memory (``device_bytes``).  Off the card the budgets are
+        tracs_tpu's; the stripes are the port's own (``stripe_bytes``)."""
         stripes = cls.stripe_bytes(n, mesh)
         if stripes > _mesh.RING_STRIPE_BYTES:
             return False

@@ -10,8 +10,9 @@ Two kinds of library are built here:
   plain C entry point that takes device pointers and a stream as
   ``void*`` and returns ``cudaGetLastError()``.
 
-A library's file name carries a digest of its source and compiler command,
-so an edited source is rebuilt and never served stale.  Each build writes
+A library's file name carries a digest of its source, the headers it may
+include (``csrc/*.cuh``) and its compiler command, so an edited source or
+header is rebuilt and never served stale.  Each build writes
 to a temporary name and ``os.replace``s it into place, so parallel
 processes (pytest-xdist workers) never load a half-written file.
 """
@@ -54,12 +55,16 @@ class BuildError(RuntimeError):
 
 
 def compile_library(src: str, out_dir: str, stem: str, argv: list[str],
-                    timeout: float = 600) -> tuple[str, str]:
+                    timeout: float = 600, deps: tuple[str, ...] = ()) -> tuple[str, str]:
     """Compile ``src`` into ``out_dir/lib<stem>-<digest>.so`` unless that file
     exists.  ``argv`` is the compiler command with ``{out}`` where the output
-    path goes.  Returns (library path, compiler output; empty when cached)."""
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(fh.read() + "\0".join(argv).encode()).hexdigest()[:16]
+    path goes; ``deps`` are the files the source includes, which the digest
+    covers too.  Returns (library path, compiler output; empty when cached)."""
+    content = b""
+    for path in (src, *deps):
+        with open(path, "rb") as fh:
+            content += fh.read()
+    digest = hashlib.sha256(content + "\0".join(argv).encode()).hexdigest()[:16]
     out = os.path.join(out_dir, f"lib{stem}-{digest}.so")
     if os.path.exists(out):
         return out, ""
@@ -99,7 +104,9 @@ def build_cuda_library(name: str) -> tuple[str, str]:
     """Build ``csrc/<name>.cu`` for sm_90a.  Returns (path, compiler output)."""
     src = os.path.join(CSRC_DIR, f"{name}.cu")
     argv = [nvcc_path(), *NVCC_FLAGS, "-o", "{out}", src]
-    return compile_library(src, os.path.join(BUILD_DIR, "kernels"), name, argv)
+    headers = tuple(sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
+                           if f.endswith(".cuh")))
+    return compile_library(src, os.path.join(BUILD_DIR, "kernels"), name, argv, deps=headers)
 
 
 def load_cuda_library(name: str) -> ctypes.CDLL:
