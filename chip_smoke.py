@@ -43,7 +43,12 @@ Phases (each one passes or the script exits non-zero):
    output must be exactly filled; each timed beside its plain version, which
    is the port's route before the kernels (float64 unpack and ``mm``; D and
    NN assembled, then ``torch.nonzero``), with its build facts (registers,
-   local and shared bytes, from ``cudaFuncGetAttributes``);
+   local and shared bytes, from ``cudaFuncGetAttributes``).  At the first
+   block, the library's time of K1's, K2+K3's and the correction gram's
+   function: the int8 products the JAX package computes them by
+   (``_dense_split``, ``_gram_mxu`` over word chunks, ``_gram_partial``), as
+   ``torch._int_mm`` calls on operands unpacked to 0/1 int8 beforehand (the
+   unpack timed apart), each equal to the kernel's output;
 3. the distance slice through the normal entry point
    (``tracs_tpu_torch.cli.main(["distance", ...])``) on the headline
    workload: n=4096 samples x 1 Mb in clusters of 21, 2048 partial-IUPAC
@@ -53,7 +58,12 @@ Phases (each one passes or the script exits non-zero):
    for every ``distance`` run below), that the CSV holds
    exactly the within-cluster pairs, and that 2,000 sampled rows agree with a
    host numpy popcount over the raw planes.  Prints wall seconds, pairs/s and
-   the CSV's sha256.  Then the pack cache on the same FASTA: a cold
+   the CSV's sha256.  Then the headline bench's timed sweeps
+   (``tracs_tpu_torch.experiments.bench.bench_gpu``, ``--method split``) on
+   the headline's alignment, its result printed: its survivors must equal the
+   CLI run's rows and ``split_gram``, ``partial_gram`` and ``coo_extract``
+   must each launch once a row block in each of its 7 sweeps (two warm-ups,
+   five timed).  Then the pack cache on the same FASTA: a cold
    ``pack_fasta(cache_dir=...)`` packs and stores, a warm one loads the
    planes, which must be equal (both times printed), and one ``distance
    --pack-cache`` run served from the cache must write the same bytes;
@@ -66,10 +76,12 @@ Phases (each one passes or the script exits non-zero):
    15-channel gram of the JAX package's ``_gram_mxu`` is the kernel's own
    15 subset grams): once per row block (``coo_extract`` too), the split
    engine's arrays, and the
-   route's (g, gq) at the first block against ``_gram_mxu``.  On the layouts
+   route's (g, gq) at the first block against ``_gram_mxu`` and against
+   ``torch._int_mm``'s (the route's library time).  On the layouts
    that stay resident, ``mismatch_positions_kernel`` against its plain
    version, exact on the whole table: the first row block's emitted pairs at
-   the capacity the filter gives it (timed), and a ragged length with a
+   the capacity the filter gives it (timed a call and on the card alone), and
+   a ragged length with a
    capacity below some counts, through the split layout and the raw planes;
 5. ``distance --meta`` through the CLI on the same workload, with a seeded
    date per sample (a base date per cluster, members 0-180 days after it):
@@ -77,7 +89,9 @@ Phases (each one passes or the script exits non-zero):
    [0, 1], E(K) finite and >= 0, and 2,000 sampled rows against the scalar
    ``lprob_k_given_N`` and the model run on the CPU (rtol 1e-9);
 6. ``trans_dist`` alone on the card: its time on the run's unique (N, delta)
-   lanes, and the reference goldens at 1e-6;
+   lanes, and the reference goldens at 1e-6; then the transmission-model
+   bench (``tracs_tpu_torch.experiments.transcluster_bench``) on its
+   synthetic mix of 250,000 rows, its JSON line printed;
 7. ``distance --filter`` through the CLI on the same workload: the
    mismatch-position kernel launched, the same rows and raw distances as
    phase 3, 0 <= filtered <= raw on every row, and 2,000 sampled rows equal
@@ -95,7 +109,8 @@ Phases (each one passes or the script exits non-zero):
    layout, K1 and every variant against its plain version, exact: the
    variants' times, plain times and bounds in the JSON line are those of the
    full square, the shape their own path gives them (their block times stay
-   beside them as ``block_ms`` and ``block_plain_ms``).
+   beside them as ``block_ms`` and ``block_plain_ms``), and so is their
+   library time (``torch._int_mm`` G4 + Gn over the square).
 
 10. reads to clusters through the normal entry point
    (``tracs_tpu_torch.cli.main(["pipe", ...])``, ``--device`` left at its
@@ -119,7 +134,8 @@ Phases (each one passes or the script exits non-zero):
    their counts on the card and allocated there (the model ran there).  Then
    the run's combined alignment is packed and laid out as ``distance`` does
    and, at that shape, ``split_gram`` is held against its plain version
-   (exact) and the sweep's distance and sites considered of every one of
+   and ``torch._int_mm``'s G4 + Gn (exact; its 16 rows padded to the 17
+   that ``_int_mm`` needs) and the sweep's distance and sites considered of every one of
    the 120 pairs against the planted ones.  ``threshold`` then fits its
    mixture to the close pairs (``pipe``'s distance CSV: the pairs within a
    planted cluster) and the distant ones (the sweep's cross-cluster pairs),
@@ -141,7 +157,8 @@ Phases (each one passes or the script exits non-zero):
    --filter``, every CSV (``.procN`` included) hashing to phase 3's (phase
    7's with ``--filter``); the block sweep through the API from row 1024 on
    2 x 2, every rank's arrays equal to the one-device stream's; one shard's
-   ring block against ``split_gram_reference``.  Prints each run's wall, the
+   ring block against ``split_gram_reference`` and ``torch._int_mm``'s
+   products (the library time at that shape).  Prints each run's wall, the
    ranks' peak device allocation and the bytes through the collectives; for
    the three ring runs (1x1, 2x1, 1x2) the peak against the ring's plan
    (``RingCoo.stripe_bytes`` + ``operand_bytes``), failing where it exceeds
@@ -341,6 +358,136 @@ def device_ms(fn, reps: int = 20) -> float:
     return start.elapsed_time(end) / reps
 
 
+def int8_bits(words):
+    """Packed words [n, ..., w] as 0/1 int8 [n, sites] (channels one after
+    another), unpacked 256 rows at a time."""
+    import torch
+
+    from tracs_tpu_torch.ops.kernels import _unpack_bits
+
+    out = torch.empty((words.shape[0], words[0].numel() * 32), dtype=torch.int8,
+                      device=words.device)
+    for s in range(0, words.shape[0], 256):
+        chunk = words[s:s + 256]
+        out[s:s + 256] = _unpack_bits(chunk).view(torch.int8).reshape(chunk.shape[0], -1)
+    return out
+
+
+def library_split_gram(ea, nm, r0: int, rb: int, c0: int, eb=None, nmb=None):
+    """``split_gram``'s function the way the JAX package computes it outside
+    any Pallas kernel (``_dense_split``, tracs_tpu/ops/pairsnp.py:210): the
+    4 exclusive planes' bits and the N masks' bits as int8 products with int32
+    sums, G4 and Gn, by ``torch._int_mm`` (two calls; the card's memory freed
+    first).  The operands are unpacked beforehand, timed apart and not
+    counted.  ``_int_mm`` takes more than 16 rows and a multiple of 8
+    columns: a smaller block gets zero rows and columns past its own, which
+    the result leaves out (the pipe run's 16 x 16).  Returns (ms of the two
+    calls, median of 5, seconds of the unpack, (G4 - Gn, Gn))."""
+    import torch
+    from torch.nn.functional import pad
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    if eb is None:
+        b4, bn = int8_bits(ea), int8_bits(nm)
+        a4, an = b4[r0:r0 + rb], bn[r0:r0 + rb]
+    else:
+        a4, an = int8_bits(ea[r0:r0 + rb]), int8_bits(nm[r0:r0 + rb])
+        b4, bn = int8_bits(eb), int8_bits(nmb)
+    b4, bn = b4[c0:], bn[c0:]
+    m = b4.shape[0]
+    if rb <= 16 or m % 8:
+        a4, an = (pad(x, (0, 0, 0, max(0, 17 - rb))) for x in (a4, an))
+        b4, bn = (pad(x, (0, 0, 0, -m % 8)) for x in (b4, bn))
+    b4, bn = b4.t(), bn.t()
+    torch.cuda.synchronize()
+    unpack_s = time.perf_counter() - t0
+
+    def call():
+        return torch._int_mm(a4, b4), torch._int_mm(an, bn)
+
+    g4, gn = (g[:rb, :m] for g in call())
+    ms = time_ms(call, 5)
+    return ms, unpack_s, (g4 - gn, gn)
+
+
+def library_partial_gram(pa, pb):
+    """``partial_gram``'s function the way the JAX package computes it
+    (``_gram_partial``, tracs_tpu/ops/pairsnp.py:184): the bits of the 10
+    plane-pair and plane-triple AND channels, B's signed (-1 pairs, +1
+    triples), as one int8 product with int32 sums by ``torch._int_mm``.  The
+    operands are unpacked beforehand, timed apart and not counted.  Returns
+    (ms, median of 5, seconds of the unpack, the gram)."""
+    import torch
+
+    from tracs_tpu_torch.ops import kernels
+
+    channels = [s - 1 for s in kernels._PAIR_SUBSETS + kernels._TRIPLE_SUBSETS]
+    t0 = time.perf_counter()
+    xa = int8_bits(kernels._subset_products(pa)[:, channels].contiguous())
+    xb = int8_bits(kernels._subset_products(pb)[:, channels].contiguous())
+    signs = torch.tensor(kernels._PARTIAL_SIGNS, device=pa.device).to(torch.int8)
+    zb = (xb.view(xb.shape[0], len(channels), -1) * signs[None, :, None]).view(xb.shape[0], -1)
+    torch.cuda.synchronize()
+    unpack_s = time.perf_counter() - t0
+    gram = torch._int_mm(xa, zb.t())
+    ms = time_ms(lambda: torch._int_mm(xa, zb.t()), 5)
+    return ms, unpack_s, gram
+
+
+def library_popcount_gram(pa, r0: int, rb: int, c0: int, signs, pb=None,
+                          chunk_words: int = 2048):
+    """``popcount_gram``'s function the way the JAX package's mxu engine
+    computes it outside any Pallas kernel (``_gram_mxu``,
+    tracs_tpu/ops/pairsnp.py:114): the bits of the 15 plane-subset AND
+    channels, B's signed by ``signs`` (one a subset), as one int8 product
+    with int32 sums, and the N mask's bits (the 4-plane subset) as a second,
+    by ``torch._int_mm``.  At the main path's block the 15 channels are
+    77 GB of int8 operands, more than the card holds, so both products run
+    over chunks of ``chunk_words`` words, as ``_gram_mxu`` runs over word
+    chunks: each chunk's operands are unpacked beforehand (timed apart, not
+    counted), its two calls timed (median of 3), and the chunks' times
+    summed.  Returns (ms, seconds of the unpack, (signed gram, N gram),
+    (N count of each row, of each column))."""
+    import torch
+
+    from tracs_tpu_torch.ops import kernels
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    a, b = pa[r0:r0 + rb], (pa if pb is None else pb)[c0:]
+    m = b.shape[0]
+    sign = torch.tensor(signs, device=pa.device).to(torch.int8)[None, :, None]
+    gram = torch.zeros((rb, m), dtype=torch.int32, device=pa.device)
+    gn = torch.zeros_like(gram)
+    cnt_a = torch.zeros(rb, dtype=torch.int64, device=pa.device)
+    cnt_b = torch.zeros(m, dtype=torch.int64, device=pa.device)
+    ms = unpack_s = 0.0
+    for w0 in range(0, pa.shape[2], chunk_words):
+        t0 = time.perf_counter()
+        xa = int8_bits(kernels._subset_products(a[:, :, w0:w0 + chunk_words]))
+        zb = int8_bits(kernels._subset_products(b[:, :, w0:w0 + chunk_words]))
+        an = xa.view(rb, 15, -1)[:, 14].contiguous()
+        bn = zb.view(m, 15, -1)[:, 14].contiguous()
+        zb.view(m, 15, -1).mul_(sign)
+        cnt_a += an.sum(dim=1)
+        cnt_b += bn.sum(dim=1)
+        torch.cuda.synchronize()
+        unpack_s += time.perf_counter() - t0
+
+        def call():
+            return torch._int_mm(xa, zb.t()), torch._int_mm(an, bn.t())
+
+        g, n = call()
+        gram += g
+        gn += n
+        ms += time_ms(call, 3)
+        del xa, zb, an, bn, g, n
+    torch.cuda.empty_cache()
+    return ms, unpack_s, (gram, gn), (cnt_a, cnt_b)
+
+
 def _random_words(device, seed: int):
     import torch
 
@@ -500,7 +647,15 @@ def phase_kernels(device, seed: int, card):
                 "split_gram", lambda r0, rb: kernels.split_gram(ea, nm, r0, rb, r0),
                 lambda r0, rb: plains["b1"](ea, nm, r0, rb, r0), "_SPLIT_GRAM_WORD_SPLITS",
                 na, W, ROW_BLOCK, card, check, planes=5, products=5, popc=5)
-            del ea, nm
+            lib_ms, unpack_s, lib = library_split_gram(ea, nm, r0, rb, c0)
+            got = kernels.split_gram(ea, nm, r0, rb, c0)
+            if not all(torch.equal(x, y) for x, y in zip(got, lib)):
+                fail(f"torch._int_mm's G4 - Gn and Gn differ from split_gram's at {name}")
+            out["split_gram"]["library_ms"] = lib_ms
+            print(f"# split_gram at {name}: torch._int_mm G4 + Gn {lib_ms:.3f} ms (int8 operands "
+                  f"unpacked beforehand in {unpack_s:.2f} s, not counted), equal to the "
+                  f"kernel's; kernel {out['split_gram']['ms']:.3f} ms")
+            del ea, nm, got, lib
         del args, b
         torch.cuda.empty_cache()
 
@@ -526,7 +681,17 @@ def phase_kernels(device, seed: int, card):
                 "popcount_gram", lambda r0, rb: kernels.popcount_gram(pa, r0, rb, r0),
                 lambda r0, rb: kernels.popcount_gram_reference(pa, r0, rb, r0),
                 "_POPCOUNT_GRAM_WORD_SPLITS", na, W, ROW_BLOCK, card, check, **work)
-            del pa
+            lib_ms, unpack_s, (matches, gn), (cnt_a, cnt_b) = library_popcount_gram(
+                pa, r0, rb, c0, kernels._SUBSET_SIGNS)
+            lib = (matches, cnt_a[:, None] + cnt_b[None, :] - gn)
+            if not all(torch.equal(x.long(), y.long()) for x, y in zip(got, lib)):
+                fail(f"torch._int_mm's signed subset gram and N gram differ from "
+                     f"popcount_gram's (matches, nunion) at {name}")
+            out["popcount_gram"]["library_ms"] = lib_ms
+            print(f"# popcount_gram at {name}: torch._int_mm signed 15-subset gram + N gram "
+                  f"{lib_ms:.3f} ms (over word chunks; int8 operands unpacked beforehand in "
+                  f"{unpack_s:.2f} s, not counted), equal to the kernel's; kernel {ms:.3f} ms")
+            del pa, matches, gn, lib
         del args, got
         torch.cuda.empty_cache()
     out.update(block_kernels(device, seed, card))
@@ -626,7 +791,13 @@ def block_kernels(device, seed: int, card):
         bound_rec = gram_bound(f"partial_gram at {name}", n, None, Wp, r0, rb, r0, planes=4,
                                products=10, popc=2, card=card, peak_ops=PEAK_B1, outputs=1)
         if r0 == 0:
-            rec.update(ms=ms, device_ms=alone,
+            lib_ms, unpack_s, lib = library_partial_gram(pa, pb)
+            if not torch.equal(lib, kernels.partial_gram(pa, pb)):
+                fail(f"torch._int_mm's signed product differs from partial_gram's at {name}")
+            print(f"# partial_gram at {name}: torch._int_mm {lib_ms:.4f} ms (int8 operands "
+                  f"unpacked beforehand in {unpack_s:.3f} s, not counted), equal to the kernel's")
+            del lib
+            rec.update(ms=ms, device_ms=alone, library_ms=lib_ms,
                        plain_ms=time_ms(lambda: kernels.partial_gram_reference(a, b), 3),
                        **bound_rec)
             print(f"# partial_gram at {name}: kernel {ms:.3f} ms (on the card alone "
@@ -792,6 +963,58 @@ def phase_slice(packed, fasta: str, cluster_size: int, row_block: int, seed: int
     return counts, fields, sha
 
 
+#: timed sweeps of the bench phase (after its two warm-ups)
+BENCH_ITERS = 5
+
+
+def phase_bench(packed, rows: int, device):
+    """The headline bench's timed sweeps (``bench_gpu`` of
+    ``tracs_tpu_torch.experiments.bench``, ``--method split``) on the
+    headline's alignment, its result printed (the entry point's full line
+    adds ``vs_baseline``, a numpy CPU rate this phase does not need): its
+    survivors must equal the distance CLI run's rows, and ``split_gram``,
+    ``partial_gram`` and ``coo_extract`` must each launch once a row block in
+    each of its sweeps (two warm-ups and ``BENCH_ITERS`` timed).  The bench's
+    resident layout then leaves the card.  Returns every kernel's launches in
+    the bench."""
+    import torch
+
+    from tracs_tpu_torch.experiments import bench
+
+    reset_counts()
+    line = bench.bench_gpu(packed=packed, method="split", device=device, iters=BENCH_ITERS)
+    counts = read_counts()
+    print(f"# bench (tracs_tpu_torch.experiments.bench.bench_gpu, --method split): "
+          f"{json.dumps(line)}")
+    n_blocks = -(-packed.n_seqs // bench.default_row_block(packed.n_seqs))
+    want = (2 + BENCH_ITERS) * n_blocks
+    print(f"# bench launches: split_gram {counts['split_gram']}, partial_gram "
+          f"{counts['partial_gram']}, coo_extract {counts['coo_extract']} for "
+          f"{2 + BENCH_ITERS} sweeps of {n_blocks} row blocks")
+    for name in ("split_gram", "partial_gram", "coo_extract"):
+        if counts[name] != want:
+            fail(f"bench: {counts[name]} {name} launches for {2 + BENCH_ITERS} sweeps of "
+                 f"{n_blocks} row blocks")
+    if line["survivors"] != rows:
+        fail(f"bench: {line['survivors']} survivors, the distance CLI run wrote {rows} rows")
+    del packed._split_cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts
+
+
+def phase_transcluster_bench(device):
+    """The transmission-model bench
+    (``tracs_tpu_torch.experiments.transcluster_bench``) on its synthetic mix
+    (250,000 rows): three cold lookups and a memoised one, its JSON line
+    printed."""
+    from tracs_tpu_torch.experiments import transcluster_bench as tcb
+
+    snp, dd, source = tcb.load_mix(None)
+    line = tcb.bench(snp, dd, device=device)
+    print(f"# transcluster bench ({source}): {json.dumps(line)}")
+
+
 def phase_mism_positions(packed, block, device):
     """``mismatch_positions_kernel`` against its plain version on the layouts
     the sweeps left resident: the pairs of one emitted row block at the
@@ -845,9 +1068,10 @@ def phase_mism_positions(packed, block, device):
             if not np.array_equal(counts.cpu().numpy(), dvals[todo]):
                 fail("mism_positions counts differ from the sweep's distances")
             ms = time_ms(lambda: kernels.mismatch_positions_kernel(*args), 10)
+            alone = device_ms(lambda: kernels.mismatch_positions_kernel(*args))
             plain_ms = time_ms(lambda: kernels.mismatch_positions_reference(*args), 2)
-            print(f"# mism_positions at {name}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms "
-                  f"(median)")
+            print(f"# mism_positions at {name}: kernel {ms:.3f} ms (on the card alone "
+                  f"{alone:.4f} ms), plain {plain_ms:.3f} ms (median)")
             P = len(ii)
             used = len(torch.unique(torch.cat([ii, jj])))
             out_bytes = P * (1 + cap) * 4
@@ -856,7 +1080,7 @@ def phase_mism_positions(packed, block, device):
             # is 10 words per 32 sites for every pair
             # about 12 integer operations per word of a pair: 4 AND, 5 OR, NOT, POPC, ADD
             ms_b, by = bound(used * 5 * W * 4 + 16 * P + out_bytes, 12 * P * W, PEAK_CUDA_CORE)
-            rec.update(ms=ms, plain_ms=plain_ms, bound_ms=ms_b, bound_by=by)
+            rec.update(ms=ms, device_ms=alone, plain_ms=plain_ms, bound_ms=ms_b, bound_by=by)
             print(f"# bound of mism_positions at {name}: {ms_b:.3f} ms by {by} ({used} distinct "
                   f"samples read once); every pair's 10 words per 32 sites from device memory "
                   f"would take {(P * 10 * W * 4 + out_bytes) / PEAK_BYTES * 1e3:.3f} ms")
@@ -996,7 +1220,8 @@ def phase_mxu(packed, split_blocks, row_block: int, device, card):
     import torch
 
     from tracs_tpu_torch.ops import kernels
-    from tracs_tpu_torch.ops.pairsnp import _cnt_n, _gram_mxu, _planes_device, pairsnp_stream
+    from tracs_tpu_torch.ops.pairsnp import (_MXU_SIGNS, _cnt_n, _gram_mxu, _planes_device,
+                                             pairsnp_stream)
 
     n = packed.n_seqs
     n_blocks = -(-n // row_block)
@@ -1040,8 +1265,17 @@ def phase_mxu(packed, split_blocks, row_block: int, device, card):
     if any(err):
         fail(f"the mxu route disagrees with its plain version at {name}")
     del got, want
+    lib_ms, unpack_s, lib, _ = library_popcount_gram(pa, 0, rb, 0, _MXU_SIGNS)
+    got = route()
+    if not all(torch.equal(x.long(), y.long()) for x, y in zip(got, lib)):
+        fail(f"torch._int_mm's signed subset gram and N gram differ from the mxu route's "
+             f"(g, gq) at {name}")
+    print(f"# popcount_gram (mxu route) at {name}: torch._int_mm signed 15-subset gram + N gram "
+          f"{lib_ms:.3f} ms (over word chunks; int8 operands unpacked beforehand in "
+          f"{unpack_s:.2f} s, not counted), equal to the route's (g, gq)")
+    del got, lib
     rec = {"max_abs_err": err, "ms": time_ms(route, 10), "plain_ms": start.elapsed_time(end),
-           **gram_bound(
+           "library_ms": lib_ms, **gram_bound(
         f"popcount_gram (mxu route) at {name}", n, None, W, 0, rb, 0, planes=4, products=15,
         popc=2, card=card, peak_ops=PEAK_B1)}
     print(f"# popcount_gram (mxu route) at {name}: kernel {rec['ms']:.3f} ms, plain "
@@ -1368,6 +1602,17 @@ def phase_experiments(n: int, L: int, device, card, recs):
                        f"{kname} at {shape}", n, None, W, 0, n, 0, planes=5, products=5,
                        popc=5, card=card,
                        peak_ops=PEAK_BY_DOT[dot]))
+    # every variant computes K1's function: one library time at the square
+    want = want["b1"]
+    lib_ms, unpack_s, lib = library_split_gram(ea, nm, 0, n, 0)
+    if not all(torch.equal(x, y) for x, y in zip(lib, want)):
+        fail(f"torch._int_mm's G4 - Gn and Gn differ from the plain version at {shape}")
+    print(f"# K1's function at {shape}: torch._int_mm G4 + Gn {lib_ms:.3f} ms (int8 operands "
+          f"unpacked beforehand in {unpack_s:.2f} s, not counted), equal to the plain version")
+    for variant in kernels.SPLIT_GRAM_VARIANTS:
+        recs[kernels.variant_name(*variant)]["library_ms"] = lib_ms
+    del lib, want, ea, nm
+    torch.cuda.empty_cache()
     return counts
 
 
@@ -1720,8 +1965,14 @@ def phase_pipe(seed: int, tmp: str, device, card):
            "plain_ms": time_ms(lambda: kernels.split_gram_reference(*args), 3),
            **gram_bound(f"split_gram at {shape}", n, None, W, 0, n, 0, planes=5, products=5,
                         popc=5, card=card, peak_ops=PEAK_B1)}
+    lib_ms, _, lib = library_split_gram(*args)
+    if not all(torch.equal(x, y) for x, y in zip(got, lib)):
+        fail(f"torch._int_mm's G4 - Gn and Gn differ from split_gram's at {shape}")
+    rec["library_ms"] = lib_ms
     print(f"# split_gram at {shape}: kernel {rec['ms']:.3f} ms, plain {rec['plain_ms']:.3f} ms "
-          f"(median)")
+          f"(median); torch._int_mm G4 + Gn {lib_ms:.4f} ms (rows zero-padded to 17, since "
+          f"_int_mm takes more than 16), equal to the kernel's")
+    del lib
     pi, pj, pd, names, _, pnn = pairsnp([packed], device=device)
     swept = {frozenset((names[i][:-5], names[j][:-5])): (int(d), int(nn))
              for i, j, d, nn in zip(pi, pj, pd, pnn)}
@@ -1900,7 +2151,10 @@ def _mesh_rank(rank: int, n: int, url: str, jobs: list, outdir: str, repo: str) 
                 "max_abs_err": [int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)],
                 "ms": time_ms(lambda: kernels.split_gram(*args), 10),
                 "plain_ms": start.elapsed_time(end)}
-            del got, want, a, b
+            lib_ms, _, lib = library_split_gram(*args)
+            rec["shard"].update(library_ms=lib_ms, library_equal=all(
+                torch.equal(x, y) for x, y in zip(lib, got)))
+            del got, want, a, b, lib
         with open(os.path.join(outdir, f"{job['tag']}.{rank}.json"), "w") as fh:
             json.dump(rec, fh)
         dist.barrier()  # rank 0's shard check ends before any rank goes on
@@ -2145,7 +2399,11 @@ def phase_mesh(packed, fasta: str, cache: str, row_block: int, sha_plain: str,
           f"kernel {shard['ms']:.3f} ms, plain {shard['plain_ms']:.3f} ms (one run)")
     if any(shard["max_abs_err"]):
         fail(f"split_gram disagrees with its plain version at {name}")
-    rec = {k: shard[k] for k in ("max_abs_err", "ms", "plain_ms")}
+    print(f"# split_gram (mesh path) at {name}: torch._int_mm G4 + Gn {shard['library_ms']:.3f} "
+          f"ms (int8 operands unpacked beforehand, not counted)")
+    if not shard["library_equal"]:
+        fail(f"torch._int_mm's G4 - Gn and Gn differ from split_gram's at {name}")
+    rec = {k: shard[k] for k in ("max_abs_err", "ms", "plain_ms", "library_ms")}
     rec.update(gram_bound(f"split_gram (mesh path) at {name}", shard["B"], shard["B"],
                           shard["W"], 0, shard["B"], 0, planes=5, products=5, popc=5, card=card,
                           peak_ops=PEAK_B1))
@@ -2207,6 +2465,7 @@ def main() -> None:
         packed, fasta, cluster_size = _headline(args.n, args.length, args.seed, tmp)
         slice_launches, fields, sha_plain = phase_slice(packed, fasta, cluster_size, ROW_BLOCK,
                                                         args.seed, tmp, device)
+        bench_launches = phase_bench(packed, len(fields), device)
         cache = phase_pack_cache(fasta, args.n, ROW_BLOCK, os.path.join(tmp, "dists.csv"), tmp,
                                  device)
         ((pc_launches, pc_coo_launches), recs["mism_positions"],
@@ -2215,6 +2474,7 @@ def main() -> None:
         _, meta_launches, N, years = phase_meta(packed, fasta, cluster_size, ROW_BLOCK,
                                                 args.seed, tmp, fields, device)
         phase_trans_dist(N, years, device)
+        phase_transcluster_bench(device)
         filter_launches, sha_filter = phase_filter(packed, fasta, ROW_BLOCK, args.seed, tmp,
                                                    fields, device)
         mesh_launches, recs["split_gram (mesh path)"] = phase_mesh(
@@ -2229,10 +2489,11 @@ def main() -> None:
     def entry(name, kernel, source, replaces, launches, outputs=None):
         rec = dict(recs[kernel])
         err = rec.pop("max_abs_err")
+        library_ms = rec.pop("library_ms", None)
         return {"name": name, "route": "cuda", "source": f"tracs_tpu_torch/csrc/{source}.cu",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": err if outputs is None else max(err[k] for k in outputs),
-                **rec, "library_ms": None}
+                **rec, "library_ms": library_ms}
 
     from tracs_tpu_torch.ops import kernels as K
 
@@ -2242,11 +2503,19 @@ def main() -> None:
     others = [("--meta run", meta_launches), ("--filter run", filter_launches),
               ("pipe path", pipe_launches), ("mesh path", mesh_launches)]
     # K2 and K3 are one fused kernel: both entries carry its launch count and
-    # time, each with the error of its own output (matches, nunion).  No
-    # single PyTorch call computes any of these functions: library_ms is null.
+    # time, each with the error of its own output (matches, nunion).
+    # library_ms: torch._int_mm's products for split_gram, its variants,
+    # popcount_gram (the mxu engine's signed 15-subset gram and N gram) and
+    # partial_gram, as the JAX package computes them outside its Pallas
+    # kernels; no single PyTorch call computes coo_extract's or
+    # mism_positions' function: null.
     print(json.dumps({"kernels": [
         entry("split_gram", "split_gram", "split_gram", f"{pallas}:157",
               slice_launches["split_gram"], (0, 1)),
+        # the same kernel through the headline bench: its launches in the bench
+        # phase (7 sweeps of 4 blocks), its error, times and bound at block 0
+        entry("split_gram (bench path)", "split_gram", "split_gram", f"{pallas}:157",
+              bench_launches["split_gram"], (0, 1)),
         # the same kernel on the reads-to-clusters path: its launches in the
         # pipe run, its error, times and bound at that run's shape
         entry("split_gram (pipe path)", "split_gram at pipe's shape", "split_gram",
@@ -2278,10 +2547,14 @@ def main() -> None:
         # over the four gloo ranks of the 2x2 --filter run
         *(entry(f"partial_gram ({what})", "partial_gram", "partial_gram", f"{jax_pairsnp}:184",
                 launches["partial_gram"]) for what, launches in others),
+        entry("partial_gram (bench path)", "partial_gram", "partial_gram", f"{jax_pairsnp}:184",
+              bench_launches["partial_gram"]),
         entry("coo_extract", "coo_extract", "coo_extract", f"{jax_pairsnp}:928",
               slice_launches["coo_extract"]),
         *(entry(f"coo_extract ({what})", "coo_extract", "coo_extract", f"{jax_pairsnp}:928",
                 launches["coo_extract"]) for what, launches in others[:3]),
+        entry("coo_extract (bench path)", "coo_extract", "coo_extract", f"{jax_pairsnp}:928",
+              bench_launches["coo_extract"]),
         # the same kernel in direct mode (D = L - matches): its launches in the
         # cold popcount sweep and in the mxu sweep, its error, times and bound
         # in that mode at the first block

@@ -3,8 +3,11 @@ gained last (``io/fasta.py::write_fasta``; ``ops/pairsnp.py``'s
 ``comparable_sites_dense``, ``comparable_sites_pairs`` and
 ``snp_distance_dense_split``) against their tracs_tpu counterparts on the
 same numpy-seeded inputs: the FASTA's bytes, exact arrays otherwise.  A
-module-level public function of tracs_tpu's ``io/fasta.py`` and
-``ops/pairsnp.py`` that the port still lacks fails the last test.
+module-level public function of tracs_tpu's ``io/fasta.py``,
+``ops/packing.py``, ``ops/pairsnp.py`` and ``parallel/mesh.py`` that the port
+lacks, or whose parameters differ from tracs_tpu's beyond the departures
+named here, fails a test; so does ``snp_distance_split_device(with_nn=False)``
+unless it returns (D, None), as tracs_tpu's does.
 
 jax is imported inside the tests that need it, so the card-only tests run on
 a machine without it."""
@@ -157,6 +160,90 @@ def test_no_public_function_of_the_reference_is_missing():
                   and inspect.isfunction(f) and f.__module__ == ref.__name__}
         missing = sorted(public - machinery - set(dir(mine)))
         assert missing == [], f"{mine.__name__} lacks {missing}"
+
+
+#: tracs_tpu's public functions the port leaves out on purpose: TPU machinery
+#: (prefix bucketing and the chunk planner) and ``parallel/mesh.py::to_host``,
+#: which takes a ``jax.Array`` (the port's is ``runtime/device.py::to_host``)
+MACHINERY = {"plan_chunks", "prefix_col_start", "schedule_mac_pairs", "to_host"}
+#: the port's departures from tracs_tpu's parameter lists, by function:
+#: (parameters of tracs_tpu's that the port drops, parameters it adds); every
+#: function also takes the keyword ``device``.  ``make_mesh`` spans the whole
+#: world of processes; ``pack_fasta``'s cache is a directory the caller names
+#: (tracs_tpu's ``use_cache`` turns on a directory read from the environment,
+#: and the port reads none); ``r0``/``r1`` pick rows of the split block and
+#: ``method`` the engine whose resident layout the mismatch kernel reads.
+DEPARTURES = {
+    "make_mesh": ({"devices"}, set()),
+    "pack_fasta": ({"use_cache"}, {"cache_dir"}),
+    "snp_distance_split_device": (set(), {"r0", "r1"}),
+    "mismatch_positions_device": (set(), {"method"}),
+}
+MODULES = ["io.fasta", "ops.packing", "ops.pairsnp", "parallel.mesh"]
+
+
+@pytest.mark.parametrize("module", MODULES)
+def test_public_signatures_match_the_reference(module):
+    """Every module-level public function of tracs_tpu's ``module`` exists in
+    the port's (but ``MACHINERY``) with the same parameter names, in the same
+    order and of the same kinds, but the added ``device`` and
+    ``DEPARTURES``."""
+    import importlib
+
+    pytest.importorskip("jax")
+    ref = importlib.import_module(f"tracs_tpu.{module}")
+    mine = importlib.import_module(f"tracs_tpu_torch.{module}")
+    public = sorted(n for n, f in vars(ref).items() if not n.startswith("_")
+                    and inspect.isfunction(f) and f.__module__ == ref.__name__)
+    assert public
+    for name in public:
+        if name in MACHINERY:
+            continue
+        assert hasattr(mine, name), f"{mine.__name__} lacks {name}"
+        dropped, added = DEPARTURES.get(name, (set(), set()))
+        want = [(p.name, p.kind) for p in inspect.signature(getattr(ref, name)).parameters.values()
+                if p.name not in dropped]
+        got = [(p.name, p.kind) for p in inspect.signature(getattr(mine, name)).parameters.values()
+               if p.name not in added | {"device"}]
+        assert got == want, f"{module}.{name}"
+
+
+@pytest.mark.parametrize("na,nb,L", [(13, 0, 257), (5, 8, 90)])
+def test_split_device_without_nn_returns_none(jax_ref, na, nb, L):
+    """``snp_distance_split_device(with_nn=False)`` gives (D, None), D equal
+    to tracs_tpu's, as tracs_tpu's does."""
+    _, jref = jax_ref
+    rng = np.random.default_rng(na + 3 * nb + L)
+    (jsa, jsb), (sa, sb) = _pair(jax_ref, rng, na, nb, L)
+    D, NN = port.snp_distance_split_device(sa, None if nb == 0 else sb, with_nn=False,
+                                           device="cpu")
+    Dj, NNj = jref.snp_distance_split_device(jsa, None if nb == 0 else jsb, with_nn=False)
+    assert NN is None and NNj is None
+    assert D.dtype == torch.int32 and np.array_equal(D.numpy(), np.asarray(Dj))
+    Dw, NNw = port.snp_distance_split_device(sa, None if nb == 0 else sb, chunk_sites=64,
+                                             device="cpu")
+    assert torch.equal(D, Dw) and NNw.shape == D.shape
+
+
+def test_chunk_keywords_are_accepted_and_ignored(jax_ref):
+    """``chunk_sites`` and ``chunk`` size tracs_tpu's TPU chunks: the port
+    takes them and gives the same arrays whatever they are."""
+    jpacking, _ = jax_ref
+    rng = np.random.default_rng(4)
+    j = jpacking.pack_sequences(_seqs(rng, 9, 300))
+    p = from_reference(j.planes, j.length, j.names)
+    D, NN = port.snp_distance_dense(p, device="cpu")
+    for method in ("split", "popcount"):
+        Dc, NNc = port.snp_distance_dense(p, device="cpu", method=method, chunk_sites=64)
+        assert np.array_equal(D, Dc) and np.array_equal(NN, NNc)
+    sa = split_alignment(p)
+    Ds, _ = port.snp_distance_dense_split(sa, chunk_sites=32, device="cpu")
+    assert np.array_equal(D, Ds)
+    pi, pj = np.array([0, 1, 2]), np.array([3, 4, 8])
+    want = port.mismatch_positions_device(p, p, pi, pj, 64, device="cpu")
+    got = port.mismatch_positions_device(p, p, pi, pj, 64, chunk=1, device="cpu")
+    assert all(np.array_equal(g, w) for g, w in zip(got, want))
+    assert np.array_equal(got[0], D[pi, pj])
 
 
 # -- on the card --

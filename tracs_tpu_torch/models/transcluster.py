@@ -291,11 +291,18 @@ def trans_dist(snpdiff, datediff, lamb, beta, threshold_Ek=1e-6, *, device):
     8, 16, ... 512 steps, dropping finished lanes between blocks, so a lane
     that needs the k cap does not stall the others.  Per-lane math is
     elementwise, so the result does not depend on the batching."""
+    return _trans_dist_steps(snpdiff, datediff, lamb, beta, threshold_Ek, device=device)[:2]
+
+
+def _trans_dist_steps(snpdiff, datediff, lamb, beta, threshold_Ek=1e-6, *, device):
+    """``trans_dist``'s (log p0, E(K)) and, third, each pair's k-loop exit:
+    the k after its last step, so E(K) sums the terms k' P(k') for
+    1 <= k' < k."""
     device = resolve_device(device)
     snpdiff = np.asarray(snpdiff, dtype=np.int64)
     datediff = np.asarray(datediff, dtype=np.float64)
     if snpdiff.size == 0:
-        return np.zeros(0), np.zeros(0)
+        return np.zeros(0), np.zeros(0), np.zeros(0)
     lamb, beta, threshold_Ek = float(lamb), float(beta), float(threshold_Ek)
 
     keys = np.stack([snpdiff.astype(np.float64), datediff], axis=1)
@@ -325,6 +332,7 @@ def trans_dist(snpdiff, datediff, lamb, beta, threshold_Ek=1e-6, *, device):
     state = [torch.ones_like(N), zeros, zeros.clone(), log_I0, torch.lgamma(N + 2.0),
              zeros.clone(), zeros.clone()]
     eK = torch.empty_like(N)
+    k_end = torch.empty_like(N)
     active = torch.arange(m, device=device)
     n_steps = 8
     while active.numel():
@@ -335,14 +343,15 @@ def trans_dist(snpdiff, datediff, lamb, beta, threshold_Ek=1e-6, *, device):
         for x, v in zip(state, blk):
             x[active] = v
         eK[active[fin]] = blk[1][fin]
+        k_end[active[fin]] = blk[0][fin]
         active = active[~fin]
         n_steps = min(n_steps * 2, 512)
 
-    p0_u = np.empty(m)
-    eK_u = np.empty(m)
+    p0_u, eK_u, k_u = np.empty(m), np.empty(m), np.empty(m)
     p0_u[order] = to_host(p0)
     eK_u[order] = to_host(eK)
-    return p0_u[inverse], eK_u[inverse]
+    k_u[order] = to_host(k_end)
+    return p0_u[inverse], eK_u[inverse], k_u[inverse]
 
 
 class TransClusterCache:

@@ -300,29 +300,38 @@ def _check_split_pair(sa: SplitAlignment, sb: SplitAlignment) -> None:
 
 
 def snp_distance_split_device(sa: SplitAlignment, sb: SplitAlignment | None = None,
-                              *, device: torch.device, r0: int = 0, r1: int | None = None):
+                              *, chunk_sites: int | None = None, with_nn: bool = True,
+                              device: torch.device, r0: int = 0, r1: int | None = None):
     """(D, NN) int32 device blocks of rows [r0, r1) of ``sa`` against every
-    row of ``sb`` (default: ``sa``).  The two layouts of a query-vs-db pair
-    must share the partial-site gather axis (``_split_pair`` builds them
-    so)."""
+    row of ``sb`` (default: ``sa``); NN is None unless ``with_nn``, as in
+    tracs_tpu, and is then not assembled.  The two layouts of a query-vs-db
+    pair must share the partial-site gather axis (``_split_pair`` builds them
+    so).  ``chunk_sites`` is accepted for tracs_tpu's signature and ignored:
+    it sizes the TPU's word chunks, and the kernels stage their own."""
+    del chunk_sites
     if sb is None:
         sb = sa
     _check_split_pair(sa, sb)
     r1 = sa.n_seqs if r1 is None else r1
     if not 0 <= r0 <= r1 <= sa.n_seqs:
         raise ValueError(f"row range [{r0}, {r1}) outside [0, {sa.n_seqs}]")
-    return _split_block(sa, sb, r0, r1, 0, device)
+    grams = _split_grams(sa, sb, r0, r1, 0, device)
+    if not with_nn:
+        return _assemble_d(grams["g"], grams["gp"], grams["cnt_a"], grams["cnt_b"],
+                           sa.length), None
+    return _assemble_block(grams, sa.length)
 
 
 def snp_distance_dense_split(sa: SplitAlignment, sb: SplitAlignment | None = None, *,
-                             device: str | torch.device, with_nn: bool = True):
+                             chunk_sites: int | None = None, with_nn: bool = True,
+                             device: str | torch.device):
     """Host (numpy) wrapper of ``snp_distance_split_device``: int32 [n_a, n_b]
     D and NN of two SplitAlignments (``sb`` defaults to ``sa``), NN None
     unless ``with_nn`` (counterpart of
-    tracs_tpu.ops.pairsnp.snp_distance_dense_split, whose ``chunk_sites``
-    sizes the TPU's word chunks: the kernels stage their own)."""
-    D, NN = snp_distance_split_device(sa, sb, device=resolve_device(device))
-    return to_host(D), (to_host(NN) if with_nn else None)
+    tracs_tpu.ops.pairsnp.snp_distance_dense_split; ``chunk_sites`` is
+    ignored, as there)."""
+    D, NN = snp_distance_split_device(sa, sb, with_nn=with_nn, device=resolve_device(device))
+    return to_host(D), (None if NN is None else to_host(NN))
 
 
 def comparable_sites_dense(sa: SplitAlignment, sb: SplitAlignment, *,
@@ -435,7 +444,7 @@ def _engine(method: str, a: PackedAlignment, b: PackedAlignment) -> str:
 
 def mismatch_positions_device(
     a: PackedAlignment, b: PackedAlignment, pairs_i, pairs_j, capacity: int,
-    *, device: str | torch.device, method: str = "split",
+    *, chunk: int = 256, device: str | torch.device, method: str = "split",
 ):
     """(counts [n_pairs] int64, positions [n_pairs, capacity] int64) of the
     sites where the two samples of each pair share no allele, ascending,
@@ -445,7 +454,10 @@ def mismatch_positions_device(
     kernel launch per ``_MISM_TABLE_BYTES`` of position table: the kernel
     reads the resident layout through the pair indices and needs no other
     buffer.  The zero words that pad either layout's pitch lie at and past
-    ``a.length``, where the kernel reports nothing."""
+    ``a.length``, where the kernel reports nothing.  ``chunk`` is accepted
+    for tracs_tpu's signature and ignored: it sizes the TPU's pair chunks,
+    and the launches here are cut by table bytes."""
+    del chunk
     engine = _engine(method, a, b)
     device = resolve_device(device)
     if engine == "split":
@@ -496,12 +508,16 @@ def snp_distance_dense(
     *,
     device: str | torch.device,
     method: str = "split",
+    chunk_sites: int | None = None,
     row_block: int = 2048,
 ) -> tuple[np.ndarray, np.ndarray]:
     """Dense all-pairs SNP distance and comparable-site matrices, int32
     numpy [n_a, n_b] (b defaults to a), computed in row blocks by the split
     engine, the popcount engine or the inclusion-exclusion engine (``method``
-    ``split``, ``popcount``, ``mxu``; ``auto`` picks as tracs_tpu does)."""
+    ``split``, ``popcount``, ``mxu``; ``auto`` picks as tracs_tpu does).
+    ``chunk_sites`` is accepted for tracs_tpu's signature and ignored: it
+    sizes the TPU's word chunks, and the kernels stage their own."""
+    del chunk_sites
     device = resolve_device(device)
     if b is None:
         b = a
