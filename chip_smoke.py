@@ -80,9 +80,12 @@ Phases (each one passes or the script exits non-zero):
    ``torch._int_mm``'s (the route's library time).  On the layouts
    that stay resident, ``mismatch_positions_kernel`` against its plain
    version, exact on the whole table: the first row block's emitted pairs at
-   the capacity the filter gives it (timed a call and on the card alone), and
-   a ragged length with a
-   capacity below some counts, through the split layout and the raw planes;
+   the capacity the filter gives it, where the wrapper's rule must take the
+   tiled kernel (timed a call and on the card alone, in turns with the first
+   version, the warp kernel, and with the rule's host part), a ragged length
+   with a capacity below some counts, and the five pair patterns of the
+   card tests over the first 64 samples through both kernels, each through
+   the split layout and the raw planes;
 5. ``distance --meta`` through the CLI on the same workload, with a seeded
    date per sample (a base date per cluster, members 0-180 days after it):
    the split kernel once per row block, the same rows as phase 3, p0 in
@@ -92,8 +95,12 @@ Phases (each one passes or the script exits non-zero):
    lanes, and the reference goldens at 1e-6; then the transmission-model
    bench (``tracs_tpu_torch.experiments.transcluster_bench``) on its
    synthetic mix of 250,000 rows, its JSON line printed;
-7. ``distance --filter`` through the CLI on the same workload: the
-   mismatch-position kernel launched, the same rows and raw distances as
+7. ``distance --filter`` through the CLI on the same workload: the tiled
+   mismatch-position kernel launched for every block (the warp kernel
+   never), ``filter_pairs``' time split by step (the ``scipy.stats``
+   import, also timed in a fresh process, the keep-table builds, the native
+   window pass, the kernel, the table's copy to the host, the rest), the
+   same rows and raw distances as
    phase 3, 0 <= filtered <= raw on every row, and 2,000 sampled rows equal
    to the host bitset path (``filter_recomb_batch(mismatch_words(...))`` on
    the numpy planes).  Prints wall seconds, the filter's share and the sha256;
@@ -101,7 +108,9 @@ Phases (each one passes or the script exits non-zero):
    1 Mb off one base genome (so the compaction drops almost every column and
    its position map is in use), scattered SNPs on every sample and a tract of
    30 SNPs within 2 kb on every fourth; each pair with a tract must lose it
-   to the filter, and every pair must equal the host bitset path;
+   to the filter, and every pair must equal the host bitset path; the
+   mismatch-position launches printed by kernel (whole rows of pairs with
+   no threshold: the rule takes the warp kernel);
 9. the variant sweep through its entry point
    (``tracs_tpu_torch.experiments.kernel_experiments.main``) at full width,
    n=4096 x 1 Mb over the full square: every variant launched and ``OK``
@@ -155,7 +164,8 @@ Phases (each one passes or the script exits non-zero):
    timeout): the ``distance`` CLI with ``--mesh 2x1`` (the ring), ``--mesh
    1x2`` (the ring at dp = 1 with an sp reduction) and ``--mesh 2x2
    --filter``, every CSV (``.procN`` included) hashing to phase 3's (phase
-   7's with ``--filter``); the block sweep through the API from row 1024 on
+   7's with ``--filter``), every mismatch-position launch of the last on the
+   tiled kernel; the block sweep through the API from row 1024 on
    2 x 2, every rank's arrays equal to the one-device stream's; one shard's
    ring block against ``split_gram_reference`` and ``torch._int_mm``'s
    products (the library time at that shape).  Prints each run's wall, the
@@ -264,7 +274,7 @@ def reset_counts() -> None:
     from tracs_tpu_torch.ops import kernels
 
     kernels.SPLIT_GRAM_LAUNCHES = kernels.POPCOUNT_GRAM_LAUNCHES = 0
-    kernels.MISM_POSITIONS_LAUNCHES = 0
+    kernels.MISM_POSITIONS_LAUNCHES = kernels.MISM_POSITIONS_TILED_LAUNCHES = 0
     kernels.COO_EXTRACT_LAUNCHES = kernels.PARTIAL_GRAM_LAUNCHES = 0
     for name in kernels.SPLIT_GRAM_VARIANT_LAUNCHES:
         kernels.SPLIT_GRAM_VARIANT_LAUNCHES[name] = 0
@@ -276,6 +286,7 @@ def read_counts() -> dict:
     return {"split_gram": kernels.SPLIT_GRAM_LAUNCHES,
             "popcount_gram": kernels.POPCOUNT_GRAM_LAUNCHES,
             "mism_positions": kernels.MISM_POSITIONS_LAUNCHES,
+            "mism_positions (tiled)": kernels.MISM_POSITIONS_TILED_LAUNCHES,
             "coo_extract": kernels.COO_EXTRACT_LAUNCHES,
             "partial_gram": kernels.PARTIAL_GRAM_LAUNCHES,
             **kernels.SPLIT_GRAM_VARIANT_LAUNCHES}
@@ -1015,13 +1026,34 @@ def phase_transcluster_bench(device):
     print(f"# transcluster bench ({source}): {json.dumps(line)}")
 
 
+def pair_pattern(name: str, rng, n: int):
+    """Pair lists as the filter and other callers may send them (the card
+    tests' patterns): runs of one first sample, one run longer than a tile,
+    a single pair, pairs in no order, every sample against itself."""
+    if name == "runs":
+        return np.repeat(np.arange(n // 2), 5), np.tile(np.arange(n // 2, n // 2 + 5), n // 2)
+    if name == "long run":
+        return np.full(600, 2), rng.integers(0, n, size=600)
+    if name == "one":
+        return np.array([3]), np.array([n - 1])
+    if name == "unsorted":
+        return rng.integers(0, n, size=333), rng.integers(0, n, size=333)
+    return np.arange(n), np.arange(n)
+
+
+PAIR_PATTERNS = ("runs", "long run", "one", "unsorted", "self")
+
+
 def phase_mism_positions(packed, block, device):
     """``mismatch_positions_kernel`` against its plain version on the layouts
     the sweeps left resident: the pairs of one emitted row block at the
-    capacity the filter gives it (timed), then a ragged length with a
-    capacity below some counts (cross-cluster pairs mismatch at most sites)
-    through the split layout and the raw planes.  Returns the kernel's record
-    for the JSON line."""
+    capacity the filter gives it, through the kernel the wrapper's rule
+    picks there (the tiled kernel: the run fails otherwise), timed a call
+    and on the card alone beside the first version (the warp kernel, forced)
+    and the rule's host part; then a ragged length with a capacity below
+    some counts, and the five pair patterns over the first 64 samples through
+    both kernels, forced, each through the split layout and the raw planes.
+    Returns the kernel's record for the JSON line."""
     import torch
 
     from tracs_tpu_torch.ops import kernels
@@ -1038,24 +1070,34 @@ def phase_mism_positions(packed, block, device):
              f"{W}: both should carry the card's pitch")
     rows, cols, dvals = block[3], block[4], block[5]
     todo = dvals > 1
-    ii = torch.from_numpy(rows[todo]).to(device)
-    jj = torch.from_numpy(cols[todo]).to(device)
+    # the pair indices as the filter passes them: numpy on the host
+    ii, jj = rows[todo].astype(np.int64), cols[todo].astype(np.int64)
     # ops/recomb.py::filter_pairs: the power of two at or above the largest d, at least 128
     cap = 1 << max(7, int(np.ceil(np.log2(max(2, int(dvals.max()))))))
-    far = torch.arange(min(16, n // 2), device=device)
-    ii2, jj2 = torch.cat([ii[:2000], far]), torch.cat([jj[:2000], n - 1 - far])
-    cases = [
-        (f"main path P={len(ii)} W={W} capacity={cap}, split layout",
-         (ea, None, ii, jj, L, cap, nm, None)),
-        (f"ragged L={L - 13} capacity=64 P={len(ii2)}, split layout",
-         (ea, None, ii2, jj2, L - 13, 64, nm, None)),
-        (f"ragged L={L - 13} capacity=64 P={len(ii2)}, raw planes at pitch {raw.shape[2]}",
-         (raw, None, ii2, jj2, L - 13, 64)),
-    ]
-    rec = {"max_abs_err": 0}
-    for k, (name, args) in enumerate(cases):
-        got = kernels.mismatch_positions_kernel(*args)
+    far = np.arange(min(16, n // 2))
+    ii2, jj2 = np.concatenate([ii[:2000], far]), np.concatenate([jj[:2000], n - 1 - far])
+    main = (ea, None, ii, jj, L, cap, nm, None)
+    cases = [(f"main path P={len(ii)} W={W} capacity={cap}, split layout", None, main),
+             (f"ragged L={L - 13} capacity=64 P={len(ii2)}, split layout", None,
+              (ea, None, ii2, jj2, L - 13, 64, nm, None)),
+             (f"ragged L={L - 13} capacity=64 P={len(ii2)}, raw planes at pitch {raw.shape[2]}",
+              None, (raw, None, ii2, jj2, L - 13, 64))]
+    rng = np.random.default_rng(7)
+    for pattern in PAIR_PATTERNS:
+        pi, pj = pair_pattern(pattern, rng, 64)
+        for design in ("tiled", "warp"):
+            cases += [(f"pattern {pattern!r}, P={len(pi)}, {design} kernel, split layout", design,
+                       (ea, None, pi, pj, L - 5, 256, nm, None)),
+                      (f"pattern {pattern!r}, P={len(pi)}, {design} kernel, raw planes", design,
+                       (raw, None, pi, pj, L - 5, 256))]
+    rec = {"max_abs_err": 0, **build_facts("mism_positions", 1)}
+    print(f"# mism_positions (tiled, split layout): {rec['registers']} registers, "
+          f"{rec['local_bytes']} B local, {rec['shared_bytes']} B static shared")
+    for k, (name, design, args) in enumerate(cases):
+        before = kernels.MISM_POSITIONS_TILED_LAUNCHES
+        got = kernels.mismatch_positions_kernel(*args, _design=design)
         torch.cuda.synchronize()
+        tiled = kernels.MISM_POSITIONS_TILED_LAUNCHES - before
         want = kernels.mismatch_positions_reference(*args)
         err = int((got.long() - want.long()).abs().max())
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
@@ -1065,29 +1107,68 @@ def phase_mism_positions(packed, block, device):
         if err:
             fail(f"mism_positions disagrees with its plain version at {name}")
         if k == 0:
+            if not tiled:
+                fail("the wrapper's rule did not take the tiled kernel at the main path's block")
             if not np.array_equal(counts.cpu().numpy(), dvals[todo]):
                 fail("mism_positions counts differ from the sweep's distances")
-            ms = time_ms(lambda: kernels.mismatch_positions_kernel(*args), 10)
-            alone = device_ms(lambda: kernels.mismatch_positions_kernel(*args))
-            plain_ms = time_ms(lambda: kernels.mismatch_positions_reference(*args), 2)
-            print(f"# mism_positions at {name}: kernel {ms:.3f} ms (on the card alone "
-                  f"{alone:.4f} ms), plain {plain_ms:.3f} ms (median)")
-            P = len(ii)
-            used = len(torch.unique(torch.cat([ii, jj])))
-            out_bytes = P * (1 + cap) * 4
-            # the contract's bound reads each referenced sample once; the kernel
-            # has no reuse between pairs, so what it asks of the memory system
-            # is 10 words per 32 sites for every pair
-            # about 12 integer operations per word of a pair: 4 AND, 5 OR, NOT, POPC, ADD
-            ms_b, by = bound(used * 5 * W * 4 + 16 * P + out_bytes, 12 * P * W, PEAK_CUDA_CORE)
-            rec.update(ms=ms, device_ms=alone, plain_ms=plain_ms, bound_ms=ms_b, bound_by=by)
-            print(f"# bound of mism_positions at {name}: {ms_b:.3f} ms by {by} ({used} distinct "
-                  f"samples read once); every pair's 10 words per 32 sites from device memory "
-                  f"would take {(P * 10 * W * 4 + out_bytes) / PEAK_BYTES * 1e3:.3f} ms")
-        elif not (int(counts.min()) < 64 < int(counts.max())):
+            rec.update(timed_mism_positions(main, name, W))
+        elif k < 3 and not (int(counts.min()) < 64 < int(counts.max())):
             fail(f"{name}: the capacity is not below some counts and above others")
         del got, want
     return rec
+
+
+def timed_mism_positions(args, name: str, W: int) -> dict:
+    """Times of ``mismatch_positions_kernel`` at the main path's block: the
+    tiled kernel (the rule's choice) and the warp kernel (the first version,
+    forced) in turns (tiled, warp, warp, tiled), each a call (CUDA events
+    around the wrapper: the tile plan and the allocations included) and on
+    the card alone (``device_ms`` on a prepared launcher); the rule's host
+    part (``mism_design``: the plan) on the host's clock; the plain version;
+    and the bound.  Every launch here is a timing launch."""
+    import torch
+
+    from tracs_tpu_torch.ops import kernels
+
+    times = {"tiled": [], "warp": []}
+    tables = {}
+    for design in ("tiled", "warp", "warp", "tiled"):
+        force = None if design == "tiled" else design   # the tiled kernel by the rule, as the path
+        call = time_ms(lambda: kernels.mismatch_positions_kernel(*args, _design=force), 10)
+        out, _, launch = kernels._mism_launcher(*args, design=force)
+        alone = device_ms(launch)
+        times[design].append((call, alone))
+        tables[design] = out
+    # the first version's table is the new one's, so the filter's output is too
+    if not torch.equal(tables["tiled"], tables["warp"]):
+        fail(f"{name}: the tiled and the warp kernel give different tables")
+    t0 = time.perf_counter()
+    for _ in range(5):
+        kernels.mism_design((args[0], args[6]), W, args[2], args[3], args[5], True)
+    host_ms = (time.perf_counter() - t0) / 5 * 1e3
+    plain_ms = time_ms(lambda: kernels.mismatch_positions_reference(*args), 2)
+    for design, runs in times.items():
+        print(f"# mism_positions at {name}: {design} kernel a call "
+              f"{', '.join(f'{c:.3f}' for c, _ in runs)} ms, on the card alone "
+              f"{', '.join(f'{a:.4f}' for _, a in runs)} ms")
+    print(f"# mism_positions at {name}: the rule's host part (the tile plan) {host_ms:.3f} ms; "
+          f"plain {plain_ms:.3f} ms (median)")
+    rows, cols, cap = args[2], args[3], args[5]
+    P = len(rows)
+    used = len(np.unique(np.concatenate([rows, cols])))
+    out_bytes = P * (1 + cap) * 4
+    # each referenced sample's 5 rows read once, the pair list, the table
+    # written once, against ~12 integer operations a word of a pair
+    ms_b, by = bound(used * 5 * W * 4 + 16 * P + out_bytes, 12 * P * W, PEAK_CUDA_CORE)
+    tiled = float(np.median([a for _, a in times["tiled"]]))
+    print(f"# bound of mism_positions at {name}: {ms_b:.3f} ms by {by} ({used} distinct "
+          f"samples read once): {100 * ms_b / tiled:.1f}% of the tiled kernel's card time; "
+          f"every pair's 10 words per 32 sites from device memory would take "
+          f"{(P * 10 * W * 4 + out_bytes) / PEAK_BYTES * 1e3:.3f} ms")
+    return {"ms": float(np.median([c for c, _ in times["tiled"]])), "device_ms": tiled,
+            "plain_ms": plain_ms, "bound_ms": ms_b, "bound_by": by, "host_plan_ms": host_ms,
+            "first_version_ms": float(np.median([c for c, _ in times["warp"]])),
+            "first_version_device_ms": float(np.median([a for _, a in times["warp"]]))}
 
 
 def phase_sweeps(fasta: str, row_block: int, device, card):
@@ -1423,34 +1504,90 @@ def host_filter(packed, i, j, d, chunk: int = 256) -> np.ndarray:
 def phase_filter(packed, fasta: str, row_block: int, seed: int, tmp: str, plain_fields,
                  device):
     """``distance --filter`` through the CLI on the card; returns every
-    kernel's launches in that run and the CSV's sha256."""
+    kernel's launches in that run and the CSV's sha256.  Splits the time of
+    ``filter_pairs`` by step, with timers wrapped around the functions it
+    calls (nothing of the filter changes): the ``scipy.stats`` import, the
+    keep-table builds (``_keep_table``), the native window pass
+    (``native_filter_windows``), the mismatch-position kernel (launch and
+    plan, to the card's end) and the position table's copy to the host
+    with its numpy unpacking (the rest of ``mismatch_positions_device``)."""
+    import importlib
+
     import torch
 
     from tracs_tpu_torch.ops import pairsnp as port
+    from tracs_tpu_torch.ops import recomb
+    from tracs_tpu_torch.runtime import native
 
-    spent = [0.0]
-    real = port.filter_pairs
+    spent = {k: 0.0 for k in ("filter_pairs", "scipy.stats import", "keep tables",
+                              "native window pass", "kernel", "device step")}
+    calls = {"keep tables": 0, "kernel": 0}
 
-    def timed(*args, **kwargs):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        out = real(*args, **kwargs)
-        spent[0] += time.perf_counter() - t0
-        return out
+    def timer(key, fn, sync=False):
+        def wrapped(*args, **kwargs):
+            if sync:
+                torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*args, **kwargs)
+            if sync:
+                torch.cuda.synchronize()
+            spent[key] += time.perf_counter() - t0
+            calls[key] = calls.get(key, 0) + 1
+            return out
+        return wrapped
 
+    real_sf = recomb._binom_sf
+
+    def binom_sf(*args):
+        if "scipy.stats" not in sys.modules:
+            t0 = time.perf_counter()
+            importlib.import_module("scipy.stats")
+            spent["scipy.stats import"] += time.perf_counter() - t0
+        return real_sf(*args)
+
+    patches = [(port, "filter_pairs", timer("filter_pairs", port.filter_pairs, sync=True)),
+               (port, "mismatch_positions_device",
+                timer("device step", port.mismatch_positions_device)),
+               (port, "mismatch_positions_kernel",
+                timer("kernel", port.mismatch_positions_kernel, sync=True)),
+               (recomb, "_keep_table", timer("keep tables", recomb._keep_table)),
+               (native, "native_filter_windows",
+                timer("native window pass", native.native_filter_windows)),
+               (recomb, "_binom_sf", binom_sf)]
+    saved = [(mod, name, getattr(mod, name)) for mod, name, _ in patches]
+    # what the import costs a process that has not paid it (the CLI's)
+    fresh = subprocess.run(
+        [sys.executable, "-c", "import time; t = time.perf_counter(); import scipy.stats; "
+         "print(time.perf_counter() - t)"], capture_output=True, text=True, timeout=300)
+    print(f"# --filter: scipy.stats imported before the run: {'scipy.stats' in sys.modules}; "
+          f"its import in a fresh process {fresh.stdout.strip() or fresh.stderr[-200:]} s")
     out = os.path.join(tmp, "dists_filter.csv")
     argv = ["distance", "--msa", fasta, "-o", out, "-D", "200", "--row-block", str(row_block),
             "--filter"]
-    port.filter_pairs = timed  # only to read the filter's share of the wall
+    for mod, name, fn in patches:  # only to read where the filter's time goes
+        setattr(mod, name, fn)
     try:
         wall, counts, fields, sha = _run_cli(argv, packed.n_seqs, row_block,
                                              "distance --filter CLI", device)
     finally:
-        port.filter_pairs = real
-    print(f"# --filter CSV: {len(fields)} rows, sha256 {sha}; filter_pairs {spent[0]:.3f} s, "
-          f"{100 * spent[0] / wall:.2f}% of the wall")
-    if counts["mism_positions"] < 1:
-        fail("the --filter run did not launch the mismatch-position kernel")
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
+    total = spent["filter_pairs"]
+    split = {"scipy.stats import": spent["scipy.stats import"],
+             f"keep tables ({calls['keep tables']} builds)": spent["keep tables"],
+             "native window pass": spent["native window pass"],
+             f"mismatch-position kernel ({calls['kernel']} calls, plan to the card's end)":
+                 spent["kernel"],
+             "position table to the host": spent["device step"] - spent["kernel"]}
+    split["the rest (numpy in filter_pairs and _filter_flat)"] = total - sum(split.values())
+    print(f"# --filter: filter_pairs {total:.3f} s: " + "; ".join(
+        f"{k} {v:.3f} s ({100 * v / total:.1f}%)" for k, v in split.items()))
+    print(f"# --filter CSV: {len(fields)} rows, sha256 {sha}; filter_pairs {total:.3f} s, "
+          f"{100 * total / wall:.2f}% of the wall")
+    if counts["mism_positions"] < 1 or counts["mism_positions (tiled)"] != counts["mism_positions"]:
+        fail(f"the --filter run launched the mismatch-position kernels "
+             f"{counts['mism_positions']} times, the tiled one {counts['mism_positions (tiled)']}: "
+             f"the main path should take the tiled kernel every time")
     same = (0, 1, 2, 3, 4, 5, 7, 8)
     if [[f[k] for k in same] for f in fields] != [[f[k] for k in same] for f in plain_fields]:
         fail("the --filter run's rows differ from the run without --filter outside the "
@@ -1516,7 +1653,10 @@ def phase_planted(L: int, seed: int, device):
     print(f"# planted: n={n} L={L}, {len(rows)} pairs in {wall:.3f} s, compacted "
           f"{packed.planes.shape[2]} -> {comp[0].planes.shape[2]} words, split_gram launches "
           f"{counts['split_gram']}, coo_extract launches {counts['coo_extract']}, "
-          f"mism_positions launches {counts['mism_positions']}")
+          f"mism_positions launches {counts['mism_positions']} (the tiled kernel "
+          f"{counts['mism_positions (tiled)']}, the warp kernel "
+          f"{counts['mism_positions'] - counts['mism_positions (tiled)']}: whole rows of pairs "
+          f"with no threshold stage more samples than pairs, so the rule takes the warp kernel)")
     if len(rows) != n * (n - 1) // 2 or counts["mism_positions"] < 1 \
             or counts["coo_extract"] != len(blocks):
         fail("planted case: pairs missing, or the mismatch-position kernel not launched, or "
@@ -2377,8 +2517,14 @@ def phase_mesh(packed, fasta: str, cache: str, row_block: int, sha_plain: str,
     recs = _run_world(4, jobs_b, tmp, "four")
     print(f"# mesh world of 4 gloo ranks: {time.perf_counter() - t0:.3f} s with start-up")
     launches = _report("2x2 --filter", recs["2x2f"], 2, 1)
+    tiled = [r["counts"]["mism_positions (tiled)"] for r in recs["2x2f"]]
+    print(f"# mesh 2x2 --filter: the tiled mismatch-position kernel's launches a rank "
+          f"{', '.join(map(str, tiled))}")
     if any(r["counts"]["mism_positions"] < 1 for r in recs["2x2f"]):
         fail("mesh 2x2 --filter: a rank did not launch the mismatch-position kernel")
+    if any(r["counts"]["mism_positions"] != t for r, t in zip(recs["2x2f"], tiled)):
+        fail("mesh 2x2 --filter: a rank launched the warp kernel on its clustered blocks, where "
+             "the rule should take the tiled kernel every time")
     check_csvs(jobs_b[0], 4, sha_filter)
     blocks = -(-(n - 1024) // row_block)
     _report("2x2 block sweep from row 1024", recs["sweep"], blocks, blocks)
@@ -2536,8 +2682,12 @@ def main() -> None:
         *(entry(f"split_gram_variant {name}", name, "split_gram_mma",
                 "scripts/kernel_experiments.py:22", exp_counts[name], (0, 1))
           for name in (K.variant_name(*v) for v in K.SPLIT_GRAM_VARIANTS)),
+        # the tiled kernel: its launches in the --filter run (every launch
+        # there, or the run fails), its error over every check of phase 4, its
+        # times, plain time and bound at the first block; the first version's
+        # times there ride along as first_version_ms / first_version_device_ms
         entry("mism_positions", "mism_positions", "mism_positions",
-              "tracs_tpu/ops/pairsnp.py:1501", filter_launches["mism_positions"]),
+              "tracs_tpu/ops/pairsnp.py:1501", filter_launches["mism_positions (tiled)"]),
         # the main path's two device steps after the grams, as hand-written
         # kernels: launches in the distance CLI run; error, times and bound
         # at the first block of the headline's sweep (phase 2)

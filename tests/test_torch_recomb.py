@@ -742,9 +742,11 @@ def test_stream_filter_cuda_matches_cpu(cuda_device, method):
 @pytest.mark.cuda
 def test_shared_memory_design_builds_and_agrees(cuda_device):
     """``csrc/mism_positions_shared.cu`` is on no path: the probe that times it
-    beside the committed kernel builds it, holds both against the plain
-    version on both layouts at every group size, and exits on a difference."""
+    beside the committed kernels builds it, holds all three against the plain
+    version on both layouts at every group size (the committed two also on
+    the other callers' pair lists and on tiles of fewer samples), and exits
+    on a difference."""
     from tracs_tpu_torch.experiments import mism_positions_probe
 
     mism_positions_probe.main(["--n", "256", "--length", "100000", "--row-block", "128",
-                               "--groups", "32,8,128"])
+                               "--groups", "32,8,128", "--patterns", "--samples", "14"])

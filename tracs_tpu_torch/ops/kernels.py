@@ -22,8 +22,12 @@ per variant in ``SPLIT_GRAM_VARIANT_LAUNCHES``.
 
 ``mismatch_positions_kernel`` — per pair of samples, the count and the
 ascending positions of the sites where the two share no allele, from the
-CUDA kernel ``csrc/mism_positions.cu`` (the recombination filter's device
-step); launches counted in ``MISM_POSITIONS_LAUNCHES``.
+CUDA kernels ``csrc/mism_positions.cu`` (the recombination filter's device
+step): tiles of consecutive pairs that stage each of their samples' rows
+once, with the word axis cut into parts across the card, or, where tiles
+cannot pay (``mism_design``), a warp a pair; launches counted in
+``MISM_POSITIONS_LAUNCHES`` (the tiled kernel's also in
+``MISM_POSITIONS_TILED_LAUNCHES``).
 
 ``partial_gram`` — the split engine's correction gram over the partial-IUPAC
 sites (the 10 plane-pair and plane-triple AND grams, signed), from the CUDA
@@ -56,6 +60,7 @@ from __future__ import annotations
 
 import ctypes
 import warnings
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -66,8 +71,10 @@ from tracs_tpu_torch.runtime.device import resolve_device, to_host
 SPLIT_GRAM_LAUNCHES = 0
 #: launches of the CUDA popcount-gram kernel in this process
 POPCOUNT_GRAM_LAUNCHES = 0
-#: launches of the CUDA mismatch-position kernel in this process
+#: launches of the CUDA mismatch-position kernels in this process (both
+#: designs), and of the tiled one alone
 MISM_POSITIONS_LAUNCHES = 0
+MISM_POSITIONS_TILED_LAUNCHES = 0
 #: launches of the CUDA correction-gram kernel in this process
 PARTIAL_GRAM_LAUNCHES = 0
 #: launches of the CUDA COO-extraction kernel in this process
@@ -537,7 +544,9 @@ def split_gram_variant(ea, nm, r0: int, rb: int, c0: int, eb=None, nmb=None, *,
 # ---------------------------------------------------------------------------
 
 def _mism_operands(pa, pb, ii, jj, length, capacity, ma, mb):
-    """Validated (pb, mb, ii, jj) of a mismatch-position call."""
+    """Validated (pb, mb, ii, jj) of a mismatch-position call; ``ii`` and
+    ``jj`` come back as int64 tensors on the device they came on (a numpy
+    vector: the host, without a copy)."""
     if pb is None:
         pb, mb = pa, ma
     if (ma is None) != (mb is None):
@@ -555,8 +564,8 @@ def _mism_operands(pa, pb, ii, jj, length, capacity, ma, mb):
         raise ValueError(f"length {length} outside [0, {min(32 * W, 2**31 - 1)}]")
     if capacity < 0:
         raise ValueError(f"capacity {capacity} < 0")
-    ii = torch.as_tensor(ii, dtype=torch.int64).to(pa.device).contiguous()
-    jj = torch.as_tensor(jj, dtype=torch.int64).to(pa.device).contiguous()
+    ii = torch.as_tensor(ii, dtype=torch.int64).contiguous()
+    jj = torch.as_tensor(jj, dtype=torch.int64).contiguous()
     if ii.dim() != 1 or ii.shape != jj.shape:
         raise ValueError(f"pair indices must be two vectors of one length, got "
                          f"{tuple(ii.shape)} and {tuple(jj.shape)}")
@@ -576,6 +585,7 @@ def mismatch_positions_reference(pa, pb, ii, jj, length: int, capacity: int,
     ascending within a pair); chunked so the unpacked sites stay under
     ~512 MB."""
     pb, mb, ii, jj = _mism_operands(pa, pb, ii, jj, length, capacity, ma, mb)
+    ii, jj = ii.to(pa.device), jj.to(pa.device)
     P, W = ii.numel(), pa.shape[2]
     out = torch.full((P, 1 + capacity), -1, dtype=torch.int32, device=pa.device)
     chunk = max(1, _REFERENCE_BYTES // max(1, 2 * 32 * W))
@@ -596,8 +606,284 @@ def mismatch_positions_reference(pa, pb, ii, jj, length: int, capacity: int,
     return out
 
 
+#: pairs a tile of the tiled kernel holds at most (their state lives in its
+#: shared memory; ``kMaxTilePairs`` in csrc/mism_positions.cu)
+MISM_TILE_PAIRS = 512
+#: distinct samples a tile holds at most (``kTileSamples``): a stage of the
+#: ring holds a 128-word chunk of each, three stages deep with the N masks;
+#: the main path's clusters of 21 make row-major runs that a tile covers whole
+MISM_TILE_SAMPLES = 28
+#: words a chunk of the tiled kernel (``kChunkWords``: 4 a lane)
+MISM_CHUNK_WORDS = 128
+#: parts of the word axis a tile is cut into at most (``kMaxParts``)
+MISM_MAX_PARTS = 16
+#: the largest capacity of the tiled kernel: a rank is 16 bits of its entries
+MISM_TILED_MAX_CAPACITY = 65535
+#: warps a block of the tiled kernel (``kTileWarps``)
+MISM_TILE_WARPS = 32
+#: entries (pair, rank, position) a block of the tiled kernel keeps at most
+#: before it walks its part a second time, 512 a warp (128 KB of scratch a
+#: block), and the most scratch a launch's entries take (``mism_launch_shape``)
+_MISM_ENTRY_CAP = 16384
+_MISM_ENTRY_BYTES = 128 << 20
+#: the samples the tiled kernel's tiles may stage in all, at least, before
+#: the rule hands a list to the warp kernel (``mism_design``)
+MISM_TILED_MIN_SAMPLES = 1024
+#: the kernels ``mismatch_positions_kernel``'s ``_design`` may name
+_MISM_DESIGNS = ("tiled", "warp")
+
+
+class MismTilePlan(NamedTuple):
+    """The tiled kernel's cut of a pair list (``mism_tile_plan``), all int32:
+    tile t holds pairs [pair_start[t], pair_start[t + 1]) and the samples
+    keys[key_start[t]:key_start[t + 1]] (a row of A, or ~row of B; by side,
+    then row); slots[p] is pair p's A sample's slot | its B sample's slot
+    << 8; the tile's copies are boxes[box_start[t]:box_start[t + 1]], each
+    its first slot | log2(rows) << 8 over rows consecutive in the layout."""
+
+    pair_start: np.ndarray
+    key_start: np.ndarray
+    keys: np.ndarray
+    slots: np.ndarray
+    box_start: np.ndarray
+    boxes: np.ndarray
+
+    @property
+    def tiles(self) -> int:
+        return len(self.pair_start) - 1
+
+    @property
+    def max_samples(self) -> int:
+        return int(np.diff(self.key_start).max()) if self.tiles else 0
+
+    def words(self) -> np.ndarray:
+        """The plan as the kernel reads it: one int32 vector."""
+        return np.concatenate(self)
+
+
+def mism_tile_plan(ii, jj, *, samples: int = MISM_TILE_SAMPLES, one_layout: bool = True,
+                   stop_above: int | None = None) -> MismTilePlan | None:
+    """Cuts the pair list (ii[p], jj[p]) into tiles of consecutive pairs,
+    greedily in the caller's order: a tile grows while it holds at most
+    ``samples`` distinct samples and ``MISM_TILE_PAIRS`` pairs (the kernel
+    takes tiles of any size up to its own caps; the wrapper plans at
+    ``MISM_TILE_SAMPLES``, experiments/mism_positions_probe.py --samples at
+    fewer).  A sample is a row of A, or of B when
+    the two sides are separate layouts (``one_layout`` False: row r of B is
+    key ~r, apart from row r of A).  Gives each tile its distinct samples
+    sorted by side, then row, each pair the slots of its two samples among
+    them, and the tile's copies: each run of samples on consecutive rows of
+    one side cut into boxes of 8, 4, 2 or 1 rows.  With ``stop_above``,
+    returns None as soon as the tiles' samples add up to more than that.  A
+    plain function of the indices (the pair list's order and repeats decide
+    the cut, never the data), run on the host by ``csrc/mism_plan.cpp`` in
+    one pass."""
+    from tracs_tpu_torch.runtime.build import load_host_library
+
+    if not 2 <= samples <= MISM_TILE_SAMPLES:
+        raise ValueError(f"samples {samples} outside [2, {MISM_TILE_SAMPLES}]")
+    ii = np.ascontiguousarray(ii, dtype=np.int64)
+    jj = np.ascontiguousarray(jj, dtype=np.int64)
+    P = len(ii)
+    if len(jj) != P or (P and min(ii.min(), jj.min()) < 0):
+        raise ValueError("pair indices must be two vectors of one length, none negative")
+    rows = int(max(ii.max(), jj.max())) + 1 if P else 0
+    fn = load_host_library("mism_plan").tracs_mism_tile_plan
+    if fn.argtypes is None:
+        i64p = np.ctypeslib.ndpointer(dtype=np.int64, flags="C_CONTIGUOUS")
+        i32p = np.ctypeslib.ndpointer(dtype=np.int32, flags="C_CONTIGUOUS")
+        fn.restype = ctypes.c_longlong
+        fn.argtypes = ([i64p, i64p] + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 3
+                       + [ctypes.c_longlong] + [i32p] * 6)
+    pair_start, key_start, box_start = (np.empty(P + 1, dtype=np.int32) for _ in range(3))
+    keys, boxes = np.empty(2 * P, dtype=np.int32), np.empty(2 * P, dtype=np.int32)
+    slots = np.empty(P, dtype=np.int32)
+    tiles = fn(ii, jj, P, rows, rows, samples, MISM_TILE_PAIRS, int(one_layout),
+               -1 if stop_above is None else stop_above, pair_start, key_start, keys, slots,
+               box_start, boxes)
+    if tiles == -1:
+        return None
+    if tiles < 0:
+        raise ValueError("the tile plan refused its inputs")
+    return MismTilePlan(pair_start[:tiles + 1], key_start[:tiles + 1], keys[:key_start[tiles]],
+                        slots, box_start[:tiles + 1], boxes[:box_start[tiles]])
+
+
+def mism_parts(tiles: int, n_chunks: int, sms: int) -> int:
+    """Parts of the word axis for ``tiles`` tiles of ``n_chunks`` chunks, one
+    block a (tile, part) and one block an SM: at least two waves where the
+    chunks allow, then the count that wastes the least of the last wave
+    (ceil(tiles * K / sms) / K, the time in units of a whole tile; the
+    fewer parts on a tie), at most ``MISM_MAX_PARTS``."""
+    hi = max(1, min(MISM_MAX_PARTS, n_chunks))
+    lo = min(hi, max(1, -(-2 * sms // max(1, tiles))))
+    return min(range(lo, hi + 1), key=lambda k: (-(-tiles * k // sms) / k, k))
+
+
+def _tiled_operands_ok(tensors, words: int, capacity: int) -> bool:
+    """The tiled kernel takes the operands: a word pitch that is a multiple
+    of ``LAYOUT_WORD_MULTIPLE`` and 16-byte aligned storage (the tensor maps'
+    rule) and a capacity of at most ``MISM_TILED_MAX_CAPACITY``."""
+    return (words % LAYOUT_WORD_MULTIPLE == 0 and capacity <= MISM_TILED_MAX_CAPACITY
+            and not any(t.data_ptr() % 16 for t in tensors))
+
+
+def _host_vector(x) -> np.ndarray:
+    """An index vector as int64 numpy on the host (a CUDA tensor is copied)."""
+    if isinstance(x, torch.Tensor):
+        return x.cpu().numpy()
+    return np.asarray(x, dtype=np.int64)
+
+
+def mism_design(tensors, words: int, ii, jj, capacity: int, one_layout: bool,
+                design: str | None = None):
+    """(kernel, plan): the kernel ``mismatch_positions_kernel`` launches on
+    the card for these inputs, "tiled" with its tile plan or "warp" with
+    None.  The rule: the tiled kernel where it takes the operands
+    (``_tiled_operands_ok``) and its tiles stage at most
+    max(``MISM_TILED_MIN_SAMPLES``, P) samples in all; otherwise the warp
+    kernel.  Measured in turns at the main path's W = 31,252 on an H100
+    (experiments/mism_positions_probe.py --patterns): the tiled kernel's time
+    follows the samples it stages (~2,000-4,500 a ms), the warp kernel's the
+    pairs (~3,300-5,700 a ms, re-reads served by L2) above a floor of ~0.53
+    ms (a warp walks a pair's words alone), in which the tiled kernel stages
+    ~1,000 samples.  The tiled kernel was faster on clustered row-major
+    blocks (0.13-0.19 samples a pair), on every sample against itself (1.0 a
+    pair, 1.35x) and on every list of at most ~660 staged samples (one pair
+    to 600 pairs, 2.7-9x); the warp kernel on 10,280 pairs in no order (2.0
+    a pair, 2.9x) and on whole rows against every later sample (1.04 a pair,
+    2.1x; pairs that mismatch at most sites).  The cut at one sample a pair
+    lies between those readings.  ``design`` forces one; forced, the tiled
+    kernel raises on operands it does not take.  The rule reads the inputs
+    only: a build or launch error raises and never chooses.  The indices go
+    to the host (for the plan) only where the operands let the tiled kernel
+    run."""
+    if design not in (None, *_MISM_DESIGNS):
+        raise ValueError(f"unknown design {design!r}")
+    if design == "warp":
+        return "warp", None
+    ok = _tiled_operands_ok(tensors, words, capacity)
+    if design == "tiled" and not ok:
+        raise ValueError(
+            f"the tiled mismatch-position kernel needs a word pitch that is a multiple of "
+            f"{LAYOUT_WORD_MULTIPLE}, 16-byte aligned storage and a capacity of at most "
+            f"{MISM_TILED_MAX_CAPACITY}; got {words} words, capacity {capacity}")
+    if not ok:
+        return "warp", None
+    ii, jj = _host_vector(ii), _host_vector(jj)
+    limit = max(MISM_TILED_MIN_SAMPLES, len(ii))
+    plan = mism_tile_plan(ii, jj, one_layout=one_layout,
+                          stop_above=None if design == "tiled" else limit)
+    return ("warp", None) if plan is None else ("tiled", plan)
+
+
+class MismLaunchShape(NamedTuple):
+    """How the tiled kernel walks the word axis for a plan (``mism_launch_shape``)."""
+
+    n_chunks: int      # chunks of MISM_CHUNK_WORDS that hold a site below the length
+    parts: int         # parts of the word axis, none of them empty
+    part_chunks: int   # chunks a part
+    entry_cap: int     # entries a block keeps before it walks its part again
+
+
+def mism_launch_shape(plan: MismTilePlan, length: int, sms: int,
+                      capacity: int) -> MismLaunchShape:
+    """The tiled kernel's chunks and parts for ``plan`` at ``length`` sites on
+    a card of ``sms`` SMs: the chunks cover the words that hold a site,
+    ceil(length / 32), and ``mism_parts`` cuts them.  A block keeps at most
+    ``_MISM_ENTRY_CAP`` entries, no more than its largest tile can use (a
+    rank below the capacity for each of its pairs), and the launch's entries
+    at most ``_MISM_ENTRY_BYTES``; a whole number a warp, at least one.  A
+    block with more mismatches walks its part again."""
+    n_chunks = -(-(-(-length // 32)) // MISM_CHUNK_WORDS)
+    parts = mism_parts(plan.tiles, n_chunks, sms)
+    part_chunks = -(-n_chunks // parts) if n_chunks else 0
+    parts = -(-n_chunks // part_chunks) if n_chunks else 1
+    pairs = int(np.diff(plan.pair_start).max()) if plan.tiles else 0
+    entries = min(_MISM_ENTRY_CAP, pairs * capacity,
+                  _MISM_ENTRY_BYTES // (8 * max(1, plan.tiles * parts)))
+    entries = max(MISM_TILE_WARPS, entries // MISM_TILE_WARPS * MISM_TILE_WARPS)
+    return MismLaunchShape(n_chunks, parts, part_chunks, entries)
+
+
+def _mism_warp_launcher(pa, pb, ma, mb, ii, jj, length, capacity, out):
+    fn = _kernel_entry("mism_positions", (
+        [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 + [ctypes.c_int]
+        + [ctypes.c_void_p] * 2
+    ), "mism_positions_warp")
+    ii, jj = ii.to(pa.device), jj.to(pa.device)
+    args = (pa.data_ptr(), None if ma is None else ma.data_ptr(),
+            pb.data_ptr(), None if mb is None else mb.data_ptr(),
+            ii.data_ptr(), jj.data_ptr(), len(ii), pa.shape[2], length, capacity, out.data_ptr())
+
+    def launch():
+        return fn(*args, torch.cuda.current_stream(pa.device).cuda_stream)
+    launch.buffers = (ii, jj)   # alive while the launcher lives
+    return launch
+
+
+#: ctypes argument types of ``tracs_mism_positions_tiled``
+_MISM_TILED_ARGTYPES = (
+    [ctypes.c_void_p] * 4 + [ctypes.c_longlong] * 4 + [ctypes.c_int] + [ctypes.c_void_p]
+    + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p] * 3)
+
+
+def _mism_tiled_launcher(pa, pb, ma, mb, plan: MismTilePlan, length, capacity, out, fn=None):
+    """The tiled kernel's launcher; ``fn`` replaces the built entry point by
+    another library's (experiments/mism_positions_probe.py times rewritten
+    copies of the source through it)."""
+    dev = pa.device
+    shape = mism_launch_shape(plan, length,
+                              torch.cuda.get_device_properties(dev).multi_processor_count,
+                              capacity)
+    P = len(plan.slots)
+    scratch_words = _kernel_entry(
+        "mism_positions", [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int],
+        "mism_positions_scratch_words", ctypes.c_longlong)(plan.tiles, shape.parts, P,
+                                                           shape.entry_cap)
+    scratch = torch.empty(scratch_words, dtype=torch.int32, device=dev)
+    plan_dev = torch.from_numpy(plan.words()).to(dev)
+    if fn is None:
+        fn = _kernel_entry("mism_positions", _MISM_TILED_ARGTYPES, "mism_positions_tiled")
+    args = (pa.data_ptr(), None if ma is None else ma.data_ptr(),
+            pb.data_ptr(), None if mb is None else mb.data_ptr(),
+            pa.shape[0], pb.shape[0], pa.shape[2], length, capacity,
+            plan_dev.data_ptr(), plan.tiles, len(plan.keys), P, plan.max_samples,
+            shape.parts, shape.part_chunks, shape.n_chunks, shape.entry_cap,
+            scratch.data_ptr(), out.data_ptr())
+
+    def launch():
+        return fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    launch.buffers = (scratch, plan_dev)   # alive while the launcher lives
+    return launch
+
+
+def _mism_launcher(pa, pb, ii, jj, length: int, capacity: int, ma=None, mb=None,
+                   design: str | None = None):
+    """(out, design, launch) of a mismatch-position call on the card: the
+    operands validated, the kernel chosen by ``mism_design`` (``design``
+    forces one), the output, the plan and the scratch allocated; ``launch()``
+    launches the kernel on the current stream and returns the entry point's
+    CUDA error (0: none).  Calling it again relaunches on the same buffers
+    (timing, through ``chip_smoke.device_ms``); it counts no launch."""
+    pb, mb, ii, jj = _mism_operands(pa, pb, ii, jj, length, capacity, ma, mb)
+    _check_cuda(pa, "mismatch_positions_kernel", max(pa.shape[0], pb.shape[0]))
+    out = torch.empty((ii.numel(), 1 + capacity), dtype=torch.int32, device=pa.device)
+    if ii.numel() == 0:
+        return out, None, None
+    tensors = (pa, pb) + (() if ma is None else (ma, mb))
+    design, plan = mism_design(tensors, pa.shape[2], ii, jj, capacity, pb is pa and mb is ma,
+                               design)
+    with torch.cuda.device(pa.device):
+        if design == "tiled":
+            launch = _mism_tiled_launcher(pa, pb, ma, mb, plan, length, capacity, out)
+        else:
+            launch = _mism_warp_launcher(pa, pb, ma, mb, ii, jj, length, capacity, out)
+    return out, design, launch
+
+
 def mismatch_positions_kernel(pa, pb, ii, jj, length: int, capacity: int,
-                              ma=None, mb=None):
+                              ma=None, mb=None, *, _design: str | None = None):
     """int32 [P, 1 + capacity]: for pair p = (row ii[p] of A, row jj[p] of B)
     the number of sites below ``length`` where the two samples share no
     allele, then the first ``capacity`` such sites in ascending order, then
@@ -609,31 +895,28 @@ def mismatch_positions_kernel(pa, pb, ii, jj, length: int, capacity: int,
     OR_x(a_x & b_x) is set.  With ``ma``/``mb`` (int32 [n, W] N masks) they
     are the split layout's N-exclusive planes and
     shared = OR_x(ea_x & eb_x) | na | nb.  The full resident layouts and the
-    pair index vectors go in; no gathered copy is made.  CPU tensors take
-    ``mismatch_positions_reference``; CUDA tensors launch the kernel or
-    raise."""
-    global MISM_POSITIONS_LAUNCHES
+    pair indices (numpy or tensors, on the host or the card) go in; no
+    gathered copy is made.  CPU tensors take ``mismatch_positions_reference``;
+    CUDA tensors launch one of the two kernels of ``csrc/mism_positions.cu``
+    once, by ``mism_design``'s rule on the inputs, or raise: the tiled kernel
+    (tiles of pairs that stage their samples' rows once, the word axis cut
+    into parts), counted in ``MISM_POSITIONS_TILED_LAUNCHES``, or the warp
+    kernel (a warp a pair); ``MISM_POSITIONS_LAUNCHES`` counts both.
+    ``_design`` ("tiled" or "warp") forces one kernel, for the card-only
+    tests and the experiments that hold the two side by side."""
+    global MISM_POSITIONS_LAUNCHES, MISM_POSITIONS_TILED_LAUNCHES
     if pa.device.type == "cpu":
         return mismatch_positions_reference(pa, pb, ii, jj, length, capacity, ma, mb)
-    pb, mb, ii, jj = _mism_operands(pa, pb, ii, jj, length, capacity, ma, mb)
-    _check_cuda(pa, "mismatch_positions_kernel", max(pa.shape[0], pb.shape[0]))
-    P = ii.numel()
-    out = torch.empty((P, 1 + capacity), dtype=torch.int32, device=pa.device)
-    if P == 0:
+    out, design, launch = _mism_launcher(pa, pb, ii, jj, length, capacity, ma, mb, _design)
+    if launch is None:
         return out
-    fn = _kernel_entry("mism_positions", (
-        [ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 + [ctypes.c_int]
-        + [ctypes.c_void_p] * 2
-    ))
     with torch.cuda.device(pa.device):
-        stream = torch.cuda.current_stream(pa.device).cuda_stream
-        rc = fn(pa.data_ptr(), None if ma is None else ma.data_ptr(),
-                pb.data_ptr(), None if mb is None else mb.data_ptr(),
-                ii.data_ptr(), jj.data_ptr(), P, pa.shape[2], length, capacity,
-                out.data_ptr(), stream)
+        rc = launch()
     if rc != 0:
-        raise RuntimeError(f"mism_positions kernel launch failed: CUDA error {rc}")
+        raise RuntimeError(f"mism_positions {design} kernel launch failed: CUDA error {rc}")
     MISM_POSITIONS_LAUNCHES += 1
+    if design == "tiled":
+        MISM_POSITIONS_TILED_LAUNCHES += 1
     return out
 
 

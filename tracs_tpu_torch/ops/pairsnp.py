@@ -468,8 +468,8 @@ def mismatch_positions_device(
         pa, ma = _planes_device(a, device), None
         pb, mb = (None if b is a else _planes_device(b, device)), None
     n = len(pairs_i)
-    ii = torch.from_numpy(np.asarray(pairs_i, dtype=np.int64)).to(device)
-    jj = torch.from_numpy(np.asarray(pairs_j, dtype=np.int64)).to(device)
+    ii = np.asarray(pairs_i, dtype=np.int64)
+    jj = np.asarray(pairs_j, dtype=np.int64)
     counts = np.empty(n, dtype=np.int64)
     positions = np.empty((n, capacity), dtype=np.int64)
     chunk = max(1, _MISM_TABLE_BYTES // (4 * (1 + capacity)))

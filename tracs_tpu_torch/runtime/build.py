@@ -1,10 +1,13 @@
 """Builds the port's native code at first use, into the git-ignored
 ``build/`` directory of the checkout, and loads it with ctypes.
 
-Two kinds of library are built here:
+Three kinds of library are built here:
 
 * the host library ``src/tracs_native.cpp`` (FASTA packing, split-layout
   statistics, CSV row formatting), with g++ into ``build/native/``;
+* the port's own host code beside its kernels,
+  ``tracs_tpu_torch/csrc/<name>.cpp`` (the tiled mismatch-position kernel's
+  tile plan), with g++ into ``build/native/``;
 * the hand-written CUDA kernels ``tracs_tpu_torch/csrc/<name>.cu``, with
   nvcc for Hopper (``sm_90a``) into ``build/kernels/``.  Each exposes a
   plain C entry point that takes device pointers and a stream as
@@ -107,6 +110,21 @@ def build_cuda_library(name: str) -> tuple[str, str]:
     headers = tuple(sorted(os.path.join(CSRC_DIR, f) for f in os.listdir(CSRC_DIR)
                            if f.endswith(".cuh")))
     return compile_library(src, os.path.join(BUILD_DIR, "kernels"), name, argv, deps=headers)
+
+
+def load_host_library(name: str) -> ctypes.CDLL:
+    """The loaded host library ``csrc/<name>.cpp`` (plain C++ that a kernel's
+    wrapper runs on the host), built with g++ into ``build/native/`` on first
+    use."""
+    with _LOCK:
+        lib = _LOADED.get(name)
+        if lib is None:
+            src = os.path.join(CSRC_DIR, f"{name}.cpp")
+            argv = ["g++", "-O2", "-std=c++17", "-shared", "-fPIC", src, "-o", "{out}"]
+            path, _ = compile_library(src, os.path.join(BUILD_DIR, "native"), name, argv)
+            lib = ctypes.CDLL(path)
+            _LOADED[name] = lib
+        return lib
 
 
 def load_cuda_library(name: str) -> ctypes.CDLL:

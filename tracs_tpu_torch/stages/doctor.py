@@ -10,7 +10,8 @@ card and the CUDA kernels (counterpart of tracs_tpu/stages/doctor.py).
   consensus recovers the genome, so a flag incompatibility fails here, in
   seconds, with the offending command printed;
 * the runtime (``check_runtime``, where tracs_tpu probes its JAX devices):
-  the native host library builds; the torch version and the CUDA it was
+  the native host library builds, and the port's host code beside its
+  kernels (``csrc/mism_plan.cpp``); the torch version and the CUDA it was
   built for; whether a card is visible, with its name and power limit as
   nvidia-smi reports them; nvcc's version; and whether every kernel source
   ``csrc/<name>.cu`` of ``runtime/build.py::KERNELS`` builds for sm_90a.
@@ -212,6 +213,7 @@ def check_runtime(device: str = "cuda") -> tuple[list[str], list[str]]:
     kernels are not built."""
     import torch
 
+    from tracs_tpu_torch.runtime.build import BuildError, load_host_library
     from tracs_tpu_torch.runtime.native import get_lib
 
     ok, problems = [], []
@@ -223,6 +225,13 @@ def check_runtime(device: str = "cuda") -> tuple[list[str], list[str]]:
             "numpy fallbacks keep everything working, slower ingest"
         )
     ok.append(f"torch {torch.__version__}, built for CUDA {torch.version.cuda or 'none'}")
+    try:
+        load_host_library("mism_plan")
+        ok.append("host code mism_plan.cpp (the tiled mismatch-position kernel's tile plan): "
+                  "built and loadable")
+    except (BuildError, OSError) as e:
+        problems.append(f"host code mism_plan.cpp failed to build ({str(e).splitlines()[0]}) — "
+                        f"the card's --filter path needs it")
     card, card_line = _card_line()
     nvcc, nvcc_line = _nvcc_line()
     if device == "cpu":
