@@ -1,0 +1,29 @@
+"""Shared pieces of the benchmark's tests: tiny sizes of each configuration,
+and one harness run of a cell on the CPU."""
+
+import time
+
+import pytest
+
+TINY = {"bact-1mb-10000": {"samples": 90, "sites": 29903, "row_block": 32},
+        "bact-1mb-4096": {"samples": 48, "sites": 20000, "row_block": 16}}
+CELLS = ["bact-1mb-10000.sweep", "bact-1mb-4096.job", "bact-1mb-4096.filter-job"]
+
+
+def tiny(cell: str) -> dict:
+    return TINY[cell.split(".")[0]]
+
+
+@pytest.fixture
+def run_cell(monkeypatch):
+    from benchmark import harness
+
+    # the test process holds jax and tracs_tpu for the reference tests; the
+    # rule itself is tested in a fresh process (test_bench_cells.py)
+    monkeypatch.setattr(harness, "forbidden_modules", lambda: [])
+
+    def run(cell, seed=2**31 + 5, seconds=0.2, trace=False, **kw):
+        if "overrides" not in kw:
+            kw["overrides"] = tiny(cell)
+        return harness.run(cell, seed, seconds, trace, t0=time.perf_counter(), device="cpu", **kw)
+    return run
