@@ -271,25 +271,30 @@ def gram_bound(what: str, na: int, nb, W: int, r0: int, rb: int, c0: int, *, pla
 
 def reset_counts() -> None:
     """Every kernel's launch count to 0."""
-    from tracs_tpu_torch.ops import kernels
+    from tracs_tpu_torch.runtime import profiling
 
-    kernels.SPLIT_GRAM_LAUNCHES = kernels.POPCOUNT_GRAM_LAUNCHES = 0
-    kernels.MISM_POSITIONS_LAUNCHES = kernels.MISM_POSITIONS_TILED_LAUNCHES = 0
-    kernels.COO_EXTRACT_LAUNCHES = kernels.PARTIAL_GRAM_LAUNCHES = 0
-    for name in kernels.SPLIT_GRAM_VARIANT_LAUNCHES:
-        kernels.SPLIT_GRAM_VARIANT_LAUNCHES[name] = 0
+    profiling.reset("kernel.launches.")
+
+
+def launches(kernel: str) -> int:
+    """Launches of ``kernel`` since the last ``reset_counts``: the counter
+    ``kernel.launches.<kernel>`` of runtime/profiling.py."""
+    from tracs_tpu_torch.runtime import profiling
+
+    return profiling.counter("kernel.launches." + kernel)
 
 
 def read_counts() -> dict:
     from tracs_tpu_torch.ops import kernels
 
-    return {"split_gram": kernels.SPLIT_GRAM_LAUNCHES,
-            "popcount_gram": kernels.POPCOUNT_GRAM_LAUNCHES,
-            "mism_positions": kernels.MISM_POSITIONS_LAUNCHES,
-            "mism_positions (tiled)": kernels.MISM_POSITIONS_TILED_LAUNCHES,
-            "coo_extract": kernels.COO_EXTRACT_LAUNCHES,
-            "partial_gram": kernels.PARTIAL_GRAM_LAUNCHES,
-            **kernels.SPLIT_GRAM_VARIANT_LAUNCHES}
+    return {"split_gram": launches("split_gram"),
+            "popcount_gram": launches("popcount_gram"),
+            "mism_positions": launches("mism_positions"),
+            "mism_positions (tiled)": launches("mism_positions_tiled"),
+            "coo_extract": launches("coo_extract"),
+            "partial_gram": launches("partial_gram"),
+            **{name: launches("split_gram_mma." + name)
+               for name in (kernels.variant_name(*v) for v in kernels.SPLIT_GRAM_VARIANTS)}}
 
 
 # ---------------------------------------------------------------------------
@@ -1094,10 +1099,10 @@ def phase_mism_positions(packed, block, device):
     print(f"# mism_positions (tiled, split layout): {rec['registers']} registers, "
           f"{rec['local_bytes']} B local, {rec['shared_bytes']} B static shared")
     for k, (name, design, args) in enumerate(cases):
-        before = kernels.MISM_POSITIONS_TILED_LAUNCHES
+        before = launches("mism_positions_tiled")
         got = kernels.mismatch_positions_kernel(*args, _design=design)
         torch.cuda.synchronize()
-        tiled = kernels.MISM_POSITIONS_TILED_LAUNCHES - before
+        tiled = launches("mism_positions_tiled") - before
         want = kernels.mismatch_positions_reference(*args)
         err = int((got.long() - want.long()).abs().max())
         rec["max_abs_err"] = max(rec["max_abs_err"], err)
@@ -1201,16 +1206,16 @@ def phase_sweeps(fasta: str, row_block: int, device, card):
     t_split, split_blocks = sweep(fresh["split"], "split")
     reset_counts()
     t_pc, pc_blocks = sweep(fresh["popcount"], "popcount")
-    launches = kernels.POPCOUNT_GRAM_LAUNCHES
-    coo_launches = kernels.COO_EXTRACT_LAUNCHES
+    pc_launches = launches("popcount_gram")
+    coo_launches = launches("coo_extract")
     print(f"# sweep cold (layout + upload): split {t_split:.3f} s, popcount {t_pc:.3f} s; "
-          f"popcount_gram launches {launches}, coo_extract launches {coo_launches}, split_gram "
-          f"launches {kernels.SPLIT_GRAM_LAUNCHES} for {n_blocks} row blocks")
-    if launches != n_blocks or coo_launches != n_blocks or kernels.SPLIT_GRAM_LAUNCHES \
-            or kernels.PARTIAL_GRAM_LAUNCHES:
-        fail(f"the popcount sweep made {launches} popcount_gram and {coo_launches} coo_extract "
-             f"launches for {n_blocks} row blocks, and {kernels.SPLIT_GRAM_LAUNCHES} split_gram "
-             f"and {kernels.PARTIAL_GRAM_LAUNCHES} partial_gram launches")
+          f"popcount_gram launches {pc_launches}, coo_extract launches {coo_launches}, split_gram "
+          f"launches {launches('split_gram')} for {n_blocks} row blocks")
+    if pc_launches != n_blocks or coo_launches != n_blocks or launches("split_gram") \
+            or launches("partial_gram"):
+        fail(f"the popcount sweep made {pc_launches} popcount_gram and {coo_launches} coo_extract "
+             f"launches for {n_blocks} row blocks, and {launches('split_gram')} split_gram "
+             f"and {launches('partial_gram')} partial_gram launches")
     if len(pc_blocks) != len(split_blocks):
         fail("the popcount and split sweeps yield different numbers of blocks")
     for bp, bs in zip(pc_blocks, split_blocks):
@@ -1229,8 +1234,8 @@ def phase_sweeps(fasta: str, row_block: int, device, card):
     mxu = phase_mxu(fresh["popcount"], split_blocks, row_block, device, card)
     # both engines' layouts of one alignment object: the split layout is
     # resident on fresh["split"]; the raw planes follow at first use
-    return ((launches, coo_launches), phase_mism_positions(fresh["split"], split_blocks[0], device),
-            mxu)
+    return ((pc_launches, coo_launches),
+            phase_mism_positions(fresh["split"], split_blocks[0], device), mxu)
 
 
 def sweep_by_step(packed, row_block: int, device, split_blocks, turns: int = 3):
@@ -1312,12 +1317,12 @@ def phase_mxu(packed, split_blocks, row_block: int, device, card):
                                  method="mxu"))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = kernels.POPCOUNT_GRAM_LAUNCHES
-    coo_launches = kernels.COO_EXTRACT_LAUNCHES
-    print(f"# sweep warm mxu: {wall:.4f} s, popcount_gram launches {launches}, coo_extract "
+    pc_launches = launches("popcount_gram")
+    coo_launches = launches("coo_extract")
+    print(f"# sweep warm mxu: {wall:.4f} s, popcount_gram launches {pc_launches}, coo_extract "
           f"launches {coo_launches} for {n_blocks} row blocks")
-    if launches != n_blocks or coo_launches != n_blocks or kernels.SPLIT_GRAM_LAUNCHES:
-        fail(f"the mxu sweep made {launches} popcount_gram and {coo_launches} coo_extract "
+    if pc_launches != n_blocks or coo_launches != n_blocks or launches("split_gram"):
+        fail(f"the mxu sweep made {pc_launches} popcount_gram and {coo_launches} coo_extract "
              f"launches for {n_blocks} row blocks")
     if len(blocks) != len(split_blocks) or not all(
             b[:2] == s[:2] and all(np.array_equal(x, y) for x, y in zip(b[3:], s[3:]))
@@ -1362,7 +1367,7 @@ def phase_mxu(packed, split_blocks, row_block: int, device, card):
     print(f"# popcount_gram (mxu route) at {name}: kernel {rec['ms']:.3f} ms, plain "
           f"{rec['plain_ms']:.3f} ms (one run)")
     torch.cuda.empty_cache()
-    return (launches, coo_launches), rec
+    return (pc_launches, coo_launches), rec
 
 
 def phase_pack_cache(fasta: str, n: int, row_block: int, plain_csv: str, tmp: str, device):
@@ -2454,16 +2459,16 @@ def phase_mesh(packed, fasta: str, cache: str, row_block: int, sha_plain: str,
                 what = f"{'1x1 mesh' if on_mesh else 'one device'} from row {start}"
                 print(f"# mesh (a) nccl, {what}: {wall:.3f} s, {len(blocks)} blocks, "
                       f"{len(cat[0])} pairs, split_gram launches "
-                      f"{kernels.SPLIT_GRAM_LAUNCHES}, partial_gram launches "
-                      f"{kernels.PARTIAL_GRAM_LAUNCHES}, coo_extract launches "
-                      f"{kernels.COO_EXTRACT_LAUNCHES}, bytes through nccl "
+                      f"{launches('split_gram')}, partial_gram launches "
+                      f"{launches('partial_gram')}, coo_extract launches "
+                      f"{launches('coo_extract')}, bytes through nccl "
                       f"{mesh_mod.COLLECTIVE_BYTES:,}")
                 # a world of one: the ring's one stripe is its one block
-                if kernels.COO_EXTRACT_LAUNCHES != len(blocks) or \
-                        kernels.PARTIAL_GRAM_LAUNCHES != kernels.SPLIT_GRAM_LAUNCHES:
-                    fail(f"mesh (a), {what}: {kernels.COO_EXTRACT_LAUNCHES} coo_extract "
-                         f"launches for {len(blocks)} blocks, {kernels.PARTIAL_GRAM_LAUNCHES} "
-                         f"partial_gram for {kernels.SPLIT_GRAM_LAUNCHES} split_gram")
+                if launches("coo_extract") != len(blocks) or \
+                        launches("partial_gram") != launches("split_gram"):
+                    fail(f"mesh (a), {what}: {launches('coo_extract')} coo_extract "
+                         f"launches for {len(blocks)} blocks, {launches('partial_gram')} "
+                         f"partial_gram for {launches('split_gram')} split_gram")
                 if not on_mesh:
                     single[start] = (spans, cat)
                     continue
@@ -2516,7 +2521,7 @@ def phase_mesh(packed, fasta: str, cache: str, row_block: int, sha_plain: str,
     jobs_b = [cli_job("2x2f", "2x2", "--filter"), sweep]
     recs = _run_world(4, jobs_b, tmp, "four")
     print(f"# mesh world of 4 gloo ranks: {time.perf_counter() - t0:.3f} s with start-up")
-    launches = _report("2x2 --filter", recs["2x2f"], 2, 1)
+    mesh_launches = _report("2x2 --filter", recs["2x2f"], 2, 1)
     tiled = [r["counts"]["mism_positions (tiled)"] for r in recs["2x2f"]]
     print(f"# mesh 2x2 --filter: the tiled mismatch-position kernel's launches a rank "
           f"{', '.join(map(str, tiled))}")
@@ -2553,7 +2558,7 @@ def phase_mesh(packed, fasta: str, cache: str, row_block: int, sha_plain: str,
     rec.update(gram_bound(f"split_gram (mesh path) at {name}", shard["B"], shard["B"],
                           shard["W"], 0, shard["B"], 0, planes=5, products=5, popc=5, card=card,
                           peak_ops=PEAK_B1))
-    return launches, rec
+    return mesh_launches, rec
 
 
 def main() -> None:

@@ -20,6 +20,7 @@ import torch
 from tracs_tpu_torch.ops import kernels
 from tracs_tpu_torch.ops import pairsnp as port
 from tracs_tpu_torch.ops.packing import from_reference
+from tracs_tpu_torch.runtime import profiling
 
 INT32_MAX = 2**31 - 1
 DISTS = [-5, -1, 0, 40, INT32_MAX, 10**12]
@@ -204,10 +205,10 @@ def test_stream_through_coo_extract_matches_reference(jax_ref, method, dist, two
     fasta_j, fasta_p = ([ja, jb], [pa, pb]) if two else ([ja], [pa])
     want = list(jref.pairsnp_stream(fasta_j, dist=kernels.clamp_threshold(dist),
                                     method=method, row_block=4))
-    before = kernels.COO_EXTRACT_LAUNCHES
+    before = profiling.counter("kernel.launches.coo_extract")
     got = list(port.pairsnp_stream(fasta_p, dist=dist, device="cpu", method=method,
                                    row_block=4))
-    assert kernels.COO_EXTRACT_LAUNCHES == before  # the CPU counts no launch
+    assert profiling.counter("kernel.launches.coo_extract") == before  # the CPU counts no launch
     assert len(got) == len(want) == 4
     for g, w in zip(got, want):
         assert g[:2] == w[:2]
@@ -309,10 +310,10 @@ def test_coo_extract_cuda_matches_plain(cuda_device, mode, with_gp, dist, rb, m,
     rng = np.random.default_rng([rb, m, int(with_gp), len(mode)])
     grams = _torch(_grams(rng, rb, m, mode, with_gp, dmax=2000), device=cuda_device)
     kw = dict(L=L, dist=dist, r0=r0, c0=c0, n_valid=n_valid, triangle=triangle)
-    before = kernels.COO_EXTRACT_LAUNCHES
+    before = profiling.counter("kernel.launches.coo_extract")
     got = kernels.coo_extract(**grams, **kw)
     torch.cuda.synchronize()
-    assert kernels.COO_EXTRACT_LAUNCHES == before + 1
+    assert profiling.counter("kernel.launches.coo_extract") == before + 1
     want = kernels.coo_extract_reference(**grams, **kw)
     assert got.dtype == torch.int32 and torch.equal(got, want)
 
@@ -339,10 +340,10 @@ def test_stream_cuda_extracts_every_block(cuda_device):
     p = pack_sequences(["".join(rng.choice(alphabet, size=1000)) for _ in range(70)])
     want = list(port.pairsnp_stream([p], row_block=16, device="cpu", dist=700))
     for method in ("split", "popcount", "mxu"):
-        before = kernels.COO_EXTRACT_LAUNCHES
+        before = profiling.counter("kernel.launches.coo_extract")
         got = list(port.pairsnp_stream([p], row_block=16, device=cuda_device, method=method,
                                        dist=700))
-        assert kernels.COO_EXTRACT_LAUNCHES == before + 5
+        assert profiling.counter("kernel.launches.coo_extract") == before + 5
         for g, w in zip(got, want):
             assert g[:2] == w[:2]
             assert all(np.array_equal(x, y) for x, y in zip(g[3:], w[3:]))
@@ -384,8 +385,8 @@ def test_coo_extract_cuda_repeated_launches_agree(cuda_device):
                    cuda_device)
     kw = dict(L=L, dist=200, r0=1024, c0=1024, n_valid=4000, triangle=True)
     want = kernels.coo_extract_reference(**grams, **kw)
-    before = kernels.COO_EXTRACT_LAUNCHES
+    before = profiling.counter("kernel.launches.coo_extract")
     for _ in range(20):
         got = kernels.coo_extract(**grams, **kw)
         assert torch.equal(got, want)
-    assert kernels.COO_EXTRACT_LAUNCHES == before + 20
+    assert profiling.counter("kernel.launches.coo_extract") == before + 20

@@ -15,6 +15,7 @@ import torch
 
 from tracs_tpu_torch.experiments import kernel_experiments as port_experiments
 from tracs_tpu_torch.ops import kernels
+from tracs_tpu_torch.runtime import profiling
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 VARIANTS = kernels.SPLIT_GRAM_VARIANTS
@@ -158,10 +159,11 @@ def test_variant_cpu_call_counts_no_launch(variant):
     dot, tile, unpack = variant
     rng = np.random.default_rng(3)
     ea, nm = (_words(x) for x in _layout(rng, 5, 2))
-    before = dict(kernels.SPLIT_GRAM_VARIANT_LAUNCHES)
+    before = dict(profiling.counters)
     kernels.split_gram_variant(ea, nm, 0, 5, 0, dot=dot, tile=tile, unpack=unpack)
-    assert kernels.SPLIT_GRAM_VARIANT_LAUNCHES == before
-    assert kernels.variant_name(dot, tile, unpack) in before
+    assert profiling.counters == before
+    assert kernels.variant_name(dot, tile, unpack) in {kernels.variant_name(*v)
+                                                       for v in kernels.SPLIT_GRAM_VARIANTS}
 
 
 @pytest.mark.parametrize(
@@ -298,11 +300,11 @@ def test_variant_cuda_matches_plain(cuda_device, variant, na, nb, W, r0, rb, c0)
     ea, nm = kernels.pad_layout(words(na, 4, W), words(na, W))
     eb, nmb = (None, None) if nb is None else kernels.pad_layout(words(nb, 4, W), words(nb, W))
     name = kernels.variant_name(dot, tile, unpack)
-    before = kernels.SPLIT_GRAM_VARIANT_LAUNCHES[name]
+    before = profiling.counter("kernel.launches.split_gram_mma." + name)
     g, gn = kernels.split_gram_variant(ea, nm, r0, rb, c0, eb, nmb, dot=dot, tile=tile,
                                        unpack=unpack)
     torch.cuda.synchronize()
-    assert kernels.SPLIT_GRAM_VARIANT_LAUNCHES[name] == before + 1
+    assert profiling.counter("kernel.launches.split_gram_mma." + name) == before + 1
     g0, gn0 = kernels.split_gram_variant_reference(ea, nm, r0, rb, c0, eb, nmb, dot=dot)
     assert torch.equal(g, g0) and torch.equal(gn, gn0)
 

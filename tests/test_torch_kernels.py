@@ -11,6 +11,7 @@ import torch
 
 from tracs_tpu_torch.ops import kernels
 from tracs_tpu_torch.ops.packing import pack_sequences, split_alignment
+from tracs_tpu_torch.runtime import profiling
 
 IUPAC = np.array(list("ACGTMRWSYKVHDBN-"))
 
@@ -112,9 +113,9 @@ def test_split_gram_reference_chunking_is_exact(monkeypatch):
 def test_cpu_call_counts_no_launch():
     rng = np.random.default_rng(3)
     sa = split_alignment(pack_sequences(_seqs(rng, 5, 64)))
-    before = kernels.SPLIT_GRAM_LAUNCHES
+    before = profiling.counter("kernel.launches.split_gram")
     kernels.split_gram(_words(sa.excl), _words(sa.nmask), 0, 5, 0)
-    assert kernels.SPLIT_GRAM_LAUNCHES == before
+    assert profiling.counter("kernel.launches.split_gram") == before
 
 
 @pytest.mark.parametrize(
@@ -284,10 +285,10 @@ def test_split_gram_cuda_matches_plain(cuda_device, na, nb, W, r0, rb, c0):
     words = _cuda_words(cuda_device, na * W)
     ea, nm = kernels.pad_layout(words(na, 4, W), words(na, W))
     eb, nmb = (None, None) if nb is None else kernels.pad_layout(words(nb, 4, W), words(nb, W))
-    before = kernels.SPLIT_GRAM_LAUNCHES
+    before = profiling.counter("kernel.launches.split_gram")
     g, gn = kernels.split_gram(ea, nm, r0, rb, c0, eb, nmb)
     torch.cuda.synchronize()
-    assert kernels.SPLIT_GRAM_LAUNCHES == before + 1
+    assert profiling.counter("kernel.launches.split_gram") == before + 1
     g0, gn0 = kernels.split_gram_reference(ea, nm, r0, rb, c0, eb, nmb)
     assert torch.equal(g, g0) and torch.equal(gn, gn0)
 
@@ -296,10 +297,10 @@ def test_split_gram_cuda_matches_plain(cuda_device, na, nb, W, r0, rb, c0):
 def test_split_gram_cuda_refuses_an_unpadded_layout(cuda_device):
     words = _cuda_words(cuda_device, 1)
     ea, nm = words(9, 4, 17), words(9, 17)
-    before = kernels.SPLIT_GRAM_LAUNCHES
+    before = profiling.counter("kernel.launches.split_gram")
     with pytest.raises(ValueError, match="pad_layout"):
         kernels.split_gram(ea, nm, 0, 9, 0)
-    assert kernels.SPLIT_GRAM_LAUNCHES == before
+    assert profiling.counter("kernel.launches.split_gram") == before
     # 16-byte alignment of the storage is part of the rule
     flat = words(9 * 4 * 20 + 1)
     with pytest.raises(ValueError, match="pad_layout"):

@@ -14,6 +14,7 @@ import torch
 
 from test_torch_recomb import PAIR_PATTERNS, _pair_pattern, _word_tensors
 from tracs_tpu_torch.ops import kernels
+from tracs_tpu_torch.runtime import profiling
 
 
 def _clustered_pairs(n_clusters, size, start=0):
@@ -326,11 +327,11 @@ def card():
 
 def _card_check(pa, pb, ii, jj, length, capacity, ma=None, mb=None):
     """The tiled kernel, forced, exact against the plain version."""
-    before = kernels.MISM_POSITIONS_TILED_LAUNCHES
+    before = profiling.counter("kernel.launches.mism_positions_tiled")
     got = kernels.mismatch_positions_kernel(pa, pb, ii, jj, length, capacity, ma, mb,
                                             _design="tiled")
     torch.cuda.synchronize()
-    assert kernels.MISM_POSITIONS_TILED_LAUNCHES == before + 1
+    assert profiling.counter("kernel.launches.mism_positions_tiled") == before + 1
     want = kernels.mismatch_positions_reference(pa, pb, ii, jj, length, capacity, ma, mb)
     assert torch.equal(got, want)
     return want
@@ -437,10 +438,12 @@ def test_rule_takes_the_tiled_kernel_on_a_clustered_block(card):
     far_i, far_j = rng.integers(0, 63, 3000), rng.integers(0, 63, 3000)   # in no order
     assert kernels.mism_design((pa,), W, far_i, far_j, 256, True)[0] == "warp"
     for pairs, tiled_launch in (((ii, jj), 1), (([3], [40]), 1), ((far_i, far_j), 0)):
-        before = (kernels.MISM_POSITIONS_LAUNCHES, kernels.MISM_POSITIONS_TILED_LAUNCHES)
+        before = (profiling.counter("kernel.launches.mism_positions"),
+                  profiling.counter("kernel.launches.mism_positions_tiled"))
         got = kernels.mismatch_positions_kernel(pa, None, *pairs, 32 * W - 64, 256)
         torch.cuda.synchronize()
-        assert kernels.MISM_POSITIONS_LAUNCHES == before[0] + 1
-        assert kernels.MISM_POSITIONS_TILED_LAUNCHES == before[1] + tiled_launch
+        assert profiling.counter("kernel.launches.mism_positions") == before[0] + 1
+        assert (profiling.counter("kernel.launches.mism_positions_tiled")
+                == before[1] + tiled_launch)
         assert torch.equal(got, kernels.mismatch_positions_reference(pa, None, *pairs,
                                                                      32 * W - 64, 256))

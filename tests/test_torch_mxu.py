@@ -19,6 +19,7 @@ import torch
 from tracs_tpu_torch.ops import kernels
 from tracs_tpu_torch.ops import pairsnp as port
 from tracs_tpu_torch.ops.packing import from_reference, pack_sequences
+from tracs_tpu_torch.runtime import profiling
 
 CPU = "cpu"
 
@@ -166,10 +167,10 @@ def test_mxu_on_the_card_launches_popcount_gram_and_equals_split(cuda_device, mo
     seqs = _seqs(rng, 70, 1500, "ACGTMRWSYKVHDBN-")
     want = _collect(port.pairsnp_stream([pack_sequences(seqs)], dist=1200, filter=True,
                                         method="split", row_block=32, device=cuda_device))
-    monkeypatch.setattr(kernels, "POPCOUNT_GRAM_LAUNCHES", 0)
+    before = profiling.counter("kernel.launches.popcount_gram")
     got = _collect(port.pairsnp_stream([pack_sequences(seqs)], dist=1200, filter=True,
                                        method="mxu", row_block=32, device=cuda_device))
-    assert kernels.POPCOUNT_GRAM_LAUNCHES == 3
+    assert profiling.counter("kernel.launches.popcount_gram") == before + 3
     for w, g in zip(want, got):
         assert np.array_equal(w, g)
     D, NN = port.snp_distance_dense(pack_sequences(seqs), device=cuda_device, method="mxu")

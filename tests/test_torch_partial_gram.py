@@ -20,6 +20,7 @@ import torch
 from tracs_tpu_torch.ops import kernels
 from tracs_tpu_torch.ops import pairsnp as port
 from tracs_tpu_torch.ops.packing import from_reference, popcount_words, split_alignment
+from tracs_tpu_torch.runtime import profiling
 
 IUPAC = np.array(list("ACGTMRWSYKVHDBN-"))
 #: the partial-site word counts of the cases: one word, a ragged few, and the
@@ -162,10 +163,10 @@ def test_split_engine_with_partial_sites_matches_reference(jax_ref, Wp, two):
     dist = int(np.median(Dj))
     fasta_j, fasta_p = ([ja, jb], [pa, pb]) if two else ([ja], [pa])
     want = list(jref.pairsnp_stream(fasta_j, dist=dist, method="split", row_block=4))
-    before = kernels.PARTIAL_GRAM_LAUNCHES
+    before = profiling.counter("kernel.launches.partial_gram")
     got = list(port.pairsnp_stream(fasta_p, dist=dist, device="cpu", row_block=4,
                                    compact=False))
-    assert kernels.PARTIAL_GRAM_LAUNCHES == before  # the CPU counts no launch
+    assert profiling.counter("kernel.launches.partial_gram") == before  # the CPU counts no launch
     assert len(got) == len(want)
     for g, w in zip(got, want):
         assert g[:2] == w[:2]
@@ -260,10 +261,10 @@ def test_partial_gram_cuda_matches_plain(cuda_device, na, nb, Wp):
 
     # at the card's word pitch, as the layouts hold them (zero words past Wp)
     a, b = kernels.pad_planes(words(na, 4, Wp)), kernels.pad_planes(words(nb, 4, Wp))
-    before = kernels.PARTIAL_GRAM_LAUNCHES
+    before = profiling.counter("kernel.launches.partial_gram")
     got = kernels.partial_gram(a, b)
     torch.cuda.synchronize()
-    assert kernels.PARTIAL_GRAM_LAUNCHES == before + 1
+    assert profiling.counter("kernel.launches.partial_gram") == before + 1
     assert torch.equal(got, kernels.partial_gram_reference(a, b))
     # rows of a resident layout, as the sweep slices them: storage offsets
     assert torch.equal(kernels.partial_gram(a[1:], b[na // 3:]),
@@ -276,9 +277,9 @@ def test_split_stream_cuda_launches_partial_gram_each_block(cuda_device):
     from tracs_tpu_torch.ops.packing import pack_sequences
 
     p = pack_sequences(_seqs_with_partial(rng, 70, 3))
-    before = kernels.PARTIAL_GRAM_LAUNCHES
+    before = profiling.counter("kernel.launches.partial_gram")
     got = list(port.pairsnp_stream([p], row_block=16, device=cuda_device, dist=60))
-    assert kernels.PARTIAL_GRAM_LAUNCHES == before + 5
+    assert profiling.counter("kernel.launches.partial_gram") == before + 5
     want = list(port.pairsnp_stream([p], row_block=16, device="cpu", dist=60))
     for g, w in zip(got, want):
         assert g[:2] == w[:2]

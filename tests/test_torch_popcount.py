@@ -17,6 +17,7 @@ import torch
 from tracs_tpu_torch.ops import kernels
 from tracs_tpu_torch.ops import pairsnp as port
 from tracs_tpu_torch.ops.packing import from_reference, pack_sequences
+from tracs_tpu_torch.runtime import profiling
 
 IUPAC = np.array(list("ACGTMRWSYKVHDBN-"))
 DATA = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
@@ -158,9 +159,9 @@ def test_popcount_reference_is_the_bitwise_count():
 def test_popcount_cpu_call_counts_no_launch():
     rng = np.random.default_rng(3)
     pa = kernels._as_words(pack_sequences(_seqs(rng, 5, 64)).planes)
-    before = kernels.POPCOUNT_GRAM_LAUNCHES
+    before = profiling.counter("kernel.launches.popcount_gram")
     kernels.popcount_gram(pa, 0, 5, 0)
-    assert kernels.POPCOUNT_GRAM_LAUNCHES == before
+    assert profiling.counter("kernel.launches.popcount_gram") == before
 
 
 @pytest.mark.parametrize("case", ["int64", "shape", "noncontig", "rows", "cols", "words", "meta"])
@@ -391,10 +392,10 @@ def test_popcount_gram_cuda_matches_plain(cuda_device, na, nb, W, r0, rb, c0):
 
     pa = kernels.pad_planes(words(na, 4, W))
     pb = None if nb is None else kernels.pad_planes(words(nb, 4, W))
-    before = kernels.POPCOUNT_GRAM_LAUNCHES
+    before = profiling.counter("kernel.launches.popcount_gram")
     got = kernels.popcount_gram(pa, r0, rb, c0, pb)
     torch.cuda.synchronize()
-    assert kernels.POPCOUNT_GRAM_LAUNCHES == before + 1
+    assert profiling.counter("kernel.launches.popcount_gram") == before + 1
     want = kernels.popcount_gram_reference(pa, r0, rb, c0, pb)
     assert all(torch.equal(x, y) for x, y in zip(got, want))
 
@@ -403,10 +404,10 @@ def test_popcount_gram_cuda_matches_plain(cuda_device, na, nb, W, r0, rb, c0):
 def test_popcount_stream_cuda_launches_once_per_block(cuda_device):
     rng = np.random.default_rng(14)
     p = pack_sequences(_seqs(rng, 70, 1000))
-    before = kernels.POPCOUNT_GRAM_LAUNCHES
+    before = profiling.counter("kernel.launches.popcount_gram")
     got = list(port.pairsnp_stream([p], row_block=16, device=cuda_device, method="popcount",
                                    dist=700))
-    assert kernels.POPCOUNT_GRAM_LAUNCHES == before + 5
+    assert profiling.counter("kernel.launches.popcount_gram") == before + 5
     _assert_streams_equal(got, port.pairsnp_stream([p], row_block=16, device="cpu", dist=700))
 
 

@@ -18,6 +18,7 @@ from tracs_tpu_torch.ops import pairsnp as port
 from tracs_tpu_torch.ops import recomb as precomb
 from tracs_tpu_torch.ops.packing import compact_variant_columns, from_reference
 from tracs_tpu_torch.runtime import native as pnative
+from tracs_tpu_torch.runtime import profiling
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 DATA = os.path.join(REPO, "tests", "data")
@@ -424,9 +425,9 @@ def test_mismatch_positions_layouts_agree():
 def test_mismatch_positions_cpu_call_counts_no_launch():
     rng = np.random.default_rng(16)
     pa, _ = _word_tensors(rng, 3, 2)
-    before = kernels.MISM_POSITIONS_LAUNCHES
+    before = profiling.counter("kernel.launches.mism_positions")
     kernels.mismatch_positions_kernel(pa, None, [0, 1], [1, 2], 60, 8)
-    assert kernels.MISM_POSITIONS_LAUNCHES == before
+    assert profiling.counter("kernel.launches.mism_positions") == before
 
 
 @pytest.mark.parametrize("case", ["int64", "length", "capacity", "index", "shapes",
@@ -688,10 +689,10 @@ def test_mismatch_positions_cuda_matches_plain(cuda_device, masks, n, W, length,
         pa, pb = pa | 0x0F0F0F0F, pb | 0x0F0F0F0F
     ii, jj = rng.integers(0, n, size=P), rng.integers(0, n + 1, size=P)
     m = (ma, mb) if masks else (None, None)
-    before = kernels.MISM_POSITIONS_LAUNCHES
+    before = profiling.counter("kernel.launches.mism_positions")
     got = kernels.mismatch_positions_kernel(pa, pb, ii, jj, length, capacity, *m)
     torch.cuda.synchronize()
-    assert kernels.MISM_POSITIONS_LAUNCHES == before + 1
+    assert profiling.counter("kernel.launches.mism_positions") == before + 1
     want = kernels.mismatch_positions_reference(pa, pb, ii, jj, length, capacity, *m)
     assert torch.equal(got, want)
 
@@ -733,9 +734,9 @@ def test_stream_filter_cuda_matches_cpu(cuda_device, method):
     seqs = _mutated_seqs(rng, 11, 3000)
     kw = dict(dist=2**31 - 1, filter=True, row_block=4, method=method)
     want = list(port.pairsnp_stream([pack_sequences(seqs)], device="cpu", **kw))
-    before = kernels.MISM_POSITIONS_LAUNCHES
+    before = profiling.counter("kernel.launches.mism_positions")
     got = list(port.pairsnp_stream([pack_sequences(seqs)], device=cuda_device, **kw))
-    assert kernels.MISM_POSITIONS_LAUNCHES > before
+    assert profiling.counter("kernel.launches.mism_positions") > before
     _assert_streams_equal(got, want)
 
 

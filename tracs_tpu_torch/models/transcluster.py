@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from tracs_tpu_torch.runtime.device import resolve_device, to_host
+from tracs_tpu_torch.runtime.profiling import count, span
 
 SECONDS_IN_YEAR = 31556952.0  # reference tracs/transcluster.py:5
 
@@ -297,7 +298,10 @@ def trans_dist(snpdiff, datediff, lamb, beta, threshold_Ek=1e-6, *, device):
 def _trans_dist_steps(snpdiff, datediff, lamb, beta, threshold_Ek=1e-6, *, device):
     """``trans_dist``'s (log p0, E(K)) and, third, each pair's k-loop exit:
     the k after its last step, so E(K) sums the terms k' P(k') for
-    1 <= k' < k."""
+    1 <= k' < k.  Spans: ``meta.seed`` (the lanes' dedup, upload and seeds)
+    and ``meta.k_loop`` (the k loop through the results' copies to the
+    host); each k block counts ``meta.k_blocks`` and its steps
+    ``meta.k_steps``."""
     device = resolve_device(device)
     snpdiff = np.asarray(snpdiff, dtype=np.int64)
     datediff = np.asarray(datediff, dtype=np.float64)
@@ -305,52 +309,56 @@ def _trans_dist_steps(snpdiff, datediff, lamb, beta, threshold_Ek=1e-6, *, devic
         return np.zeros(0), np.zeros(0), np.zeros(0)
     lamb, beta, threshold_Ek = float(lamb), float(beta), float(threshold_Ek)
 
-    keys = np.stack([snpdiff.astype(np.float64), datediff], axis=1)
-    uniq, inverse = np.unique(keys, axis=0, return_inverse=True)
-    order = np.lexsort((uniq[:, 0], uniq[:, 1]))
-    sN, sd = uniq[order, 0], uniq[order, 1]
-    m = sN.shape[0]
-    N = torch.from_numpy(sN).to(device)
-    delta = torch.from_numpy(sd).to(device)
+    with span("meta.seed"):
+        keys = np.stack([snpdiff.astype(np.float64), datediff], axis=1)
+        uniq, inverse = np.unique(keys, axis=0, return_inverse=True)
+        order = np.lexsort((uniq[:, 0], uniq[:, 1]))
+        sN, sd = uniq[order, 0], uniq[order, 1]
+        m = sN.shape[0]
+        N = torch.from_numpy(sN).to(device)
+        delta = torch.from_numpy(sd).to(device)
 
-    # phase 1: loop-invariant seeds, chunked with adaptive caps
-    seeds = []
-    for s in range(0, m, _SEED_CHUNK):
-        e = min(m, s + _SEED_CHUNK)
-        d_max, n_max = float(sd[s:e].max()), int(sN[s:e].max())
-        cap_pois = _pow2(_sum_cap(lamb * d_max, n_max), lo=8)
-        cap_int = _pow2(_sum_cap(d_max * (lamb + beta), n_max + _K_CAP), lo=8)
-        seeds.append(_seed_batch(N[s:e], delta[s:e], lamb=lamb, beta=beta,
-                                 cap_pois=cap_pois, cap_int=cap_int))
-    log_pois, log_I0, p0, upper = (torch.cat(c) for c in zip(*seeds))
+        # phase 1: loop-invariant seeds, chunked with adaptive caps
+        seeds = []
+        for s in range(0, m, _SEED_CHUNK):
+            e = min(m, s + _SEED_CHUNK)
+            d_max, n_max = float(sd[s:e].max()), int(sN[s:e].max())
+            cap_pois = _pow2(_sum_cap(lamb * d_max, n_max), lo=8)
+            cap_int = _pow2(_sum_cap(d_max * (lamb + beta), n_max + _K_CAP), lo=8)
+            seeds.append(_seed_batch(N[s:e], delta[s:e], lamb=lamb, beta=beta,
+                                     cap_pois=cap_pois, cap_int=cap_int))
+        log_pois, log_I0, p0, upper = (torch.cat(c) for c in zip(*seeds))
 
-    # phase 2: blocked k loop with active-lane compaction
-    lg_N1 = torch.lgamma(N + 1.0)
-    invariants = (N, delta, torch.log(delta), log_pois, upper, lg_N1)
-    zeros = torch.zeros_like(N)
-    # k, E(K) sum, bound sum, log I, lgamma(N+k+1), lgamma(k+1), log k at k=1
-    state = [torch.ones_like(N), zeros, zeros.clone(), log_I0, torch.lgamma(N + 2.0),
-             zeros.clone(), zeros.clone()]
-    eK = torch.empty_like(N)
-    k_end = torch.empty_like(N)
-    active = torch.arange(m, device=device)
-    n_steps = 8
-    while active.numel():
-        lane = tuple(x[active] for x in invariants)
-        blk = [x[active] for x in state] + [torch.zeros_like(active, dtype=torch.bool)]
-        *blk, fin = _k_block(lane, tuple(blk), lamb=lamb, beta=beta,
-                             threshold_Ek=threshold_Ek, n_steps=n_steps)
-        for x, v in zip(state, blk):
-            x[active] = v
-        eK[active[fin]] = blk[1][fin]
-        k_end[active[fin]] = blk[0][fin]
-        active = active[~fin]
-        n_steps = min(n_steps * 2, 512)
+    with span("meta.k_loop"):
+        # phase 2: blocked k loop with active-lane compaction
+        lg_N1 = torch.lgamma(N + 1.0)
+        invariants = (N, delta, torch.log(delta), log_pois, upper, lg_N1)
+        zeros = torch.zeros_like(N)
+        # k, E(K) sum, bound sum, log I, lgamma(N+k+1), lgamma(k+1), log k at k=1
+        state = [torch.ones_like(N), zeros, zeros.clone(), log_I0, torch.lgamma(N + 2.0),
+                 zeros.clone(), zeros.clone()]
+        eK = torch.empty_like(N)
+        k_end = torch.empty_like(N)
+        active = torch.arange(m, device=device)
+        n_steps = 8
+        while active.numel():
+            lane = tuple(x[active] for x in invariants)
+            blk = [x[active] for x in state] + [torch.zeros_like(active, dtype=torch.bool)]
+            *blk, fin = _k_block(lane, tuple(blk), lamb=lamb, beta=beta,
+                                 threshold_Ek=threshold_Ek, n_steps=n_steps)
+            for x, v in zip(state, blk):
+                x[active] = v
+            eK[active[fin]] = blk[1][fin]
+            k_end[active[fin]] = blk[0][fin]
+            active = active[~fin]
+            count("meta.k_blocks")
+            count("meta.k_steps", n_steps)
+            n_steps = min(n_steps * 2, 512)
 
-    p0_u, eK_u, k_u = np.empty(m), np.empty(m), np.empty(m)
-    p0_u[order] = to_host(p0)
-    eK_u[order] = to_host(eK)
-    k_u[order] = to_host(k_end)
+        p0_u, eK_u, k_u = np.empty(m), np.empty(m), np.empty(m)
+        p0_u[order] = to_host(p0)
+        eK_u[order] = to_host(eK)
+        k_u[order] = to_host(k_end)
     return p0_u[inverse], eK_u[inverse], k_u[inverse]
 
 
@@ -367,22 +375,30 @@ class TransClusterCache:
         self._memo: dict[tuple[int, float], tuple[float, float]] = {}
 
     def lookup(self, snpdiff, datediff):
-        """(log p0, E(K)) float64 numpy arrays for the given pairs."""
-        snpdiff = np.asarray(snpdiff, dtype=np.int64)
-        datediff = np.asarray(datediff, dtype=np.float64)
-        if snpdiff.size == 0:
-            return np.zeros(0), np.zeros(0)
-        # dedup in numpy first: dict work is O(unique), not O(pairs)
-        keys = np.stack([snpdiff.astype(np.float64), datediff], axis=1)
-        uniq, inverse = np.unique(keys, axis=0, return_inverse=True)
-        tuples = [(int(n), float(d)) for n, d in uniq]
-        novel = [t for t in tuples if t not in self._memo]
-        if novel:
-            p0, eK = trans_dist([t[0] for t in novel], [t[1] for t in novel],
-                                self.lamb, self.beta, self.threshold_Ek, device=self.device)
-            self._memo.update(zip(novel, zip(p0.tolist(), eK.tolist())))
-        vals = np.array([self._memo[t] for t in tuples], dtype=np.float64)
-        return vals[inverse, 0], vals[inverse, 1]
+        """(log p0, E(K)) float64 numpy arrays for the given pairs.  Spans:
+        ``meta`` (the call) and ``meta.dedup`` (the host's dedup and memo
+        work); the novel lanes handed to ``trans_dist`` count
+        ``meta.lanes``."""
+        with span("meta"):
+            snpdiff = np.asarray(snpdiff, dtype=np.int64)
+            datediff = np.asarray(datediff, dtype=np.float64)
+            if snpdiff.size == 0:
+                return np.zeros(0), np.zeros(0)
+            with span("meta.dedup"):
+                # dedup in numpy first: dict work is O(unique), not O(pairs)
+                keys = np.stack([snpdiff.astype(np.float64), datediff], axis=1)
+                uniq, inverse = np.unique(keys, axis=0, return_inverse=True)
+                tuples = [(int(n), float(d)) for n, d in uniq]
+                novel = [t for t in tuples if t not in self._memo]
+            if novel:
+                count("meta.lanes", len(novel))
+                p0, eK = trans_dist([t[0] for t in novel], [t[1] for t in novel],
+                                    self.lamb, self.beta, self.threshold_Ek, device=self.device)
+            with span("meta.dedup"):
+                if novel:
+                    self._memo.update(zip(novel, zip(p0.tolist(), eK.tolist())))
+                vals = np.array([self._memo[t] for t in tuples], dtype=np.float64)
+            return vals[inverse, 0], vals[inverse, 1]
 
 
 # ---------------------------------------------------------------------------

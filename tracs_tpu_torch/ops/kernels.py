@@ -4,47 +4,45 @@
 ``split_gram`` — the split-decomposition grams of a row block against a
 column suffix, ``g = G4 - Gn`` and ``gn = Gn`` (see ops/pairsnp.py), from
 the CUDA kernel ``csrc/split_gram.cu`` (b1 ``mma.sync`` on the packed words,
-fed by a ``cp.async`` ring); launches counted in ``SPLIT_GRAM_LAUNCHES``.
+fed by a ``cp.async`` ring).
 
 ``popcount_gram`` — the popcount engine: match counts
 ``sum popc(OR_x(a_x & b_x))`` and N-union counts ``sum popc(N_a | N_b)``
 over the raw planes, both from the one CUDA kernel
 ``csrc/popcount_gram.cu`` (the 15 plane-subset grams of the
 inclusion-exclusion as b1 ``mma.sync`` on subset operands formed in
-registers, fed by TMA loads through an mbarrier ring); launches counted in
-``POPCOUNT_GRAM_LAUNCHES``.
+registers, fed by TMA loads through an mbarrier ring).
 
 ``split_gram_variant`` — the same two grams as ``split_gram`` from the
 tensor-core kernels ``csrc/split_gram_mma.cu`` (``wgmma`` on b1 operands for
 ``b1-128``, ``mma.sync`` on b1, int8 or bf16 operands for the others: the
-H100 forms of the TPU's unpack-and-dot experiment kernels); launches counted
-per variant in ``SPLIT_GRAM_VARIANT_LAUNCHES``.
+H100 forms of the TPU's unpack-and-dot experiment kernels).
 
 ``mismatch_positions_kernel`` — per pair of samples, the count and the
 ascending positions of the sites where the two share no allele, from the
 CUDA kernels ``csrc/mism_positions.cu`` (the recombination filter's device
 step): tiles of consecutive pairs that stage each of their samples' rows
 once, with the word axis cut into parts across the card, or, where tiles
-cannot pay (``mism_design``), a warp a pair; launches counted in
-``MISM_POSITIONS_LAUNCHES`` (the tiled kernel's also in
-``MISM_POSITIONS_TILED_LAUNCHES``).
+cannot pay (``mism_design``), a warp a pair.
 
 ``partial_gram`` — the split engine's correction gram over the partial-IUPAC
 sites (the 10 plane-pair and plane-triple AND grams, signed), from the CUDA
 kernel ``csrc/partial_gram.cu`` (the 10 grams as b1 ``mma.sync`` on subset
 operands formed in registers, on ``popcount_gram``'s TMA ring, shared through
-``csrc/plane_ring.cuh``); launches counted in ``PARTIAL_GRAM_LAUNCHES``.
+``csrc/plane_ring.cuh``).
 
 ``coo_extract`` — one block's D/NN assembly, threshold, triangle mask and
 row-major COO compaction, from the CUDA kernel ``csrc/coo_extract.cu`` in one
 launch (count, a single-pass scan by decoupled look-back, emit; no D or NN
-block is written, the output is sized on the host by ``coo_capacity``);
-launches counted in ``COO_EXTRACT_LAUNCHES``.
+block is written, the output is sized on the host by ``coo_capacity``).
 
 On a CUDA tensor each wrapper launches its kernel (built for sm_90a at first
-use, runtime/build.py) and counts the launch; on a CPU tensor it returns its
-``*_reference``, the plain exact version.  There is no fallback from one to
-the other.
+use, runtime/build.py) and counts the launch in the counter
+``kernel.launches.<kernel>`` of runtime/profiling.py (``split_gram``,
+``popcount_gram``, ``split_gram_mma.<variant>``, ``mism_positions`` and, for
+the tiled design also, ``mism_positions_tiled``, ``partial_gram``,
+``coo_extract``); on a CPU tensor it returns its ``*_reference``, the plain
+exact version.  There is no fallback from one to the other.
 
 Layouts: packed words are ``int32`` tensors holding the bits of the uint32
 planes; the kernel reads them as ``uint32``.  The gram kernels copy their
@@ -66,19 +64,7 @@ import numpy as np
 import torch
 
 from tracs_tpu_torch.runtime.device import resolve_device, to_host
-
-#: launches of the CUDA split-gram kernel in this process
-SPLIT_GRAM_LAUNCHES = 0
-#: launches of the CUDA popcount-gram kernel in this process
-POPCOUNT_GRAM_LAUNCHES = 0
-#: launches of the CUDA mismatch-position kernels in this process (both
-#: designs), and of the tiled one alone
-MISM_POSITIONS_LAUNCHES = 0
-MISM_POSITIONS_TILED_LAUNCHES = 0
-#: launches of the CUDA correction-gram kernel in this process
-PARTIAL_GRAM_LAUNCHES = 0
-#: launches of the CUDA COO-extraction kernel in this process
-COO_EXTRACT_LAUNCHES = 0
+from tracs_tpu_torch.runtime.profiling import count
 
 #: the tensor-core split-gram variants as (dot, tile, unpack): the operand
 #: type of the ``mma``, the block's square output tile, and for ``s8`` the
@@ -95,12 +81,10 @@ _VARIANT_DOT_CODES = {("b1", None): 0, ("s8", "shift"): 1, ("s8", "nibble"): 2,
 
 
 def variant_name(dot: str, tile: int, unpack: str | None = None) -> str:
-    """``b1-64``, ``s8-shift-128``, ...: the key of a variant's launch count."""
+    """``b1-64``, ``s8-shift-128``, ...: the variant's name in its launch
+    counter ``kernel.launches.split_gram_mma.<name>``."""
     return f"{dot}-{unpack}-{tile}" if unpack else f"{dot}-{tile}"
 
-
-#: launches of each tensor-core split-gram variant in this process
-SPLIT_GRAM_VARIANT_LAUNCHES = {variant_name(*v): 0 for v in SPLIT_GRAM_VARIANTS}
 
 #: words between two flushes of the bf16 variant's f32 accumulators to int32.
 #: An exclusive-plane site adds at most 3 to a count (a 3-bit IUPAC code on
@@ -310,7 +294,6 @@ def split_gram(ea, nm, r0: int, rb: int, c0: int, eb=None, nmb=None):
     ``split_gram_reference``; CUDA tensors launch the kernel or raise: their
     word pitch must be a multiple of ``LAYOUT_WORD_MULTIPLE`` (``pad_layout``
     makes it one; the wrapper pads nothing itself)."""
-    global SPLIT_GRAM_LAUNCHES
     if ea.device.type == "cpu":
         return split_gram_reference(ea, nm, r0, rb, c0, eb, nmb)
     eb, nmb, m = _operands(ea, nm, r0, rb, c0, eb, nmb)
@@ -318,7 +301,7 @@ def split_gram(ea, nm, r0: int, rb: int, c0: int, eb=None, nmb=None):
     out = _launch("split_gram", (ea, nm, eb, nmb), ea.shape[2], r0, rb, c0, m,
                   extra=(_SPLIT_GRAM_WORD_SPLITS,))
     if rb and m:
-        SPLIT_GRAM_LAUNCHES += 1
+        count("kernel.launches.split_gram")
     return out
 
 
@@ -418,7 +401,6 @@ def popcount_gram(pa, r0: int, rb: int, c0: int, pb=None):
     their word pitch must be a multiple of ``LAYOUT_WORD_MULTIPLE``
     (``pad_planes`` makes it one; the wrapper pads nothing itself) and below
     ``_POPCOUNT_GRAM_MAX_WORDS``, the range of the kernel's int32 sums."""
-    global POPCOUNT_GRAM_LAUNCHES
     if pa.device.type == "cpu":
         return popcount_gram_reference(pa, r0, rb, c0, pb)
     pb, m = _popcount_operands(pa, r0, rb, c0, pb)
@@ -429,7 +411,7 @@ def popcount_gram(pa, r0: int, rb: int, c0: int, pb=None):
     out = _launch("popcount_gram", (pa, pb), pa.shape[2], r0, rb, c0, m,
                   extra=(_POPCOUNT_GRAM_WORD_SPLITS,))
     if rb and m:
-        POPCOUNT_GRAM_LAUNCHES += 1
+        count("kernel.launches.popcount_gram")
     return out
 
 
@@ -535,7 +517,7 @@ def split_gram_variant(ea, nm, r0: int, rb: int, c0: int, eb=None, nmb=None, *,
     out = _launch("split_gram_mma", (ea, nm, eb, nmb), ea.shape[2], r0, rb, c0, m,
                   extra=(_VARIANT_DOT_CODES[dot, unpack], tile, _BF16_FLUSH_WORDS))
     if rb and m:
-        SPLIT_GRAM_VARIANT_LAUNCHES[variant_name(dot, tile, unpack)] += 1
+        count("kernel.launches.split_gram_mma." + variant_name(dot, tile, unpack))
     return out
 
 
@@ -900,11 +882,11 @@ def mismatch_positions_kernel(pa, pb, ii, jj, length: int, capacity: int,
     CUDA tensors launch one of the two kernels of ``csrc/mism_positions.cu``
     once, by ``mism_design``'s rule on the inputs, or raise: the tiled kernel
     (tiles of pairs that stage their samples' rows once, the word axis cut
-    into parts), counted in ``MISM_POSITIONS_TILED_LAUNCHES``, or the warp
-    kernel (a warp a pair); ``MISM_POSITIONS_LAUNCHES`` counts both.
+    into parts), counted in ``kernel.launches.mism_positions_tiled``, or the
+    warp kernel (a warp a pair); ``kernel.launches.mism_positions`` counts
+    both.
     ``_design`` ("tiled" or "warp") forces one kernel, for the card-only
     tests and the experiments that hold the two side by side."""
-    global MISM_POSITIONS_LAUNCHES, MISM_POSITIONS_TILED_LAUNCHES
     if pa.device.type == "cpu":
         return mismatch_positions_reference(pa, pb, ii, jj, length, capacity, ma, mb)
     out, design, launch = _mism_launcher(pa, pb, ii, jj, length, capacity, ma, mb, _design)
@@ -914,9 +896,9 @@ def mismatch_positions_kernel(pa, pb, ii, jj, length: int, capacity: int,
         rc = launch()
     if rc != 0:
         raise RuntimeError(f"mism_positions {design} kernel launch failed: CUDA error {rc}")
-    MISM_POSITIONS_LAUNCHES += 1
+    count("kernel.launches.mism_positions")
     if design == "tiled":
-        MISM_POSITIONS_TILED_LAUNCHES += 1
+        count("kernel.launches.mism_positions_tiled")
     return out
 
 
@@ -992,7 +974,6 @@ def partial_gram(part_a, part_b):
     multiple of ``LAYOUT_WORD_MULTIPLE`` and their storage 16-byte aligned
     (``pad_planes`` pads; a zero word adds nothing to any gram), and ``Wp``
     below ``_PARTIAL_GRAM_MAX_WORDS``, the range of the kernel's int32 sums."""
-    global PARTIAL_GRAM_LAUNCHES
     if part_a.device.type == "cpu":
         return partial_gram_reference(part_a, part_b)
     _partial_operands(part_a, part_b)
@@ -1017,7 +998,7 @@ def partial_gram(part_a, part_b):
                 out.data_ptr(), stream)
     if rc != 0:
         raise RuntimeError(f"partial_gram kernel launch failed: CUDA error {rc}")
-    PARTIAL_GRAM_LAUNCHES += 1
+    count("kernel.launches.partial_gram")
     return out
 
 
@@ -1115,7 +1096,6 @@ def _coo_launch(g, gn, mode, L, dist, r0, c0, n_valid, triangle, gp, cnt_a, cnt_
     validated and counted: (out int32 [capacity, 4], the kernel's scratch,
     whose word 1 holds the number of survivors k once the launch has run).
     Nothing here waits for the card."""
-    global COO_EXTRACT_LAUNCHES
     _coo_operands(g, gn, mode, L, r0, c0, n_valid, gp, cnt_a, cnt_b)
     rb, m = g.shape
     _check_cuda(g, "coo_extract", rb)
@@ -1143,7 +1123,7 @@ def _coo_launch(g, gn, mode, L, dist, r0, c0, n_valid, triangle, gp, cnt_a, cnt_
     if rc != 0:
         raise RuntimeError(f"coo_extract kernel launch failed: CUDA error {rc}")
     if words > 2:  # a block with a tile: the kernel was launched
-        COO_EXTRACT_LAUNCHES += 1
+        count("kernel.launches.coo_extract")
     return out, scratch
 
 

@@ -19,6 +19,7 @@ from typing import Sequence
 import numpy as np
 
 from tracs_tpu_torch.io.fasta import read_fasta
+from tracs_tpu_torch.runtime.profiling import spanned
 
 # bit order: bit0=A, bit1=C, bit2=G, bit3=T
 _A, _C, _G, _T = 1, 2, 4, 8
@@ -332,6 +333,7 @@ def partial_site_positions(packed: PackedAlignment) -> np.ndarray:
     return np.nonzero(bits[: packed.length])[0].astype(np.int64)
 
 
+@spanned("layout.split")
 def split_alignment(
     packed: PackedAlignment, partial_sites: np.ndarray | None = None
 ) -> SplitAlignment:
@@ -404,6 +406,7 @@ def _gather_columns(planes: np.ndarray, positions: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(out_bytes).view(np.uint32).reshape(n, 4, Wc)
 
 
+@spanned("layout.compact")
 def compact_variant_columns(
     a: PackedAlignment,
     b: PackedAlignment | None = None,

@@ -79,6 +79,7 @@ from tracs_tpu_torch.ops.packing import (
 )
 from tracs_tpu_torch.ops.recomb import filter_pairs
 from tracs_tpu_torch.runtime.device import resolve_device, to_host
+from tracs_tpu_torch.runtime.profiling import count, run_steps, span
 
 INT32_MAX = 2**31 - 1
 
@@ -112,13 +113,17 @@ def _split_device(sa: SplitAlignment, device: torch.device):
     on the device, which derive to zero words of both, so a plane row starts
     on a 16-byte boundary whatever the sequence length.  The partial planes
     get the same rule on their own word axis (``pad_planes``): a zero word
-    adds nothing to the correction gram."""
+    adds nothing to the correction gram.  A miss is the span
+    ``layout.upload`` (the pageable copies and the pad and derive launches)
+    and adds the bytes copied to ``layout.upload_bytes``."""
     cache = getattr(sa, "_dev_cache", None)
     if cache is None or cache[0] != device:
-        planes = pad_planes(_as_words(sa.src.planes).to(device))
-        ea, nm = _derive_split_planes(planes)
-        del planes
-        pt = pad_planes(_as_words(sa.partial).to(device))
+        with span("layout.upload"):
+            planes = pad_planes(_as_words(sa.src.planes).to(device))
+            ea, nm = _derive_split_planes(planes)
+            del planes
+            pt = pad_planes(_as_words(sa.partial).to(device))
+        count("layout.upload_bytes", sa.src.planes.nbytes + sa.partial.nbytes)
         cache = (device, ea, nm, pt)
         sa._dev_cache = cache
     return cache[1:]
@@ -132,10 +137,13 @@ def _planes_device(packed: PackedAlignment, device: torch.device) -> torch.Tenso
     ``padded_words(W)``, so a plane row starts on a 16-byte boundary whatever
     the sequence length: a zero word adds nothing to ``matches`` or
     ``nunion``, and the mismatch-position kernel, to which it reads as 32
-    mismatches, reports nothing at or past the length."""
+    mismatches, reports nothing at or past the length.  A miss is spanned
+    and counted as ``_split_device``'s is."""
     cache = getattr(packed, "_dev_planes", None)
     if cache is None or cache[0] != device:
-        cache = (device, pad_planes(_as_words(packed.planes).to(device)))
+        with span("layout.upload"):
+            cache = (device, pad_planes(_as_words(packed.planes).to(device)))
+        count("layout.upload_bytes", packed.planes.nbytes)
         packed._dev_planes = cache
     return cache[1]
 
@@ -377,10 +385,12 @@ def _extract_coo(grams: dict, L: int, dist: int, r0: int, n_valid: int, c0: int,
     piece on the card.  Keeps ``D <= dist``, global column ``< n_valid``
     and, on triangle blocks, global column > global row.  Returns
     (rows_local, cols_global, dvals, nvals) as int64 numpy arrays in
-    row-major order, the emission order of ``tracs_tpu``."""
-    coo = coo_extract(**grams, L=L, dist=dist, r0=r0, c0=c0, n_valid=n_valid,
-                      triangle=triangle)
-    rows_l, cols_l, dvals, nvals = to_host(coo.T).astype(np.int64).T
+    row-major order, the emission order of ``tracs_tpu``.  The span
+    ``sweep.extract`` holds the wait for the block's kernels."""
+    with span("sweep.extract"):
+        coo = coo_extract(**grams, L=L, dist=dist, r0=r0, c0=c0, n_valid=n_valid,
+                          triangle=triangle)
+        rows_l, cols_l, dvals, nvals = to_host(coo.T).astype(np.int64).T
     return rows_l, cols_l + c0, dvals, nvals
 
 
@@ -456,7 +466,8 @@ def mismatch_positions_device(
     buffer.  The zero words that pad either layout's pitch lie at and past
     ``a.length``, where the kernel reports nothing.  ``chunk`` is accepted
     for tracs_tpu's signature and ignored: it sizes the TPU's pair chunks,
-    and the launches here are cut by table bytes."""
+    and the launches here are cut by table bytes.  The span
+    ``filter.positions`` holds the launches and the tables' copies."""
     del chunk
     engine = _engine(method, a, b)
     device = resolve_device(device)
@@ -473,12 +484,13 @@ def mismatch_positions_device(
     counts = np.empty(n, dtype=np.int64)
     positions = np.empty((n, capacity), dtype=np.int64)
     chunk = max(1, _MISM_TABLE_BYTES // (4 * (1 + capacity)))
-    for s in range(0, n, chunk):
-        e = min(n, s + chunk)
-        table = to_host(mismatch_positions_kernel(
-            pa, pb, ii[s:e], jj[s:e], a.length, capacity, ma, mb))
-        counts[s:e] = table[:, 0]
-        positions[s:e] = table[:, 1:]
+    with span("filter.positions"):
+        for s in range(0, n, chunk):
+            e = min(n, s + chunk)
+            table = to_host(mismatch_positions_kernel(
+                pa, pb, ii[s:e], jj[s:e], a.length, capacity, ma, mb))
+            counts[s:e] = table[:, 0]
+            positions[s:e] = table[:, 1:]
     return counts, positions
 
 
@@ -534,6 +546,7 @@ def snp_distance_dense(
     return D, NN
 
 
+@run_steps
 def pairsnp_stream(
     fasta: Sequence[str] | Sequence[PackedAlignment],
     dist: int = INT32_MAX,
@@ -570,6 +583,12 @@ def pairsnp_stream(
     dp stripe instead of per ``row_block``.  ``--filter`` then runs on each
     rank on its emitted rows with the whole alignment.  ``popcount`` and
     ``mxu`` ignore the mesh (logged).
+
+    Each call is one run of runtime/profiling.py (it joins the caller's if
+    one is open).  Every block counts ``sweep.blocks``, ``sweep.pairs`` (the
+    rows times the columns it sweeps) and ``sweep.survivors``; a block of
+    the one-device sweep is spanned as ``sweep.grams`` (the grams' launches)
+    and ``sweep.extract`` (``_extract_coo``).
     """
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; one of {METHODS}")
@@ -620,6 +639,9 @@ def pairsnp_stream(
         logging.info("mesh ignored by method %r: it runs on one device", engine)
 
     def emit(r0, r1, rows_l, cols, dvals, nvals):
+        count("sweep.blocks")
+        count("sweep.pairs", (r1 - r0) * (b.n_seqs - (r0 if triangle else 0)))
+        count("sweep.survivors", len(rows_l))
         if nn_off:
             nvals = nvals + nn_off
         rows = rows_l + r0
@@ -641,7 +663,8 @@ def pairsnp_stream(
             continue
         # triangle blocks sweep the column suffix c0 = r0; rectangles c0 = 0
         c0 = r0 if triangle else 0
-        grams = _block_grams(engine, a_k, b_k, r0, r1, c0, device)
+        with span("sweep.grams"):
+            grams = _block_grams(engine, a_k, b_k, r0, r1, c0, device)
         coo = _extract_coo(grams, a_k.length, dist, r0, b.n_seqs, c0, triangle=triangle)
         del grams  # the block's grams leave the card before the caller takes the block
         yield emit(r0, r1, *coo)

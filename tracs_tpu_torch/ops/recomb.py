@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import numpy as np
 
+from tracs_tpu_torch.runtime import profiling
+
 _WIN_MIN = 50
 _WIN_MAX = 5000
 
@@ -78,6 +80,7 @@ def filter_recomb_single(positions: np.ndarray, length: int) -> int:
 _DEVICE_FILTER_CAP = 8192
 
 
+@profiling.spanned("filter")
 def filter_pairs(
     a, b, rows, cols, dvals, length: int, *, device, method: str = "split",
     position_map: np.ndarray | None = None, chunk: int = 2048,
@@ -92,6 +95,10 @@ def filter_pairs(
     10k-sample block can emit 10^5 survivors: ~12 GB of bitsets).  Pairs
     whose d exceeds the capacity ceiling (unthresholded runs) stream
     through the host bitset path in fixed-size chunks instead.
+
+    Spans: ``filter`` (the call), ``filter.positions`` (the device step),
+    ``filter.keep_table`` (each table built, also counted in
+    ``filter.keep_table_builds``) and ``filter.windows`` (the window pass).
     """
     from tracs_tpu_torch.ops.pairsnp import mismatch_positions_device, mismatch_words
 
@@ -235,11 +242,13 @@ def _keep_table(d, length):
     if tab is None:
         if len(_keep_tables) > 4096:  # bound process-level growth
             _keep_tables.clear()
-        w = int(_window_w(d, length)[()])
-        spans = np.arange(2 * w + 2, dtype=np.int64)
-        cnts = np.arange(2, _SF_TABLE_CAP + 1, dtype=np.int64)
-        pv = _binom_sf(cnts[:, None], spans[None, :], d / length)
-        tab = pv >= (0.05 / d)
+        profiling.count("filter.keep_table_builds")
+        with profiling.span("filter.keep_table"):
+            w = int(_window_w(d, length)[()])
+            spans = np.arange(2 * w + 2, dtype=np.int64)
+            cnts = np.arange(2, _SF_TABLE_CAP + 1, dtype=np.int64)
+            pv = _binom_sf(cnts[:, None], spans[None, :], d / length)
+            tab = pv >= (0.05 / d)
         _keep_tables[key] = tab
     return tab
 
@@ -293,10 +302,11 @@ def _filter_flat_native(pos, bounds, w_t, d_per_pair, length):
         [np.ascontiguousarray(t, dtype=np.uint8).ravel() for t in tabs]
     )
     widths_u = np.array([t.shape[1] for t in tabs], dtype=np.int64)
-    res = native_filter_windows(
-        pos, bounds, w_t, flat, offs_u[:-1][d_rank], widths_u[d_rank],
-        _SF_TABLE_CAP,
-    )
+    with profiling.span("filter.windows"):
+        res = native_filter_windows(
+            pos, bounds, w_t, flat, offs_u[:-1][d_rank], widths_u[d_rank],
+            _SF_TABLE_CAP,
+        )
     if res is None:
         return None
     kept, ovf = res
@@ -334,7 +344,8 @@ def _filter_flat(pair_idx, pos, d_per_pair, n_todo, length):
     kept = _filter_flat_native(pos, bounds, w_t, d_per_pair, length)
     if kept is not None:
         return np.where(bounds[1:] > bounds[:-1], kept, 0)
-    count, span = _window_stats(pos, bounds, w_t, pair_idx, length)
+    with profiling.span("filter.windows"):
+        count, span = _window_stats(pos, bounds, w_t, pair_idx, length)
 
     multi = count > 1
     keep = np.ones(len(pos), dtype=bool)

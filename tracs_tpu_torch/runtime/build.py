@@ -30,6 +30,8 @@ import subprocess
 import tempfile
 import threading
 
+from tracs_tpu_torch.runtime.profiling import count, span
+
 REPO_ROOT = os.path.dirname(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
@@ -62,7 +64,9 @@ def compile_library(src: str, out_dir: str, stem: str, argv: list[str],
     """Compile ``src`` into ``out_dir/lib<stem>-<digest>.so`` unless that file
     exists.  ``argv`` is the compiler command with ``{out}`` where the output
     path goes; ``deps`` are the files the source includes, which the digest
-    covers too.  Returns (library path, compiler output; empty when cached)."""
+    covers too.  Returns (library path, compiler output; empty when cached).
+    Each compiler run is counted in ``kernel.builds`` and spanned as
+    ``kernel.build`` (attr ``lib``: the stem)."""
     content = b""
     for path in (src, *deps):
         with open(path, "rb") as fh:
@@ -76,8 +80,10 @@ def compile_library(src: str, out_dir: str, stem: str, argv: list[str],
     os.close(fd)
     try:
         cmd = [tmp if a == "{out}" else a for a in argv]
+        count("kernel.builds")
         try:
-            r = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+            with span("kernel.build", lib=stem):
+                r = subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
         except (OSError, subprocess.TimeoutExpired) as e:
             raise BuildError(f"{cmd[0]} failed to run: {e}") from e
         if r.returncode != 0:

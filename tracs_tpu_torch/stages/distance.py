@@ -31,6 +31,7 @@ import argparse
 import json
 import logging
 import os
+import time
 from datetime import date
 
 import numpy as np
@@ -47,7 +48,8 @@ from tracs_tpu_torch.parallel import multihost
 from tracs_tpu_torch.parallel.mesh import parse_mesh_spec, resolve_mesh, world
 from tracs_tpu_torch.runtime.device import resolve_device
 from tracs_tpu_torch.runtime.native import native_format_rows
-from tracs_tpu_torch.runtime.profiling import phase, rate_logger
+from tracs_tpu_torch.runtime import profiling
+from tracs_tpu_torch.runtime.profiling import phase, span
 from tracs_tpu_torch.utils import (
     add_loglevel_arg,
     check_positive_float,
@@ -300,7 +302,21 @@ def _transmission_rows(args, names, rows, cols, dvals, filt, nn, ref, trans,
 
 
 def distance(args):
+    """The stage.  With ``--loglevel DEBUG`` it records the spans of
+    runtime/profiling.py and logs their totals and the counters at its end."""
     setup_logging(args.loglevel)
+    if not logging.root.isEnabledFor(logging.DEBUG):
+        return _distance(args)
+    t0 = time.perf_counter()
+    profiling.enable()
+    try:
+        return _distance(args)
+    finally:
+        profiling.disable()
+        profiling.log_summary(profiling.since(t0))
+
+
+def _distance(args):
     multihost.launch(args)
     device = resolve_device(args.device)
     logging.info("Running the SNP sweep on %s", device)
@@ -377,7 +393,16 @@ def _distance_streaming(args, device, dates, first_msa=0, first_packed=None, db=
     identical to the non-streaming path.  With ``first_packed``, the
     packed alignment of MSA ``first_msa``, the run continues an output that
     holds the header and every earlier MSA already.  ``mesh`` runs the
-    sweep over the processes of a mesh (``pairsnp_stream``)."""
+    sweep over the processes of a mesh (``pairsnp_stream``).  The call is
+    one run of runtime/profiling.py; each block's tail is the span
+    ``stage.tail`` (``phase``), holding ``stage.format`` (the CSV text) and
+    ``stage.write`` (write, flush and cursor)."""
+    profiling.count("stage.runs")
+    with profiling.run():
+        _stream_msas(args, device, dates, first_msa, first_packed, db, mesh)
+
+
+def _stream_msas(args, device, dates, first_msa, first_packed, db, mesh):
     cursor_path = args.output_file + ".cursor"
     cursor = {"msa_index": first_msa, "next_row": 0}
     mode = "w" if first_packed is None else "a"
@@ -407,7 +432,8 @@ def _distance_streaming(args, device, dates, first_msa=0, first_packed=None, db=
             if db is None and args.msa_db is not None:
                 db = _pack(args, args.msa_db)
             logging.info("Streaming pairwise distances for %s", msa)
-            log_rate = rate_logger("pairs")
+            debug = logging.root.isEnabledFor(logging.DEBUG)
+            t_msa, pairs0 = time.perf_counter(), profiling.counter("sweep.pairs")
             blob_cache = {}  # per MSA: the names blob is shared across blocks
             years_of = None  # per MSA: its samples' dates, filled lazily
             for r0, r1, names, rows, cols, dvals, filt, nn in pairsnp_stream(
@@ -417,25 +443,32 @@ def _distance_streaming(args, device, dates, first_msa=0, first_packed=None, db=
             ):
                 with phase("block rows [%d,%d)" % (r0, r1), device):
                     if cache is None or len(rows) == 0:
-                        txt = _format_rows(names, rows, cols, dvals, filt, nn, ref,
-                                           blob_cache=blob_cache)
+                        with span("stage.format"):
+                            txt = _format_rows(names, rows, cols, dvals, filt, nn, ref,
+                                               blob_cache=blob_cache)
                     else:
                         if years_of is None:
                             years_of = _PairYears(dates, names)
                         years = years_of(rows, cols)
                         log_p0, eK = cache.lookup(filt if args.recomb_filter else dvals,
                                                   years)
-                        txt = _transmission_rows(args, names, rows, cols, dvals, filt, nn,
-                                                 ref, (years, np.exp(log_p0), eK),
-                                                 blob_cache)
-                    outfile.write(txt)
-                    outfile.flush()
-                    # atomic cursor update: a kill mid-write leaves the old one
-                    state = {"msa_index": mi, "next_row": r1, "bytes": outfile.tell()}
-                    with open(cursor_path + ".tmp", "w") as fh:
-                        json.dump(state, fh)
-                    os.replace(cursor_path + ".tmp", cursor_path)
-                log_rate((r1 - r0) * (len(names) - r0))
+                        with span("stage.format"):
+                            txt = _transmission_rows(args, names, rows, cols, dvals, filt, nn,
+                                                     ref, (years, np.exp(log_p0), eK),
+                                                     blob_cache)
+                    with span("stage.write"):
+                        outfile.write(txt)
+                        outfile.flush()
+                        # atomic cursor update: a kill mid-write leaves the old one
+                        state = {"msa_index": mi, "next_row": r1, "bytes": outfile.tell()}
+                        with open(cursor_path + ".tmp", "w") as fh:
+                            json.dump(state, fh)
+                        os.replace(cursor_path + ".tmp", cursor_path)
+                if debug:
+                    done = profiling.counter("sweep.pairs") - pairs0
+                    dt = max(time.perf_counter() - t_msa, 1e-9)
+                    logging.debug("[rate] %s pairs in %.1fs (%.0f pairs/s)", f"{done:,}", dt,
+                                  done / dt)
             cursor = {"msa_index": mi + 1, "next_row": 0}
     if os.path.exists(cursor_path):
         os.remove(cursor_path)
