@@ -48,14 +48,19 @@ Phases (each one passes or the script exits non-zero):
    function: the int8 products the JAX package computes them by
    (``_dense_split``, ``_gram_mxu`` over word chunks, ``_gram_partial``), as
    ``torch._int_mm`` calls on operands unpacked to 0/1 int8 beforehand (the
-   unpack timed apart), each equal to the kernel's output;
+   unpack timed apart), each equal to the kernel's output.  Last, the split
+   layout built on the card (``layout_kernels``): ``split_layout`` and its
+   gather ``split_gather`` against their plain versions on random words,
+   exact, at ragged shapes and at 4,096 samples x 31,250 words with 2,048
+   partial sites, timed on the card (``device_ms``) beside their bytes bound;
 3. the distance slice through the normal entry point
    (``tracs_tpu_torch.cli.main(["distance", ...])``) on the headline
    workload: n=4096 samples x 1 Mb in clusters of 21, 2048 partial-IUPAC
    columns, seed 0, written as an uncompressed FASTA in a temp dir
    (``tracs_tpu_torch.io.fasta.write_fasta``).  Checks that every row block
    launched the split-gram, correction-gram and extraction kernels (the same
-   for every ``distance`` run below), that the CSV holds
+   for every ``distance`` run below), that the split layout was built on the
+   card once (one layout and one gather launch), that the CSV holds
    exactly the within-cluster pairs, and that 2,000 sampled rows agree with a
    host numpy popcount over the raw planes.  Prints wall seconds, pairs/s and
    the CSV's sha256.  Then the headline bench's timed sweeps
@@ -293,6 +298,8 @@ def read_counts() -> dict:
             "mism_positions (tiled)": launches("mism_positions_tiled"),
             "coo_extract": launches("coo_extract"),
             "partial_gram": launches("partial_gram"),
+            "split_layout": launches("split_layout"),
+            "split_gather": launches("split_gather"),
             **{name: launches("split_gram_mma." + name)
                for name in (kernels.variant_name(*v) for v in kernels.SPLIT_GRAM_VARIANTS)}}
 
@@ -711,6 +718,77 @@ def phase_kernels(device, seed: int, card):
         del args, got
         torch.cuda.empty_cache()
     out.update(block_kernels(device, seed, card))
+    out.update(layout_kernels(device, seed))
+    return out
+
+
+#: the layout kernels' cases: (samples, words), below, at and past the card's
+#: pitch of 4 words and across the layout kernel's groups of 32 samples and
+#: chunks of 1,024 words; then the main path's alignment
+LAYOUT_CASES = [(1, 1), (33, 5), (65, 1030), (129, 2051)]
+
+
+def layout_kernels(device, seed: int) -> dict:
+    """``split_layout`` and ``split_gather`` (the split layout built on the
+    card from the uploaded raw planes, and its partial planes) against their
+    plain versions on the card, exact, on random words (every bit pattern:
+    all-N, partial and empty sites) at LAYOUT_CASES and at the main path's
+    4,096 samples x 31,250 words, where both are timed on the card alone
+    (``device_ms``) beside the plain versions and their bounds: the layout
+    pass reads each plane word once and writes excl and nmask at the card's
+    pitch once; the gather reads each partial site's word a plane row and
+    writes the partial planes, at the headline's 2,048 sites.  Returns
+    {kernel: {max_abs_err, ms, device_ms, plain_ms, bound_ms, bound_by}}."""
+    import torch
+
+    from tracs_tpu_torch.ops import kernels
+
+    words = _random_words(device, seed + 7)
+    rng = np.random.default_rng(seed)
+    out = {"split_layout": {"max_abs_err": [0, 0, 0, 0]}, "split_gather": {"max_abs_err": [0]}}
+
+    def check(kname, name, got, want):
+        err = [int((g.long() - w.long()).abs().max()) if g.numel() else 0
+               for g, w in zip(got, want)]
+        out[kname]["max_abs_err"] = [max(e, f) for e, f in zip(out[kname]["max_abs_err"], err)]
+        print(f"# {kname} vs plain, {name}: max |err| {err}")
+        if any(err) or any(g.shape != w.shape for g, w in zip(got, want)):
+            fail(f"{kname} disagrees with its plain version at {name}")
+
+    for n, W in [*LAYOUT_CASES, (MAIN_N, 31250)]:
+        name = f"n={n} W={W}"
+        timed = n == MAIN_N
+        planes = words(n, 4, W)
+        got = kernels.split_layout(planes)
+        torch.cuda.synchronize()
+        check("split_layout", name, got, kernels.split_layout_reference(planes))
+        P = 2048 if timed else min(97, 32 * W)
+        pos = np.sort(rng.choice(32 * W, size=P, replace=False)).astype(np.int64)
+        part = kernels.split_gather(got[0], pos)
+        torch.cuda.synchronize()
+        check("split_gather", name, (part,), (kernels.split_gather_reference(got[0], pos),))
+        if timed:
+            pitch = got[0].shape[2]
+            layout_bytes = n * 4 * W * 4 + n * 5 * pitch * 4 + n * 4 + W * 4
+            gather_bytes = n * 4 * P * 4 + part.numel() * 4 + P * 8
+            for kname, fn, plain, nbytes in (
+                    ("split_layout", lambda: kernels.split_layout(planes),
+                     lambda: kernels.split_layout_reference(planes), layout_bytes),
+                    ("split_gather", lambda: kernels.split_gather(got[0], pos),
+                     lambda: kernels.split_gather_reference(got[0], pos), gather_bytes)):
+                ms, dev_ms = time_ms(fn, 10), device_ms(fn, 10)
+                plain_ms = time_ms(plain, 3)
+                bound_ms, by = bound(nbytes, 0, 1)
+                out[kname].update(ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                                  bound_ms=bound_ms, bound_by=by)
+                print(f"# {kname} at {name} ({P} partial sites): a call {ms:.3f} ms, card "
+                      f"{dev_ms:.3f} ms, plain {plain_ms:.3f} ms (median); bound {bound_ms:.3f} "
+                      f"ms by {by} ({nbytes / 1e9:.3f} GB), {100 * bound_ms / dev_ms:.1f}% "
+                      f"of it on the card")
+            for k, kname in enumerate(("split_layout", "split_gather")):
+                out[kname].update(build_facts("split_layout", k))
+        del planes, got, part
+        torch.cuda.empty_cache()
     return out
 
 
@@ -967,6 +1045,9 @@ def phase_slice(packed, fasta: str, cluster_size: int, row_block: int, seed: int
         fail("the CSV does not hold exactly the within-cluster pairs")
     if not np.all(i < j):
         fail("the CSV holds pairs outside the upper triangle")
+    if (counts["split_layout"], counts["split_gather"]) != (1, 1):
+        fail(f"distance CLI: the split layout took {counts['split_layout']} layout and "
+             f"{counts['split_gather']} gather launches; the card builds it once")
 
     rng = np.random.default_rng(seed)
     pick = rng.choice(len(fields), size=min(2000, len(fields)), replace=False)
@@ -2706,6 +2787,15 @@ def main() -> None:
               bench_launches["partial_gram"]),
         entry("coo_extract", "coo_extract", "coo_extract", f"{jax_pairsnp}:928",
               slice_launches["coo_extract"]),
+        # the split layout built on the card: no TPU kernel, it replaces the
+        # host pass of split_alignment (src/tracs_native.cpp tn_split_stats);
+        # launches in the distance CLI run, error and times at 4096 x 31250
+        entry("split_layout", "split_layout", "split_layout",
+              "none (the host pass tracs_tpu/ops/packing.py::split_alignment)",
+              slice_launches["split_layout"]),
+        entry("split_layout (gather)", "split_gather", "split_layout",
+              "none (the host pass tracs_tpu/ops/packing.py::split_alignment)",
+              slice_launches["split_gather"]),
         *(entry(f"coo_extract ({what})", "coo_extract", "coo_extract", f"{jax_pairsnp}:928",
                 launches["coo_extract"]) for what, launches in others[:3]),
         entry("coo_extract (bench path)", "coo_extract", "coo_extract", f"{jax_pairsnp}:928",

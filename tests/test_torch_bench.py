@@ -120,7 +120,7 @@ def test_pair_count_equals_the_blocks_the_kernels_received(monkeypatch, n, rb, m
     assert sum(seen) == 4 * res["pairs"]
 
 
-@pytest.mark.parametrize("method,builds", [("split", "_derive_split_planes"),
+@pytest.mark.parametrize("method,builds", [("split", "split_layout"),
                                            ("popcount", "pad_planes"), ("mxu", "pad_planes")])
 def test_layout_is_built_once(monkeypatch, method, builds):
     """The first warm-up builds and uploads the device layout; nothing

@@ -108,6 +108,72 @@ def test_split_alignment_matches_reference(monkeypatch, native):
     assert (got.n_partial, got.length) == (want.n_partial, want.length)
 
 
+#: the split layout's cases: (samples, sites, alphabet, all-N rows, another
+#: alignment whose partial sites join this one's as the gather axis)
+LAYOUT_CASES = {
+    "ragged length": (11, 300, IUPAC, 0, False),
+    "one sample": (1, 77, IUPAC, 0, False),
+    "no partial sites": (6, 130, np.array(list("ACGTN-")), 0, False),
+    "all-N rows": (7, 96, IUPAC, 3, False),
+    "every 2- and 3-bit code": (10, 40, np.array(list("MRWSYKVHDB")), 0, False),
+    "partial sites given": (9, 250, IUPAC, 1, True),
+}
+
+
+def _layout_case(name):
+    """(jax PackedAlignment, port PackedAlignment, partial_sites or None) of
+    a LAYOUT_CASES case, from a seed of its own."""
+    n, L, alphabet, n_rows, paired = LAYOUT_CASES[name]
+    rng = np.random.default_rng(list(LAYOUT_CASES).index(name) + 60)
+    seqs = _seqs(rng, n, L, alphabet)
+    if name.startswith("every"):  # each code at a column of its own, too
+        seqs[0] = "".join(alphabet[k % len(alphabet)] for k in range(L))
+    for k in range(n_rows):
+        seqs[k * 2] = "N" * L
+    j, p = _both(seqs)
+    if not paired:
+        return j, p, None
+    jo, po = _both(_seqs(rng, 4, L, np.array(list("ACGTYK"))))
+    return j, p, np.union1d(port.partial_site_positions(p), port.partial_site_positions(po))
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
+@pytest.mark.parametrize("case", list(LAYOUT_CASES))
+def test_device_layout_matches_host_layout_and_reference(monkeypatch, case, native):
+    """The layout built on a device (``split_on_device``: the kernels' plain
+    versions here) against the host's (the native pass or numpy) and
+    tracs_tpu's, every field exact: excl and nmask at the card's pitch with
+    zero pad words, the partial planes at theirs, the N counts, the partial
+    positions and their count."""
+    from tracs_tpu_torch.ops import kernels
+    from tracs_tpu_torch.ops.packing import split_on_device
+
+    j, p, sites = _layout_case(case)
+    if not native:
+        import tracs_tpu_torch.runtime.native as nat
+
+        monkeypatch.setattr(nat, "native_split_stats", lambda planes: None)
+    host, want = split_alignment(p, sites), jpacking.split_alignment(j, sites)
+    dev = split_on_device(p, sites, CPU)
+    for f in ("excl", "nmask", "partial", "cnt_n", "partial_pos"):
+        assert np.array_equal(getattr(host, f), getattr(want, f)), f
+    assert (host.n_partial, host.length) == (want.n_partial, want.length)
+    assert dev.device == CPU and dev.excl is None and dev.nmask is None and dev.partial is None
+    assert np.array_equal(dev.cnt_n, want.cnt_n) and dev.cnt_n.dtype == np.int64
+    assert np.array_equal(dev.partial_pos, want.partial_pos)
+    assert (dev.n_partial, dev.length, dev.n_seqs) == (want.n_partial, want.length, len(p.names))
+    if case == "no partial sites":
+        assert dev.n_partial == 0 and not want.partial.any() and want.partial.shape[2] == 1
+    ea, nm, pt = port._split_device(dev, CPU)
+    W, Wp = want.excl.shape[2], want.partial.shape[2]
+    assert ea.shape[2] == nm.shape[1] == kernels.padded_words(W)
+    assert pt.shape[2] == kernels.padded_words(Wp)
+    for got, ref, w in ((ea, want.excl, W), (nm, want.nmask, W), (pt, want.partial, Wp)):
+        words = got.numpy().view(np.uint32)
+        assert np.array_equal(words[..., :w], ref) and not words[..., w:].any()
+    assert np.array_equal(port._cnt_device(dev, CPU).numpy(), want.cnt_n)
+
+
 def test_gram_partial_matches_reference():
     import jax.numpy as jnp
 
@@ -121,12 +187,16 @@ def test_gram_partial_matches_reference():
 
 
 def test_derive_split_planes_matches_host_layout():
+    """The device layout's planes (``split_layout``, here its plain version)
+    are the host layout's words, then zero words up to the card's pitch."""
     rng = np.random.default_rng(5)
     _, p = _both(_seqs(rng, 8, 200))
     sa = split_alignment(p)
-    ea, nm = port._derive_split_planes(port._as_words(p.planes))
-    assert np.array_equal(ea.numpy().view(np.uint32), sa.excl)
-    assert np.array_equal(nm.numpy().view(np.uint32), sa.nmask)
+    W = p.planes.shape[2]
+    ea, nm = port.split_layout(port._as_words(p.planes))[:2]
+    assert np.array_equal(ea.numpy().view(np.uint32)[:, :, :W], sa.excl)
+    assert np.array_equal(nm.numpy().view(np.uint32)[:, :W], sa.nmask)
+    assert not ea[:, :, W:].any() and not nm[:, W:].any()
 
 
 @pytest.mark.parametrize("W", [1, 3, 4, 5, 17])

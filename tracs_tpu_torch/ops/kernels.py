@@ -36,12 +36,18 @@ row-major COO compaction, from the CUDA kernel ``csrc/coo_extract.cu`` in one
 launch (count, a single-pass scan by decoupled look-back, emit; no D or NN
 block is written, the output is sized on the host by ``coo_capacity``).
 
+``split_layout`` and ``split_gather`` — the split engine's layout (N-exclusive
+planes, N masks and counts, the partial-site OR) from the raw planes in one
+pass, and its partial planes gathered at the partial sites, from the two
+kernels of ``csrc/split_layout.cu``: the host pass they replace on the card
+is ops/packing.py::split_alignment's.
+
 On a CUDA tensor each wrapper launches its kernel (built for sm_90a at first
 use, runtime/build.py) and counts the launch in the counter
 ``kernel.launches.<kernel>`` of runtime/profiling.py (``split_gram``,
 ``popcount_gram``, ``split_gram_mma.<variant>``, ``mism_positions`` and, for
 the tiled design also, ``mism_positions_tiled``, ``partial_gram``,
-``coo_extract``); on a CPU tensor it returns its ``*_reference``, the plain
+``coo_extract``, ``split_layout``, ``split_gather``); on a CPU tensor it returns its ``*_reference``, the plain
 exact version.  There is no fallback from one to the other.
 
 Layouts: packed words are ``int32`` tensors holding the bits of the uint32
@@ -1165,3 +1171,129 @@ def coo_extract(g, gn, *, mode: str, L: int, dist: int, r0: int, c0: int, n_vali
     done.record(torch.cuda.current_stream(g.device))
     done.synchronize()
     return out[:int(k)].T
+
+
+# ---------------------------------------------------------------------------
+# the split layout, built on the card
+# ---------------------------------------------------------------------------
+
+def _popcount(words: torch.Tensor) -> torch.Tensor:
+    """int64 popcount of each int32 word's 32 bits (SWAR arithmetic on int64,
+    where the words' high bit is no sign)."""
+    v = words.to(torch.int64) & 0xFFFFFFFF
+    v = v - ((v >> 1) & 0x55555555)
+    v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
+    v = (v + (v >> 4)) & 0x0F0F0F0F
+    return ((v * 0x01010101) >> 24) & 0xFF
+
+
+def split_layout_reference(planes):
+    """Plain exact version of ``split_layout``: the layout's planes by
+    elementwise ops, padded by ``pad_layout``, the N counts by ``_popcount``
+    and the partial OR by a tree of ORs over the samples."""
+    _check_planes(planes, "planes")
+    a, c, g, t = planes.unbind(1)
+    all4 = a & c & g & t
+    ge2 = (a & c) | (a & g) | (a & t) | (c & g) | (c & t) | (g & t)
+    excl, nmask = pad_layout(planes & ~all4[:, None, :], all4)
+    cnt_n = _popcount(all4).sum(dim=-1).to(torch.int32)
+    part = ge2 & ~all4
+    while part.shape[0] > 1:
+        half = part.shape[0] // 2
+        part = torch.cat([part[:half] | part[half:2 * half], part[2 * half:]])
+    partial_or = part[0] if part.shape[0] else part.new_zeros(part.shape[1])
+    return excl, nmask, cnt_n, partial_or
+
+
+def split_layout(planes):
+    """The split layout of raw planes, on their device:
+    ``(excl, nmask, cnt_n, partial_or)`` with excl = planes & ~all4 int32
+    [n, 4, padded_words(W)] and nmask = all4 = A & C & G & T int32
+    [n, padded_words(W)] (the pad words zero: the card's pitch, as
+    ``pad_layout`` gives it), cnt_n int32 [n] the popcount of each sample's
+    all4, and partial_or int32 [W] the OR over the samples of the sites that
+    hold a 2- or 3-bit code (two or more planes set, not all four).  The
+    host pass ``ops/packing.py::split_alignment`` gives the same words.
+
+    planes : int32 [n, 4, W], contiguous, at their natural width W.  CPU
+    tensors take ``split_layout_reference``; CUDA tensors launch the kernel
+    ``csrc/split_layout.cu`` once (one pass over the words) or raise."""
+    if planes.device.type == "cpu":
+        return split_layout_reference(planes)
+    _check_planes(planes, "planes")
+    n, W = planes.shape[0], planes.shape[2]
+    _check_cuda(planes, "split_layout", n)
+    pitch = padded_words(W)
+    dev = planes.device
+    excl = torch.empty((n, 4, pitch), dtype=torch.int32, device=dev)
+    nmask = torch.empty((n, pitch), dtype=torch.int32, device=dev)
+    cnt_n = torch.empty(n, dtype=torch.int32, device=dev)
+    partial_or = torch.empty(W, dtype=torch.int32, device=dev)
+    if n == 0 or W == 0:
+        return excl, nmask, cnt_n.zero_(), partial_or.zero_()
+    fn = _kernel_entry("split_layout", [ctypes.c_void_p] + [ctypes.c_longlong] * 3
+                       + [ctypes.c_void_p] * 5)
+    with torch.cuda.device(dev):
+        rc = fn(planes.data_ptr(), n, W, pitch, excl.data_ptr(), nmask.data_ptr(),
+                cnt_n.data_ptr(), partial_or.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"split_layout kernel launch failed: CUDA error {rc}")
+    count("kernel.launches.split_layout")
+    return excl, nmask, cnt_n, partial_or
+
+
+def _gather_operands(excl, positions) -> torch.Tensor:
+    """``positions`` as an int64 tensor on ``excl``'s device; raises unless
+    (excl, positions) are a valid ``split_gather`` call."""
+    _check_planes(excl, "excl")
+    positions = np.asarray(positions)
+    if positions.ndim != 1 or (positions.size and positions.dtype.kind not in "iu"):
+        raise TypeError(f"positions: want integers [P], got {positions.dtype} {positions.shape}")
+    if positions.size and not (0 <= positions.min() and positions.max() < 32 * excl.shape[2]):
+        raise ValueError(f"positions outside the {32 * excl.shape[2]} sites of excl")
+    return torch.from_numpy(positions.astype(np.int64)).to(excl.device)
+
+
+def split_gather_reference(excl, positions):
+    """Plain exact version of ``split_gather``: the bits picked by indexing
+    and shifts, packed by a weighted sum in int64."""
+    positions = _gather_operands(excl, positions)
+    n, P = excl.shape[0], positions.numel()
+    pitch = padded_words(max(1, -(-P // 32)))
+    bits = torch.zeros((n, 4, pitch * 32), dtype=torch.int64, device=excl.device)
+    if P:
+        bits[:, :, :P] = (excl[:, :, positions >> 5] >> (positions & 31).to(torch.int32)) & 1
+    weights = torch.ones(32, dtype=torch.int64, device=excl.device) << torch.arange(
+        32, device=excl.device)
+    words = (bits.view(n, 4, pitch, 32) * weights).sum(dim=-1)
+    return torch.where(words >= 2**31, words - 2**32, words).to(torch.int32)
+
+
+def split_gather(excl, positions):
+    """The split layout's partial planes: the bits of the exclusive planes
+    ``excl`` (int32 [n, 4, W'], any pitch) at the sites ``positions`` (host
+    integers [P], each below 32 W'; they cross to the card), packed 32 a word in the order given, int32
+    [n, 4, padded_words(max(1, ceil(P / 32)))] with the words past the
+    last site zero: the host layout's ``partial`` at the card's pitch, as
+    ``pad_planes`` gives it.  CPU tensors take ``split_gather_reference``;
+    CUDA tensors launch the second kernel of ``csrc/split_layout.cu`` (a warp
+    an output word) or raise."""
+    if excl.device.type == "cpu":
+        return split_gather_reference(excl, positions)
+    positions = _gather_operands(excl, positions)
+    n, P = excl.shape[0], positions.numel()
+    pitch = padded_words(max(1, -(-P // 32)))
+    _check_cuda(excl, "split_gather", n)
+    out = torch.empty((n, 4, pitch), dtype=torch.int32, device=excl.device)
+    if n == 0:
+        return out
+    fn = _kernel_entry("split_layout", [ctypes.c_void_p] + [ctypes.c_longlong] * 2
+                       + [ctypes.c_void_p] + [ctypes.c_longlong] * 2 + [ctypes.c_void_p] * 2,
+                       "split_gather")
+    with torch.cuda.device(excl.device):
+        rc = fn(excl.data_ptr(), 4 * n, excl.shape[2], positions.data_ptr(), P, pitch,
+                out.data_ptr(), torch.cuda.current_stream(excl.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"split_gather kernel launch failed: CUDA error {rc}")
+    count("kernel.launches.split_gather")
+    return out

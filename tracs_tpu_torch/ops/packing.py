@@ -1,5 +1,6 @@
 """IUPAC codec: FASTA sequences <-> 4-plane bit-packed allele tensors
-(counterpart of tracs_tpu/ops/packing.py; host numpy code).
+(counterpart of tracs_tpu/ops/packing.py; host numpy code, but for the split
+layout built on a card, ``split_on_device``).
 
 Canonical layout: ``planes`` is a ``[n_samples, 4, W] uint32`` array, where
 plane ``p`` in (A=0, C=1, G=2, T=3) holds one bit per genome position (site
@@ -17,9 +18,12 @@ import os
 from typing import Sequence
 
 import numpy as np
+import torch
 
 from tracs_tpu_torch.io.fasta import read_fasta
-from tracs_tpu_torch.runtime.profiling import spanned
+from tracs_tpu_torch.ops import kernels
+from tracs_tpu_torch.runtime.device import resolve_device
+from tracs_tpu_torch.runtime.profiling import count, span, spanned
 
 # bit order: bit0=A, bit1=C, bit2=G, bit3=T
 _A, _C, _G, _T = 1, 2, 4, 8
@@ -301,23 +305,28 @@ class SplitAlignment:
     where ``ex`` are the N-exclusive singleton planes (plane & ~N-mask) and
     the correction channels are nonzero only at sites where some sample holds
     a 2- or 3-bit IUPAC code — gathered into a compact [n, 4, Wp] tensor.
+
+    A layout built on a card (``device`` set) keeps ``excl``, ``nmask`` and
+    ``partial`` there only, at the card's word pitch (``_dev_cache``, read
+    through ops/pairsnp.py::_split_device): its three host fields are None.
     """
 
-    excl: np.ndarray      # [n, 4, W] uint32: singleton planes with N sites cleared
-    nmask: np.ndarray     # [n, W]   uint32: N (all-four) mask
-    partial: np.ndarray   # [n, 4, Wp] uint32: exclusive planes gathered at partial sites
+    excl: np.ndarray | None     # [n, 4, W] uint32: singleton planes with N sites cleared
+    nmask: np.ndarray | None    # [n, W]   uint32: N (all-four) mask
+    partial: np.ndarray | None  # [n, 4, Wp] uint32: exclusive planes gathered at partial sites
     cnt_n: np.ndarray     # [n] int64: per-sample N counts
     length: int
     n_partial: int
     names: list
     partial_pos: np.ndarray  # [n_partial] int64 gathered positions
-    # the PackedAlignment this layout was built from: the device path
-    # uploads its 4 raw planes and derives excl/nmask there (ops/pairsnp.py)
+    # the PackedAlignment this layout was built from
     src: PackedAlignment
+    # the card that holds the layout; None: built on the host
+    device: torch.device | None = None
 
     @property
     def n_seqs(self) -> int:
-        return self.excl.shape[0]
+        return len(self.cnt_n)
 
 
 def partial_site_positions(packed: PackedAlignment) -> np.ndarray:
@@ -335,14 +344,21 @@ def partial_site_positions(packed: PackedAlignment) -> np.ndarray:
 
 @spanned("layout.split")
 def split_alignment(
-    packed: PackedAlignment, partial_sites: np.ndarray | None = None
+    packed: PackedAlignment, partial_sites: np.ndarray | None = None, *,
+    device: str | torch.device | None = None,
 ) -> SplitAlignment:
-    """Build the SplitAlignment layout (host, once per alignment).
+    """Build the SplitAlignment layout (once per alignment): on the host, or
+    on ``device`` when it is a CUDA device (``split_on_device``); without a
+    device, or with the CPU, on the host.
 
     ``partial_sites`` overrides the gathered partial-site positions — pass
     the union of both alignments' positions when building the two sides of
     a query-vs-db pair, so their correction grams share the gather axis."""
     from tracs_tpu_torch.runtime.native import native_split_stats
+
+    device = None if device is None else resolve_device(device)
+    if device is not None and device.type == "cuda":
+        return split_on_device(packed, partial_sites, device)
 
     p = packed.planes
     stats = native_split_stats(p)
@@ -381,6 +397,41 @@ def split_alignment(
         cnt_n=cnt_n, length=packed.length, n_partial=n_partial,
         names=packed.names, partial_pos=idx, src=packed,
     )
+
+
+def split_on_device(packed: PackedAlignment, partial_sites,
+                    device: torch.device) -> SplitAlignment:
+    """The SplitAlignment layout built on ``device`` from the raw planes,
+    which cross to it once (the span ``layout.upload``, the counter
+    ``layout.upload_bytes``): ``kernels.split_layout`` writes the
+    exclusive planes and N masks at the card's word pitch, each sample's N
+    count and the partial-site OR over the samples; only the counts and the
+    OR come back, the partial sites are read from the OR (unless
+    ``partial_sites`` is given) and ``kernels.split_gather`` gathers the
+    partial planes on the device.  The layout's device tensors are set
+    (``_dev_cache``, ``_dev_cnt``) and its host planes are None.  Counted in
+    ``layout.device_builds``.  On the CPU it runs the kernels' plain
+    versions."""
+    with span("layout.upload"):
+        planes = kernels._as_words(packed.planes).to(device)
+    count("layout.upload_bytes", packed.planes.nbytes)
+    excl, nmask, cnt, partial_or = kernels.split_layout(planes)
+    del planes
+    cnt_n = cnt.cpu().numpy().astype(np.int64)
+    if partial_sites is None:
+        bits = np.unpackbits(partial_or.cpu().numpy().view(np.uint8), bitorder="little")
+        partial_sites = np.nonzero(bits[: packed.length])[0]
+    idx = np.asarray(partial_sites, dtype=np.int64)
+    partial = kernels.split_gather(excl, idx)
+    count("layout.device_builds")
+    split = SplitAlignment(
+        excl=None, nmask=None, partial=None, cnt_n=cnt_n, length=packed.length,
+        n_partial=len(idx), names=packed.names, partial_pos=idx, src=packed,
+        device=device,
+    )
+    split._dev_cache = (device, excl, nmask, partial)
+    split._dev_cnt = (device, cnt)
+    return split
 
 
 # ---------------------------------------------------------------------------

@@ -67,6 +67,7 @@ from tracs_tpu_torch.ops.kernels import (
     partial_gram,
     popcount_gram,
     split_gram,
+    split_layout,
 )
 from tracs_tpu_torch.ops.packing import (
     PackedAlignment,
@@ -98,30 +99,23 @@ _QUAD = 14
 METHODS = ("auto", "split", "popcount", "mxu")
 
 
-def _derive_split_planes(planes: torch.Tensor):
-    """(excl, nmask) from raw packed planes [n, 4, W], on their device:
-    all4 = A&C&G&T, excl = planes & ~all4."""
-    all4 = planes[:, 0] & planes[:, 1] & planes[:, 2] & planes[:, 3]
-    return planes & ~all4[:, None, :], all4
-
-
 def _split_device(sa: SplitAlignment, device: torch.device):
     """(excl, nmask, partial) of a SplitAlignment on ``device``, cached on it.
-    The 4 raw planes cross to the device once and excl/nmask are derived
-    there; the raw upload is freed after the derive.  excl and nmask get the
-    word pitch ``padded_words(W)``: the raw planes are padded with zero words
-    on the device, which derive to zero words of both, so a plane row starts
-    on a 16-byte boundary whatever the sequence length.  The partial planes
-    get the same rule on their own word axis (``pad_planes``): a zero word
-    adds nothing to the correction gram.  A miss is the span
-    ``layout.upload`` (the pageable copies and the pad and derive launches)
-    and adds the bytes copied to ``layout.upload_bytes``."""
+    A layout built on the card (``split_alignment(..., device=)``) holds them
+    already.  A host layout crosses once: its 4 raw planes, from which the
+    kernel ``split_layout`` writes excl and nmask at the word pitch
+    ``padded_words(W)`` (zero words past the sites, so a plane row starts on
+    a 16-byte boundary whatever the sequence length), and its partial planes,
+    brought to the same rule on their own word axis (``pad_planes``: a zero
+    word adds nothing to the correction gram).  Such a miss is the span
+    ``layout.upload`` (the pageable copies and the launches) and adds the
+    bytes copied to ``layout.upload_bytes``."""
     cache = getattr(sa, "_dev_cache", None)
     if cache is None or cache[0] != device:
+        if sa.device is not None:
+            raise ValueError(f"the layout was built on {sa.device}, not {device}")
         with span("layout.upload"):
-            planes = pad_planes(_as_words(sa.src.planes).to(device))
-            ea, nm = _derive_split_planes(planes)
-            del planes
+            ea, nm = split_layout(_as_words(sa.src.planes).to(device))[:2]
             pt = pad_planes(_as_words(sa.partial).to(device))
         count("layout.upload_bytes", sa.src.planes.nbytes + sa.partial.nbytes)
         cache = (device, ea, nm, pt)
@@ -132,7 +126,7 @@ def _split_device(sa: SplitAlignment, device: torch.device):
 def _planes_device(packed: PackedAlignment, device: torch.device) -> torch.Tensor:
     """The raw planes [n, 4, W] of a PackedAlignment on ``device``, cached on
     it: the popcount engine's resident operand (the split path frees its own
-    raw upload after deriving its layout, so the two engines keep separate
+    raw upload after building its layout, so the two engines keep separate
     copies).  Padded on the device with zero words to the pitch
     ``padded_words(W)``, so a plane row starts on a 16-byte boundary whatever
     the sequence length: a zero word adds nothing to ``matches`` or
@@ -259,7 +253,7 @@ def _block_grams(engine: str, a: PackedAlignment, b: PackedAlignment, r0: int, r
         return _popcount_grams(a, b, r0, r1, c0, device)
     if engine == "mxu":
         return _mxu_grams(a, b, r0, r1, c0, device)
-    sa, sb = _split_pair(a, b)
+    sa, sb = _split_pair(a, b, device)
     return _split_grams(sa, sb, r0, r1, c0, device)
 
 
@@ -394,29 +388,48 @@ def _extract_coo(grams: dict, L: int, dist: int, r0: int, n_valid: int, c0: int,
     return rows_l, cols_l + c0, dvals, nvals
 
 
-def _cached_split(packed: PackedAlignment) -> SplitAlignment:
-    """Build (and cache on the object) the SplitAlignment layout."""
+def _layout_device(device: torch.device | None) -> torch.device | None:
+    """Where the split layout of a run on ``device`` is built: on a CUDA
+    device there; else (the CPU, or None for a mesh, which slices the host
+    layout) on the host."""
+    return device if device is not None and device.type == "cuda" else None
+
+
+def _serves(split: SplitAlignment, device: torch.device | None) -> bool:
+    """Whether a cached layout serves a run on ``device``: a host layout
+    serves every run (it crosses to a card when one asks), a card's layout
+    only runs on that card."""
+    return split.device is None or split.device == _layout_device(device)
+
+
+def _cached_split(packed: PackedAlignment,
+                  device: torch.device | None = None) -> SplitAlignment:
+    """Build (and cache on the object) the SplitAlignment layout, on the card
+    for a run on one (``_layout_device``)."""
     split = getattr(packed, "_split_cache", None)
-    if split is None:
-        split = split_alignment(packed)
+    if split is None or not _serves(split, device):
+        split = split_alignment(packed, device=_layout_device(device))
         packed._split_cache = split
     return split
 
 
-def _split_pair(a: PackedAlignment, b: PackedAlignment | None):
-    """(sa, sb) SplitAlignments for a comparison pair.  For a query-vs-db
-    pair both sides are gathered at the union of their partial positions,
-    so the correction gram's contraction axis lines up site for site.
-    Cached on ``a`` beside the partner itself: the entry keeps ``b`` alive, so
-    no later object can take its identity and be served its layout."""
+def _split_pair(a: PackedAlignment, b: PackedAlignment | None,
+                device: torch.device | None = None):
+    """(sa, sb) SplitAlignments for a comparison pair, built as
+    ``_cached_split`` builds them.  For a query-vs-db pair both sides are
+    gathered at the union of their partial positions, so the correction
+    gram's contraction axis lines up site for site.  Cached on ``a`` beside
+    the partner itself: the entry keeps ``b`` alive, so no later object can
+    take its identity and be served its layout."""
     if b is None or b is a:
-        sa = _cached_split(a)
+        sa = _cached_split(a, device)
         return sa, sa
     cache = getattr(a, "_split_pair_cache", None)
-    if cache is not None and cache[0] is b:
+    if cache is not None and cache[0] is b and _serves(cache[1][0], device):
         return cache[1]
     pos = np.union1d(partial_site_positions(a), partial_site_positions(b))
-    pair = (split_alignment(a, pos), split_alignment(b, pos))
+    dev = _layout_device(device)
+    pair = (split_alignment(a, pos, device=dev), split_alignment(b, pos, device=dev))
     a._split_pair_cache = (b, pair)
     return pair
 
@@ -433,23 +446,27 @@ def _cached_compact(a: PackedAlignment, b: PackedAlignment):
     return res
 
 
-def _select_method(a: PackedAlignment, b: PackedAlignment) -> str:
+def _select_method(a: PackedAlignment, b: PackedAlignment,
+                   device: torch.device | None = None) -> str:
     """tracs_tpu's choice for ``auto``, by multiply-adds a site: the split
     decomposition costs ~5 a site + 10 a partial-IUPAC site (p of them, the
     union over the samples), the inclusion-exclusion gram ~16 a site.  mxu
     would need 10 p >= 11 L, and p <= L, so the rule picks split on every
     alignment, in tracs_tpu as here; it is kept so that ``auto`` runs what
-    tracs_tpu runs."""
-    sa, sb = _split_pair(a, b)
+    tracs_tpu runs.  The split layouts it reads are those of a run on
+    ``device`` (``_split_pair``)."""
+    sa, sb = _split_pair(a, b, device)
     p = max(sa.n_partial, sb.n_partial)
     return "split" if (5 * a.length + 10 * p) < (16 * a.length) else "mxu"
 
 
-def _engine(method: str, a: PackedAlignment, b: PackedAlignment) -> str:
-    """The engine a method name runs on the pair (a, b)."""
+def _engine(method: str, a: PackedAlignment, b: PackedAlignment,
+            device: torch.device | None = None) -> str:
+    """The engine a method name runs on the pair (a, b) in a run on
+    ``device``."""
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; one of {METHODS}")
-    return _select_method(a, b) if method == "auto" else method
+    return _select_method(a, b, device) if method == "auto" else method
 
 
 def mismatch_positions_device(
@@ -469,10 +486,10 @@ def mismatch_positions_device(
     and the launches here are cut by table bytes.  The span
     ``filter.positions`` holds the launches and the tables' copies."""
     del chunk
-    engine = _engine(method, a, b)
     device = resolve_device(device)
+    engine = _engine(method, a, b, device)
     if engine == "split":
-        sa, sb = _split_pair(a, b)
+        sa, sb = _split_pair(a, b, device)
         pa, ma, _ = _split_device(sa, device)
         pb, mb = (None, None) if sb is sa else _split_device(sb, device)[:2]
     else:
@@ -535,7 +552,7 @@ def snp_distance_dense(
         b = a
     if a.length != b.length:
         raise ValueError("alignments must share sequence length")
-    engine = _engine(method, a, b)
+    engine = _engine(method, a, b, device)
     D = np.empty((a.n_seqs, b.n_seqs), dtype=np.int32)
     NN = np.empty((a.n_seqs, b.n_seqs), dtype=np.int32)
     for r0 in range(0, a.n_seqs, row_block):
@@ -622,10 +639,12 @@ def pairsnp_stream(
             a_k, b_k, pos_map, nn_off = comp
             if b is a:
                 b_k = a_k
-    engine = _engine(method, a_k, b_k)
+    # one device builds its split layout there; a mesh slices the host's
+    layout_device = device if mesh is None else None
+    engine = _engine(method, a_k, b_k, layout_device)
     ring = sweep = None
     if engine == "split":
-        sa, sb = _split_pair(a_k, b_k)
+        sa, sb = _split_pair(a_k, b_k, layout_device)
         if mesh is not None:
             from tracs_tpu_torch.parallel.allpairs import RingCoo, ShardedSweep
 

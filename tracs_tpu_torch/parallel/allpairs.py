@@ -5,11 +5,11 @@ Every engine is the one-device split path (ops/pairsnp.py: the gram kernels
 ``split_gram`` and ``partial_gram``, then ``coo_extract``: the D/NN assembly,
 the threshold and the COO compaction in one kernel) applied to one rank's
 shard: samples split over ``dp``, packed words over ``sp``.  A rank uploads
-only its shard, as the raw planes, and derives the N-exclusive planes and
-the N mask on its device, as ``_split_device`` does.  Word shards are
-``pad_to(W, 8 * sp) / sp`` words, a multiple of the kernels' word pitch;
-``pad_layout`` is applied all the same.  The sp ranks hold partial grams of the same pairs, which one ``psum``
-adds; every value is an exact int32 sum, so every output equals the
+only its shard, as the raw planes, and builds the N-exclusive planes and
+the N mask on its device with ``split_layout``, as ``_split_device`` does.
+Word shards are ``pad_to(W, 8 * sp) / sp`` words, a multiple of the
+kernels' word pitch.  The sp ranks hold partial grams of the same pairs,
+which one ``psum`` adds; every value is an exact int32 sum, so every output equals the
 one-device run bit for bit whatever the mesh's shape.
 
 1. ``ShardedSweep``: a row block against the whole sample set.  The DB side
@@ -39,11 +39,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from tracs_tpu_torch.ops.kernels import (_as_words, coo_capacity, pad_layout, pad_planes,
-                                         partial_gram, split_gram)
+from tracs_tpu_torch.ops.kernels import (_as_words, coo_capacity, pad_planes, partial_gram,
+                                         split_gram, split_layout)
 from tracs_tpu_torch.ops.packing import PackedAlignment, compact_variant_columns
 from tracs_tpu_torch.ops.pairsnp import (
-    _derive_split_planes,
     _extract_coo,
     _split_pair,
     snp_distance_dense,
@@ -105,9 +104,9 @@ def _host_slice(arr: np.ndarray, r0: int, r1: int, rows: int, w0: int, w1: int) 
 
 class _Shard:
     """Rows [r0, r0 + rows) of a SplitAlignment and this rank's word shard,
-    on ``device``: N-exclusive planes and N mask derived there from the raw
-    planes, the partial-site words (at the card's word pitch, ``pad_planes``)
-    and the N counts.  Rows past the alignment are zero and count no N."""
+    on ``device``: N-exclusive planes and N mask built there from the raw
+    planes (``split_layout``), the partial-site words (at the card's word
+    pitch, ``pad_planes``) and the N counts.  Rows past the alignment are zero and count no N."""
 
     def __init__(self, sa, r0: int, rows: int, ranks: _Ranks, device: torch.device):
         W, Wp = sa.excl.shape[2], sa.partial.shape[2]
@@ -115,7 +114,7 @@ class _Shard:
         wps = pad_to(max(Wp, 1), ranks.sp) // ranks.sp
         s = ranks.my_sp
         planes = _host_slice(sa.src.planes, r0, r0 + rows, rows, s * ws, (s + 1) * ws)
-        self.ex, self.nm = pad_layout(*_derive_split_planes(_as_words(planes).to(device)))
+        self.ex, self.nm = split_layout(_as_words(planes).to(device))[:2]
         self.pt = pad_planes(_as_words(
             _host_slice(sa.partial, r0, r0 + rows, rows, s * wps, (s + 1) * wps)).to(device))
         cnt = np.zeros(rows, dtype=np.int32)
