@@ -1,13 +1,24 @@
-"""The benchmark's own inputs, made from ``--seed``: clustered bit-packed
-alignments and their sampling dates.
+"""The benchmark's own inputs, made from ``--seed``: bit-packed alignments
+and their sampling dates.
 
-A copy of the port's ``experiments/workload.py::make_clustered`` (itself the
-JAX package's ``bench.py`` workload) and of ``chip_smoke.py::write_dates``,
-kept here so that later changes to the program cannot change the yardstick.
-Two departures, neither of which changes an array: the N share of the random
-base genomes is a parameter (the original's 14% is a constant), and the
-substitutions and partial-IUPAC columns are applied to all samples at once
-after the random draws, which are made in the original's order.
+A configuration's ``structure`` key chooses the alignment's shape:
+
+- ``"clusters"`` (also when the key is absent): clusters of copies of
+  independent random genomes, each copy with its own few substitutions
+  (``make_clustered``).  A copy of the port's
+  ``experiments/workload.py::make_clustered`` (itself the JAX package's
+  ``bench.py`` workload), kept here so that later changes to the program
+  cannot change the yardstick.  Two departures, neither of which changes an
+  array: the N share of the random base genomes is a parameter (the
+  original's 14% is a constant), and the substitutions and partial-IUPAC
+  columns are applied to all samples at once after the random draws, which
+  are made in the original's order.
+- ``"clock"``: every sample descends from one random root genome, with
+  substitutions placed by a molecular clock on the sampling dates and N
+  drawn for each sample (``make_clock_tree``), as in a collection of one
+  pathogen's genomes.
+
+``sample_days`` and ``write_dates`` copy ``chip_smoke.py::write_dates``.
 """
 
 from __future__ import annotations
@@ -18,6 +29,9 @@ import numpy as np
 
 #: bit order of the planes: bit0=A, bit1=C, bit2=G, bit3=T; N sets all four
 _CODES = np.array([1, 2, 4, 8, 15], dtype=np.uint8)
+STRUCTURES = ("clusters", "clock")
+#: days in the program's year of 31,556,952 s
+DAYS_A_YEAR = 365.2425
 
 
 def nibbles_to_planes(nibbles: np.ndarray) -> np.ndarray:
@@ -34,6 +48,14 @@ def nibbles_to_planes(nibbles: np.ndarray) -> np.ndarray:
         b = packed.reshape(n, W, 4).astype(np.uint32)
         planes[:, p] = b[:, :, 0] | (b[:, :, 1] << 8) | (b[:, :, 2] << 16) | (b[:, :, 3] << 24)
     return planes
+
+
+def planes_to_nibbles(planes: np.ndarray, L: int) -> np.ndarray:
+    """[n, 4, W] uint32 bit-planes -> [n, L] uint8 4-bit masks."""
+    n, _, W = planes.shape
+    bits = np.unpackbits(np.ascontiguousarray(planes).view(np.uint8), axis=-1,
+                         bitorder="little").reshape(n, 4, W * 32)[:, :, :L]
+    return (bits << np.arange(4, dtype=np.uint8)[None, :, None]).sum(axis=1, dtype=np.uint8)
 
 
 def random_planes(n: int, L: int, n_share: float, seed: int) -> np.ndarray:
@@ -56,6 +78,43 @@ def random_planes(n: int, L: int, n_share: float, seed: int) -> np.ndarray:
     return planes
 
 
+def _substitute(planes: np.ndarray, sample, pos, newbase) -> None:
+    """Writes base ``newbase`` (0..3: A, C, G, T) at site ``pos`` of
+    ``sample`` in the contiguous ``planes``, in place; the sites of one
+    sample are distinct."""
+    W = planes.shape[2]
+    flat = planes.reshape(-1)
+    word = sample * 4 * W + pos // 32
+    bit = np.uint32(1) << (pos % 32).astype(np.uint32)
+    for c in range(4):
+        np.bitwise_and.at(flat, word + c * W, ~bit)
+    np.bitwise_or.at(flat, word + newbase * W, bit)
+
+
+def _partial_columns(planes: np.ndarray, rng, L: int, n_partial_cols: int) -> None:
+    """Sets ``min(n_partial_cols, L // 8)`` columns drawn by ``rng`` to M or
+    R (drawn for each sample) in every sample, in place."""
+    n, _, W = planes.shape
+    n_partial_cols = min(n_partial_cols, L // 8)
+    if not n_partial_cols:
+        return
+    cols = rng.choice(L, size=n_partial_cols, replace=False)
+    is_m = np.stack([rng.integers(0, 2, size=n_partial_cols) == 0 for _ in range(n)])
+    w, b = cols // 32, (cols % 32).astype(np.uint32)
+    mask = np.zeros(W, dtype=np.uint32)
+    np.bitwise_or.at(mask, w, np.uint32(1) << b)
+    planes &= ~mask
+    planes[:, 0] |= mask  # the A bit of both codes
+    is_m_t = np.ascontiguousarray(is_m.T)  # [cols, n]
+    for plane, chosen in ((1, is_m_t), (2, ~is_m_t)):  # M = A|C, R = A|G
+        code_bits = np.zeros((W, n), dtype=np.uint32)
+        # columns that share a bit position lie in distinct words
+        for k in np.unique(b):
+            sel = np.nonzero(b == k)[0]
+            code_bits[w[sel]] |= chosen[sel].astype(np.uint32) << k
+        planes[:, plane] |= code_bits.T
+
+
 def make_clustered(n: int, L: int, *, cluster_size: int, max_mut: int,
                    n_partial_cols: int, n_share: float, seed: int) -> np.ndarray:
     """uint32 planes [n, 4, ceil(L/32)]: clusters of ``cluster_size`` copies
@@ -65,8 +124,6 @@ def make_clustered(n: int, L: int, *, cluster_size: int, max_mut: int,
     bases = random_planes(n_clusters, L, n_share, seed)
     rng = np.random.default_rng(seed + 1)
     max_mut = min(max_mut, max(5, L // 16))
-    n_partial_cols = min(n_partial_cols, L // 8)
-    W = bases.shape[2]
     planes = bases[np.arange(n) // cluster_size]
     sample, pos, newbase = [], [], []
     for i in range(n):
@@ -74,40 +131,128 @@ def make_clustered(n: int, L: int, *, cluster_size: int, max_mut: int,
         pos.append(rng.choice(L, size=k, replace=False))
         newbase.append(rng.integers(0, 4, size=k))
         sample.append(np.full(k, i, dtype=np.int64))
-    sample, pos, newbase = (np.concatenate(x) for x in (sample, pos, newbase))
-    flat = planes.reshape(-1)
-    word = sample * 4 * W + pos // 32
-    bit = np.uint32(1) << (pos % 32).astype(np.uint32)
-    for c in range(4):
-        np.bitwise_and.at(flat, word + c * W, ~bit)
-    np.bitwise_or.at(flat, word + newbase * W, bit)
-    if n_partial_cols:
-        cols = rng.choice(L, size=n_partial_cols, replace=False)
-        is_m = np.stack([rng.integers(0, 2, size=n_partial_cols) == 0 for _ in range(n)])
-        w, b = cols // 32, (cols % 32).astype(np.uint32)
-        mask = np.zeros(W, dtype=np.uint32)
-        np.bitwise_or.at(mask, w, np.uint32(1) << b)
-        planes &= ~mask
-        planes[:, 0] |= mask  # the A bit of both codes
-        is_m_t = np.ascontiguousarray(is_m.T)  # [cols, n]
-        for plane, chosen in ((1, is_m_t), (2, ~is_m_t)):  # M = A|C, R = A|G
-            code_bits = np.zeros((W, n), dtype=np.uint32)
-            # columns that share a bit position lie in distinct words
-            for k in np.unique(b):
-                sel = np.nonzero(b == k)[0]
-                code_bits[w[sel]] |= chosen[sel].astype(np.uint32) << k
-            planes[:, plane] |= code_bits.T
+    _substitute(planes, *(np.concatenate(x) for x in (sample, pos, newbase)))
+    _partial_columns(planes, rng, L, n_partial_cols)
     return planes
+
+
+def _distinct_sites(rng, counts: np.ndarray, L: int, taken=None):
+    """(group, site) int64 arrays of ``counts[g]`` distinct sites in [0, L)
+    for each group g, in group order, none of them among the ``taken``
+    (group, site) pairs.  A draw that repeats a taken site or an earlier
+    draw of its group is drawn again, until none does."""
+    group = np.repeat(np.arange(len(counts)), counts)
+    site = rng.integers(0, L, size=len(group))
+    fixed = np.zeros(0, dtype=np.int64) if taken is None else taken[0] * L + taken[1]
+    while True:
+        keys = np.concatenate([fixed, group * L + site])
+        order = np.argsort(keys, kind="stable")
+        repeats = np.zeros(len(keys), dtype=bool)
+        repeats[order[1:]] = keys[order[1:]] == keys[order[:-1]]
+        again = np.nonzero(repeats[len(fixed):])[0]
+        if not again.size:
+            return group, site
+        site[again] = rng.integers(0, L, size=again.size)
+
+
+def _new_bases(rng, root_code: np.ndarray, site: np.ndarray) -> np.ndarray:
+    """A base (0..3) for each substituted site: one of the three other than
+    the root's (which holds no N)."""
+    code = root_code[site]
+    base = np.argmax((code[:, None] >> np.arange(4, dtype=np.uint8)) & 1, axis=1)
+    return (base + 1 + rng.integers(0, 3, size=len(site))) % 4
+
+
+def _n_sites(planes: np.ndarray, rng, L: int, n_share: float) -> None:
+    """Sets each site of each sample to N with probability ``n_share`` (in
+    steps of 1/256, as ``random_planes``), drawn for each sample, in place;
+    1,024 samples a draw, to bound the draws' memory."""
+    n, _, W = planes.shape
+    below = int(round(n_share * 256))
+    if not below:
+        return
+    for lo in range(0, n, 1024):
+        is_n = rng.integers(0, 256, size=(min(1024, n - lo), W * 32), dtype=np.uint8) < below
+        is_n[:, L:] = False
+        mask = np.packbits(is_n, axis=-1, bitorder="little").view(np.uint32)
+        planes[lo: lo + 1024] |= mask[:, None, :]
+
+
+def day_parts(n: int, cluster_size: int, seed: int):
+    """(base day of each cluster, counted from 2019-01-01, in 2019-2021;
+    days of each sample after its cluster's base day, 0-180): the draws of
+    ``sample_days``."""
+    rng = np.random.default_rng(seed + 2)
+    n_clusters = -(-n // cluster_size)
+    base = rng.integers(0, 3 * 365, size=n_clusters)
+    offset = rng.integers(0, 181, size=n)
+    return base, offset
 
 
 def sample_days(n: int, cluster_size: int, seed: int) -> np.ndarray:
     """Sampling day of each sample, counted from 2019-01-01: a base day in
     2019-2021 for each cluster and 0-180 days after it for each member."""
-    rng = np.random.default_rng(seed + 2)
-    n_clusters = -(-n // cluster_size)
-    base = rng.integers(0, 3 * 365, size=n_clusters)
-    offset = rng.integers(0, 181, size=n)
+    base, offset = day_parts(n, cluster_size, seed)
     return base[np.arange(n) // cluster_size] + offset
+
+
+def clock_substitutions(root: np.ndarray, L: int, *, n: int, cluster_size: int,
+                        clock_rate: float, seed: int, rng):
+    """The substitutions of ``make_clock_tree`` as two (index, site, base)
+    triples of int64 arrays: each cluster's founder's, indexed by cluster,
+    and each sample's own, indexed by sample.
+
+    Cluster c's founder lives at the cluster's base day and carries
+    Poisson(``clock_rate`` x base years) distinct sites, where the root
+    (day 0) lives at 2019-01-01; each member carries its founder's and
+    Poisson(``clock_rate`` x its years after the base day) distinct sites
+    of its own, none of them its founder's.  A count is cut to the sites
+    there are.  Draws from ``rng`` in this order: founders' counts, sites
+    and bases, then the members'."""
+    base_day, offset = day_parts(n, cluster_size, seed)
+    root_code = planes_to_nibbles(root, L)[0]
+    k = np.minimum(rng.poisson(clock_rate * base_day / DAYS_A_YEAR), L)
+    cluster, f_site = _distinct_sites(rng, k, L)
+    founders = (cluster, f_site, _new_bases(rng, root_code, f_site))
+    inherited = _inherited(founders, n, cluster_size)
+    held = np.bincount(inherited[0], minlength=n)
+    m = np.minimum(rng.poisson(clock_rate * offset / DAYS_A_YEAR), L - held)
+    sample, p_site = _distinct_sites(rng, m, L, inherited[:2])
+    return founders, (sample, p_site, _new_bases(rng, root_code, p_site))
+
+
+def _inherited(founders, n: int, cluster_size: int):
+    """(sample, site, base) of every founder substitution that each member
+    of its cluster carries, in sample order."""
+    cluster, site, base = founders
+    counts = np.bincount(cluster, minlength=-(-n // cluster_size))
+    starts = np.concatenate([[0], np.cumsum(counts)[:-1]])
+    own = counts[np.arange(n) // cluster_size]
+    sample = np.repeat(np.arange(n), own)
+    first = np.repeat(starts[np.arange(n) // cluster_size] - np.cumsum(own) + own, own)
+    entry = first + np.arange(len(sample))
+    return sample, site[entry], base[entry]
+
+
+def make_clock_tree(n: int, L: int, *, cluster_size: int, clock_rate: float,
+                    n_partial_cols: int, n_share: float, seed: int) -> np.ndarray:
+    """uint32 planes [n, 4, ceil(L/32)] that descend from one random root
+    genome (no N) by a clock of ``clock_rate`` substitutions a genome a year
+    on the days of ``sample_days``, with clusters of ``cluster_size``
+    samples that share a founder (``clock_substitutions``); then each
+    sample's own N, at ``n_share`` of its sites (``_n_sites``), and
+    ``n_partial_cols`` columns where every sample holds M or R, as
+    ``make_clustered`` makes them."""
+    root = random_planes(1, L, 0.0, seed)
+    rng = np.random.default_rng(seed + 1)
+    founders, private = clock_substitutions(root, L, n=n, cluster_size=cluster_size,
+                                            clock_rate=clock_rate, seed=seed, rng=rng)
+    planes = np.repeat(root, n, axis=0)
+    _substitute(planes, *(np.concatenate(x) for x in zip(_inherited(founders, n, cluster_size),
+                                                          private)))
+    _n_sites(planes, rng, L, n_share)
+    _partial_columns(planes, rng, L, n_partial_cols)
+    return planes
 
 
 def write_dates(path: str, n: int, cluster_size: int, seed: int) -> None:
@@ -122,7 +267,21 @@ def write_dates(path: str, n: int, cluster_size: int, seed: int) -> None:
 
 
 def alignment(cfg: dict, seed: int) -> np.ndarray:
-    """The configuration's planes for ``seed``."""
-    return make_clustered(cfg["samples"], cfg["sites"], cluster_size=cfg["cluster_size"],
-                          max_mut=cfg["max_mutations"], n_partial_cols=cfg["partial_columns"],
-                          n_share=cfg["n_share"], seed=seed)
+    """The configuration's planes for ``seed``, in its ``structure``.  A
+    clock configuration reads ``clock_rate`` and takes no ``max_mutations``
+    (a null one counts as none, so that an override can take it away)."""
+    structure = cfg.get("structure", "clusters")
+    if structure == "clusters":
+        return make_clustered(cfg["samples"], cfg["sites"], cluster_size=cfg["cluster_size"],
+                              max_mut=cfg["max_mutations"],
+                              n_partial_cols=cfg["partial_columns"], n_share=cfg["n_share"],
+                              seed=seed)
+    if structure == "clock":
+        if cfg.get("max_mutations") is not None:
+            raise ValueError("a clock configuration takes no max_mutations: "
+                             "its substitutions follow clock_rate")
+        return make_clock_tree(cfg["samples"], cfg["sites"], cluster_size=cfg["cluster_size"],
+                               clock_rate=cfg["clock_rate"],
+                               n_partial_cols=cfg["partial_columns"], n_share=cfg["n_share"],
+                               seed=seed)
+    raise ValueError(f"structure {structure!r}: one of {', '.join(STRUCTURES)}")

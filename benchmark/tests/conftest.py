@@ -1,5 +1,6 @@
 """Shared pieces of the benchmark's tests: tiny sizes of each configuration,
-and one harness run of a cell on the CPU."""
+the clock structure as an override, and one harness run of a cell on the
+CPU."""
 
 import time
 
@@ -8,6 +9,10 @@ import pytest
 TINY = {"bact-1mb-10000": {"samples": 90, "sites": 29903, "row_block": 32},
         "bact-1mb-4096": {"samples": 48, "sites": 20000, "row_block": 16}}
 CELLS = ["bact-1mb-10000.sweep", "bact-1mb-4096.job", "bact-1mb-4096.filter-job"]
+#: the generator's clock structure at SARS-CoV-2's 29,903 sites and upstream's
+#: default clock rate, as an override of a cell's configuration
+CLOCK = {"structure": "clock", "max_mutations": None, "sites": 29903, "cluster_size": 21,
+         "clock_rate": 29.903000000000002}
 
 
 def tiny(cell: str) -> dict:

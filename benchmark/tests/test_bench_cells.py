@@ -12,7 +12,7 @@ import pytest
 import torch
 
 from benchmark import harness
-from benchmark.tests.conftest import CELLS, tiny
+from benchmark.tests.conftest import CELLS, CLOCK, tiny
 
 ROOT = harness.ROOT
 
@@ -25,14 +25,22 @@ def test_cell_runs_end_to_end(run_cell, cell, trace):
     assert result["attempted"] >= 1 and result["failed"] == 0
     spec = harness.Cell(cell)
     wanted = spec.per_layer if trace else spec.end_to_end
-    # the device metrics read nothing on the CPU; every span metric reads
-    on_device = {"sweep_roofline"}
+    # the device metrics read nothing on the CPU, nor do layouts built on the
+    # card (the CPU's host builds them); every span metric reads
+    on_device = {"sweep_roofline", "layout.device_builds_per_job"}
     assert set(result["metrics"]) == {m["name"] for m in wanted} - on_device
     assert list(result)[-1] == "checks"
     assert all(c["value"] <= c["limit"] for c in result["checks"].values())
     if trace:
         assert set(result["device"]) >= {"busy_s", "window_s"}
         assert set(result["breakdown"]) == {"device_ops", "idle_gaps"}
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_a_clock_alignment_runs_correct(run_cell, cell):
+    result = run_cell(cell, overrides=dict(tiny(cell), **CLOCK))
+    assert result["correct"] is True
+    assert all(c["value"] <= c["limit"] for c in result["checks"].values())
 
 
 def test_a_cell_without_a_card_prints_nothing(monkeypatch, capsys):

@@ -6,13 +6,22 @@ import pytest
 import torch
 
 from benchmark import control, harness
-from benchmark.tests.conftest import CELLS, tiny
+from benchmark.tests.conftest import CELLS, CLOCK, tiny
 
 
 @pytest.mark.parametrize("seed", [1, 2, 2**31 + 7])
 @pytest.mark.parametrize("cell", CELLS)
 def test_control_is_not_correct(cell, seed):
     checks = control.control(harness.Cell(cell), seed, torch.device("cpu"), tiny(cell))
+    assert any(c["value"] > c["limit"] for c in checks.values())
+
+
+@pytest.mark.parametrize("seed", [3, 2**31 + 9])
+@pytest.mark.parametrize("cell", CELLS)
+def test_control_on_a_clock_alignment_is_not_correct(cell, seed):
+    overrides = dict(tiny(cell), **CLOCK)
+    assert harness.Cell(cell).config["partial_columns"] > 0
+    checks = control.control(harness.Cell(cell), seed, torch.device("cpu"), overrides)
     assert any(c["value"] > c["limit"] for c in checks.values())
 
 

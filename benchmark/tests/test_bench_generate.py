@@ -1,5 +1,9 @@
-"""The benchmark's copied generator and dates equal the program's originals."""
+"""The benchmark's generator: the copied clusters and dates equal the
+program's originals, the existing configurations' planes are pinned, and
+the clock structure follows its clock."""
 
+import hashlib
+import json
 import os
 import sys
 
@@ -42,3 +46,149 @@ def test_write_dates_equals_chip_smokes(tmp_path, n, cluster, seed):
     chip_smoke.write_dates(str(tmp_path / "a.csv"), n, cluster, seed)
     generate.write_dates(str(tmp_path / "b.csv"), n, cluster, seed)
     assert (tmp_path / "a.csv").read_text() == (tmp_path / "b.csv").read_text()
+
+
+#: sha256 of ``alignment``'s planes at each configuration's ``conftest.TINY``
+#: size, taken before the generator had a ``structure`` key
+PINNED = {
+    ("bact-1mb-10000", 3): "9d000a16026c21737b19e20c944d3196e66c296c6bbed315763c151929ba6c20",
+    ("bact-1mb-10000", 2**31 + 5):
+        "f98c6d4e61a34badde6921d50038a2193bfd653c849aea175fb185d2239bf07b",
+    ("bact-1mb-4096", 3): "75422235be2b5b81b9ee5189e91a3300cc55850cfc35aeabb19f71bcb6e80192",
+    ("bact-1mb-4096", 2**31 + 5):
+        "87f6a4ecba7a1610a8dbf756dfa1ad845f11262dd9d00b418066f27e02dcbb89",
+}
+
+
+def _config(name: str, **changes) -> dict:
+    from benchmark.tests.conftest import TINY
+
+    with open(os.path.join(ROOT, "benchmark", "configs", name + ".json")) as fh:
+        return dict(json.load(fh), **TINY[name], **changes)
+
+
+def _sha(planes) -> str:
+    return hashlib.sha256(planes.tobytes()).hexdigest()
+
+
+@pytest.mark.parametrize("name,seed", sorted(PINNED))
+def test_the_configurations_planes_are_pinned(name, seed):
+    assert _sha(generate.alignment(_config(name), seed)) == PINNED[name, seed]
+
+
+@pytest.mark.parametrize("name", ["bact-1mb-10000", "bact-1mb-4096"])
+def test_the_clusters_structure_is_the_default(name):
+    assert np.array_equal(generate.alignment(_config(name, structure="clusters"), 3),
+                          generate.alignment(_config(name), 3))
+
+
+def _clock(**changes) -> dict:
+    cfg = {"samples": 60, "sites": 3000, "cluster_size": 7, "clock_rate": 29.903,
+           "partial_columns": 40, "n_share": 0.14, "structure": "clock"}
+    return dict(cfg, **changes)
+
+
+def test_a_clock_alignment_is_made_from_its_seed():
+    a, b = generate.alignment(_clock(), 11), generate.alignment(_clock(), 11)
+    assert np.array_equal(a, b)
+    assert not np.array_equal(a, generate.alignment(_clock(), 12))
+
+
+@pytest.mark.parametrize("seed", [4, 2**31 + 11])
+def test_a_clock_alignment_is_its_root_its_substitutions_and_its_own_n(seed):
+    cfg = _clock()
+    n, L, cs = cfg["samples"], cfg["sites"], cfg["cluster_size"]
+    planes = generate.alignment(cfg, seed)
+    root = generate.random_planes(1, L, 0.0, seed)
+    founders, private = generate.clock_substitutions(
+        root, L, n=n, cluster_size=cs, clock_rate=cfg["clock_rate"], seed=seed,
+        rng=np.random.default_rng(seed + 1))
+    code = generate.planes_to_nibbles(planes, L)
+    root_code = generate.planes_to_nibbles(root, L)[0]
+    assert not (root_code == 15).any()
+    # the partial columns: M (3) or R (5) in every sample, which neither the
+    # root nor a substitution writes
+    partial = np.isin(code, (3, 5))
+    assert (partial.all(axis=0) == partial.any(axis=0)).all()
+    assert partial[0].sum() == cfg["partial_columns"]
+    # N is each sample's own: its share is n_share's step (36/256) to 5
+    # standard errors in every sample, and no two samples share their sites
+    is_n = code == 15
+    share, sd = 36 / 256, np.sqrt(36 / 256 * (1 - 36 / 256) / L)
+    assert (np.abs(is_n.sum(axis=1) / (L - cfg["partial_columns"]) - share) < 5 * sd).all()
+    assert len({row.tobytes() for row in is_n}) == n
+    assert not is_n.all(axis=0).any()
+    expected = np.zeros((n, L), dtype=bool)
+    for c, site, _base in zip(*founders):
+        expected[c * cs: (c + 1) * cs, site] = True
+    for i, site, _base in zip(*private):
+        assert not expected[i, site], "a sample's own site repeats or is its founder's"
+        expected[i, site] = True
+    assert np.array_equal(code != root_code, expected | partial | is_n)
+    # every member holds its founder's base where it is read, and each base
+    # is a change
+    one_hot = lambda base: 1 << base
+    read = ~(partial | is_n)
+    for c, site, base in zip(*founders):
+        members = slice(c * cs, (c + 1) * cs)
+        assert (code[members, site][read[members, site]] == one_hot(base)).all()
+    for i, site, base in zip(*private):
+        assert not read[i, site] or code[i, site] == one_hot(base)
+    assert len(founders[0]) and len(private[0])
+
+
+def _distances(planes, L) -> np.ndarray:
+    """SNP distances of single-base alignments (no N, no partial code)."""
+    n, _, W = planes.shape
+    bits = np.unpackbits(planes.view(np.uint8), axis=-1, bitorder="little")
+    one_hot = bits.reshape(n, 4, W * 32)[:, :, :L].reshape(n, -1).astype(np.float32)
+    return L - np.rint(one_hot @ one_hot.T).astype(np.int64)
+
+
+@pytest.mark.parametrize("seed", [1, 2**31 + 3])
+def test_clock_distances_follow_the_clock(seed):
+    """Within a cluster two samples lie their two times since the founder
+    apart, across clusters their two times since the root, at clock_rate
+    substitutions a year.  Each mean over pairs is held to 4 standard
+    errors of its Poisson counts (worked out from the pairs each count
+    enters), plus what two sets of substitutions meeting at a site take
+    off: a set of sizes a and b meet at a * b / L sites on average, each
+    taking at most 2 off the distance."""
+    n, L, cs, rate = 1000, 8000, 5, 29.903
+    planes = generate.alignment(_clock(samples=n, sites=L, cluster_size=cs, clock_rate=rate,
+                                       partial_columns=0, n_share=0.0), seed)
+    d = _distances(planes, L)
+    base, offset = generate.day_parts(n, cs, seed)
+    cluster = np.arange(n) // cs
+    assert np.array_equal(base[cluster] + offset, generate.sample_days(n, cs, seed))
+    lam_founder = rate * base / generate.DAYS_A_YEAR
+    lam_own = rate * offset / generate.DAYS_A_YEAR
+    i, j = np.triu_indices(n, 1)
+    for within in (True, False):
+        sel = (cluster[i] == cluster[j]) == within
+        pi, pj = i[sel], j[sel]
+        lam_i, lam_j = lam_own[pi], lam_own[pj]
+        if not within:
+            lam_i, lam_j = lam_i + lam_founder[cluster[pi]], lam_j + lam_founder[cluster[pj]]
+        expected = (lam_i + lam_j).mean()
+        # the mean is a weighted sum of independent Poisson counts
+        weight_own = np.bincount(np.concatenate([pi, pj]), minlength=n) / sel.sum()
+        var = (weight_own ** 2 * lam_own).sum()
+        if not within:
+            weight_founder = np.bincount(cluster[np.concatenate([pi, pj])],
+                                         minlength=len(base)) / sel.sum()
+            var += (weight_founder ** 2 * lam_founder).sum()
+        meet = 2 * (lam_i * lam_j).mean() / L
+        gap = d[pi, pj].mean() - expected
+        assert -4 * np.sqrt(var) - meet <= gap <= 4 * np.sqrt(var), (within, gap, var, meet)
+
+
+def test_a_clock_configuration_takes_no_max_mutations():
+    with pytest.raises(ValueError, match="max_mutations"):
+        generate.alignment(_clock(max_mutations=90), 1)
+    assert generate.alignment(_clock(max_mutations=None), 1).shape == (60, 4, 94)
+
+
+def test_an_unknown_structure_raises():
+    with pytest.raises(ValueError, match="one of clusters, clock"):
+        generate.alignment(_clock(structure="tree"), 1)
