@@ -285,6 +285,26 @@ def test_refusals():
         kernels.coo_extract(**grams, **{**kw, "c0": -1})
 
 
+@pytest.mark.parametrize("triangle", [False, True], ids=["rectangle", "triangle"])
+@pytest.mark.parametrize("mode,with_gp", VARIANTS, ids=["split+gp", "split", "direct"])
+def test_a_launched_extraction_is_coo_extract(mode, with_gp, triangle):
+    """``coo_extract_launch`` gives ``coo_extract``'s [4, k] through ``wait()``
+    and its [k, 4] transpose through ``host()``; ``_extract_coo`` takes a
+    launch that a block's grams carry under ``coo`` as it would launch one."""
+    grams = _torch(_grams(np.random.default_rng([7, int(with_gp), len(mode)]), 9, 14, mode,
+                          with_gp))
+    kw = dict(L=L, dist=40, r0=3, c0=3, n_valid=16, triangle=triangle)
+    want = kernels.coo_extract(**grams, **kw)
+    pending = kernels.coo_extract_launch(**grams, **kw)
+    assert torch.equal(pending.wait(), want)
+    host = pending.host()
+    assert host.dtype == np.int32 and np.array_equal(host, want.T.numpy())
+    fresh = port._extract_coo(grams, L, 40, 3, 16, 3, triangle=triangle)
+    carried = port._extract_coo({**grams, "coo": kernels.coo_extract_launch(**grams, **kw)},
+                                L, 40, 3, 16, 3, triangle=triangle)
+    _assert_coo_equal(carried, fresh)
+
+
 def test_a_device_without_a_kernel_raises():
     """Off the CPU the wrapper launches the kernel or raises: a tensor on the
     ``meta`` device gets no plain version."""
@@ -390,3 +410,22 @@ def test_coo_extract_cuda_repeated_launches_agree(cuda_device):
         got = kernels.coo_extract(**grams, **kw)
         assert torch.equal(got, want)
     assert profiling.counter("kernel.launches.coo_extract") == before + 20
+
+
+@pytest.mark.cuda
+def test_coo_extract_cuda_takes_a_block_while_the_next_is_queued(cuda_device):
+    """The sweep's order: block A launched, then the larger block B, then A's
+    survivors taken (their copy on the side stream waits for A alone), then
+    B's.  Each equals its plain version."""
+    rng = np.random.default_rng(24)
+    a = _torch(_grams(rng, 1024, 3072, "split", True, dmax=2000), cuda_device)
+    b = _torch(_grams(rng, 2048, 16384, "split", True, dmax=2000), cuda_device)
+    kw_a = dict(L=L, dist=300, r0=1024, c0=1024, n_valid=4000, triangle=True)
+    kw_b = dict(L=L, dist=200, r0=0, c0=0, n_valid=16000, triangle=True)
+    pending_a = kernels.coo_extract_launch(**a, **kw_a)
+    pending_b = kernels.coo_extract_launch(**b, **kw_b)
+    got_a = pending_a.host()
+    assert np.array_equal(got_a, kernels.coo_extract_reference(**a, **kw_a).T.cpu().numpy())
+    got_b = pending_b.host()
+    assert np.array_equal(got_b, kernels.coo_extract_reference(**b, **kw_b).T.cpu().numpy())
+    assert len(got_a) and len(got_b)

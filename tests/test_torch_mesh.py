@@ -14,6 +14,7 @@ from tracs_tpu_torch.ops.pairsnp import pairsnp_stream as port_stream
 from tracs_tpu_torch.parallel import allpairs as port_ap
 from tracs_tpu_torch.parallel import mesh as port_mesh
 from tracs_tpu_torch.parallel import multihost
+from tracs_tpu_torch.runtime import profiling
 from tracs_tpu_torch.stages.distance import _peek_fasta_dims as port_peek
 
 jax = pytest.importorskip("jax")
@@ -29,6 +30,7 @@ from tracs_tpu.stages.distance import _peek_fasta_dims as jax_peek  # noqa: E402
 MB_WORDS = 31250  # 1 Mb genome in packed words
 SAMPLES = (1, 2, 4, 7, 13, 100, 512, 2048, 5000, 10000, 40000, 300000)
 WORDS = (None, 1, 8, 16, 400, MB_WORDS, 4 * MB_WORDS)
+SWEEP_COUNTERS = ("sweep.runs", "sweep.survivors", "sweep.copied_bytes")
 
 
 @pytest.mark.parametrize("n_dev", [1, 2, 3, 4, 5, 6, 8])
@@ -191,9 +193,14 @@ def test_both_engines_on_a_one_by_one_mesh(tmp_path, rng):
         for start in (0, 6):
             want = _collect(jax_stream([jax_pack(seqs)], dist=150, row_block=3,
                                        start_row=start))
+            before = [profiling.counter(k) for k in SWEEP_COUNTERS]
             got = _collect(port_stream([port_pack(seqs)], dist=150, row_block=3,
                                        start_row=start, device="cpu", mesh=mesh))
             assert got == want
+            # one run a call; the one rank's copy holds every survivor
+            runs, survivors, copied = (profiling.counter(k) - b
+                                       for k, b in zip(SWEEP_COUNTERS, before))
+            assert runs == 1 and copied == 16 * survivors == 16 * len(got[0]) > 0
         assert made == ["RingCoo", "ShardedSweep"]
         # mesh None is every rank of the world: here the 1 x 1 ring
         D, NN = port_ap.sharded_snp_distance(port_pack(seqs), device="cpu")

@@ -266,6 +266,27 @@ def test_stream_start_row_matches_reference(start_row):
     )
 
 
+def test_stream_launches_the_next_block_before_it_yields_one(monkeypatch):
+    """The one-device sweep launches block r + 1 before it yields block r,
+    and what it yields is what it would yield block by block."""
+    rng = np.random.default_rng(31)
+    j, p = _both(_seqs(rng, 19, 200))
+    launched = []
+    real = port._launch_block
+
+    def launch(engine, a, b, r0, *rest):
+        launched.append(r0)
+        return real(engine, a, b, r0, *rest)
+
+    monkeypatch.setattr(port, "_launch_block", launch)
+    stream = port.pairsnp_stream([p], dist=120, row_block=3, device="cpu")
+    got = []
+    for block in stream:
+        assert launched == list(range(0, min(19, block[0] + 6), 3))
+        got.append(block)
+    _assert_streams_equal(got, jref.pairsnp_stream([j], dist=120, row_block=3))
+
+
 @pytest.mark.parametrize("compact", [True, False])
 @pytest.mark.parametrize("row_block", [2, 64])
 def test_two_fasta_rectangle_matches_reference(compact, row_block):

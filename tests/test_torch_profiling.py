@@ -3,7 +3,8 @@ is off; recorded spans carry their parent, run and host-clock times;
 counters are always on and ``since`` filters both; the buffer is bounded;
 ``phase`` synchronises and logs only under DEBUG; a streaming ``distance``
 run records every span of the stage and counts what its inputs and CSV
-say; a DEBUG ``distance`` logs the totals; a compiler run counts a build."""
+say; each sweep counts one run and the bytes of its survivors' copy; a
+DEBUG ``distance`` logs the totals; a compiler run counts a build."""
 
 import csv
 import logging
@@ -18,6 +19,8 @@ import torch
 
 from tracs_tpu_torch import cli as port_cli
 from tracs_tpu_torch.ops import recomb
+from tracs_tpu_torch.ops.packing import pack_sequences
+from tracs_tpu_torch.ops.pairsnp import pairsnp_stream
 from tracs_tpu_torch.runtime import build, profiling
 
 #: every span a streaming ``distance --meta --filter`` run records on the CPU
@@ -206,8 +209,9 @@ def test_a_streaming_run_records_every_span_and_counts_what_its_inputs_say(tmp_p
     assert set(trace.table()) - {"kernel.build"} == STAGE_SPANS
     assert len({s.run for s in trace.spans}) == 1 and trace.spans[0].run is not None
     # the counters, against the CSV and the inputs
-    assert trace.count("stage.runs") == 1
+    assert trace.count("stage.runs") == trace.count("sweep.runs") == 1
     assert trace.count("sweep.survivors") == len(rows) > 0
+    assert trace.count("sweep.copied_bytes") == 16 * len(rows)
     assert trace.count("sweep.blocks") == math.ceil(n / 8)
     assert trace.count("sweep.pairs") == sum((min(n, r0 + 8) - r0) * (n - r0)
                                              for r0 in range(0, n, 8))
@@ -224,6 +228,27 @@ def test_a_streaming_run_records_every_span_and_counts_what_its_inputs_say(tmp_p
     table = trace.table()
     assert 0 <= table["meta"][2] <= table["meta"][1]
     assert table["stage.tail"][0] == math.ceil(n / 8)
+
+
+@pytest.mark.parametrize("method", ["split", "popcount", "mxu"])
+def test_each_sweep_counts_one_run_and_copies_16_bytes_a_survivor(method):
+    rng = np.random.default_rng(23)
+    msa = rng.choice(np.array(list("ACGTNR")), p=[0.24] * 4 + [0.02, 0.02], size=(29, 700))
+    hit = rng.random(msa.shape) < 0.98
+    msa[hit] = msa[0][np.nonzero(hit)[1]]  # near one genome: some pairs within -D 12
+    packed = pack_sequences(["".join(row) for row in msa])
+    names = ("sweep.runs", "sweep.blocks", "sweep.survivors", "sweep.copied_bytes")
+    before = [profiling.counter(k) for k in names]
+    survivors = 0
+    for _ in range(2):
+        stream = pairsnp_stream([packed], dist=12, row_block=8, device="cpu", method=method,
+                                compact=False)
+        survivors += sum(len(block[3]) for block in stream)
+    # a stream resumed past its last row sweeps nothing and counts no run
+    assert list(pairsnp_stream([packed], start_row=29, device="cpu", method=method)) == []
+    runs, blocks, counted, copied = (profiling.counter(k) - b for k, b in zip(names, before))
+    assert runs == 2 and blocks == 2 * math.ceil(29 / 8)
+    assert copied == 16 * counted == 16 * survivors > 0
 
 
 def test_a_debug_distance_run_logs_span_totals_and_counters(tmp_path, caplog):

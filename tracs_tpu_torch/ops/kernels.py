@@ -34,7 +34,9 @@ operands formed in registers, on ``popcount_gram``'s TMA ring, shared through
 ``coo_extract`` — one block's D/NN assembly, threshold, triangle mask and
 row-major COO compaction, from the CUDA kernel ``csrc/coo_extract.cu`` in one
 launch (count, a single-pass scan by decoupled look-back, emit; no D or NN
-block is written, the output is sized on the host by ``coo_capacity``).
+block is written, the output is sized on the host by ``coo_capacity``);
+``coo_extract_launch`` queues the same launch and returns it pending, so the
+sweep can queue the next block before it takes this one's survivors.
 
 ``split_layout`` and ``split_gather`` — the split engine's layout (N-exclusive
 planes, N masks and counts, the partial-site OR) from the raw planes in one
@@ -1158,19 +1160,69 @@ def coo_extract(g, gn, *, mode: str, L: int, dist: int, r0: int, c0: int, n_vali
     is the [4, k] transpose of those rows: ``coo.T`` is one contiguous piece
     of k x 16 bytes (it keeps the capacity's storage alive while it lives).
     No D or NN block is made."""
+    return coo_extract_launch(g, gn, mode=mode, L=L, dist=dist, r0=r0, c0=c0,
+                              n_valid=n_valid, triangle=triangle, gp=gp, cnt_a=cnt_a,
+                              cnt_b=cnt_b).wait()
+
+
+#: per card, the stream that ``PendingCoo.host`` copies survivors on
+_COPY_STREAMS: dict[int, torch.cuda.Stream] = {}
+
+
+class PendingCoo:
+    """A launched ``coo_extract``: the kernel and the copy of its total k to
+    a pinned host word are queued, and an event marks their end.  ``wait()``
+    and ``host()`` wait for that event alone, so kernels queued on the stream
+    after the launch (the next row block's grams) keep the card busy while
+    the host takes these survivors.  On the CPU the result is already there."""
+
+    def __init__(self, out: torch.Tensor, k: torch.Tensor | None = None,
+                 done: torch.cuda.Event | None = None):
+        self._out, self._k, self._done = out, k, done
+
+    def wait(self) -> torch.Tensor:
+        """``coo_extract``'s int32 [4, k] result."""
+        if self._done is None:
+            return self._out
+        self._done.synchronize()
+        return self._out[:int(self._k)].T
+
+    def host(self) -> np.ndarray:
+        """The survivors as an int32 numpy [k, 4] (``wait()`` transposed),
+        copied to pinned memory on a side stream of the card that waits for
+        this launch only."""
+        rows = self.wait().T
+        if self._done is None:
+            return to_host(rows)
+        dev = rows.device
+        stream = _COPY_STREAMS.get(dev.index)
+        if stream is None:
+            stream = _COPY_STREAMS[dev.index] = torch.cuda.Stream(dev)
+        stream.wait_event(self._done)
+        host = torch.empty(rows.shape, dtype=rows.dtype, pin_memory=True)
+        with torch.cuda.stream(stream):
+            host.copy_(rows, non_blocking=True)
+        stream.synchronize()
+        return host.numpy()
+
+
+def coo_extract_launch(g, gn, *, mode: str, L: int, dist: int, r0: int, c0: int,
+                       n_valid: int, triangle: bool, gp=None, cnt_a=None,
+                       cnt_b=None) -> PendingCoo:
+    """``coo_extract`` without its wait: the same arguments and checks, and
+    the result as a ``PendingCoo``."""
     if g.device.type == "cpu":
-        return coo_extract_reference(g, gn, mode=mode, L=L, dist=dist, r0=r0, c0=c0,
-                                     n_valid=n_valid, triangle=triangle, gp=gp, cnt_a=cnt_a,
-                                     cnt_b=cnt_b)
+        return PendingCoo(coo_extract_reference(
+            g, gn, mode=mode, L=L, dist=dist, r0=r0, c0=c0, n_valid=n_valid,
+            triangle=triangle, gp=gp, cnt_a=cnt_a, cnt_b=cnt_b))
     out, scratch = _coo_launch(g, gn, mode, L, dist, r0, c0, n_valid, triangle, gp, cnt_a,
                                cnt_b)
-    # the one wait of the call: for the total, copied after the launch
+    # the one wait of the call is for the total, copied after the launch
     k = torch.empty(1, dtype=torch.int64, pin_memory=True)
     k.copy_(scratch[1:2], non_blocking=True)
     done = torch.cuda.Event()
     done.record(torch.cuda.current_stream(g.device))
-    done.synchronize()
-    return out[:int(k)].T
+    return PendingCoo(out, k, done)
 
 
 # ---------------------------------------------------------------------------

@@ -21,7 +21,8 @@ computes, for a row block [r0, r1), only the columns j >= r0: the triangle
 mask of the survivor extraction drops j <= i anyway.  The kernel
 ``coo_extract`` forms each pair's D and NN from the grams, keeps the
 survivors (d <= dist) and compacts them in row-major order, so no D or NN
-block is made; they are copied to the host once per block.
+block is made; they are copied to the host once per block, while the card
+already runs the next block.
 
 Popcount engine (``method="popcount"``).  matches = sum popc(OR_x(a_x & b_x))
 and nunion = sum popc(N_i | N_j) come straight from the raw planes through
@@ -61,7 +62,7 @@ from tracs_tpu_torch.ops.kernels import (
     _as_words,
     _subset_products,
     _unpack_bits,
-    coo_extract,
+    coo_extract_launch,
     mismatch_positions_kernel,
     pad_planes,
     partial_gram,
@@ -371,20 +372,40 @@ def comparable_sites_pairs(sa: SplitAlignment, sb: SplitAlignment, pairs_i, pair
     return out
 
 
+def _launch_block(engine: str, a: PackedAlignment, b: PackedAlignment, r0: int, r1: int,
+                  c0: int, dist: int, n_valid: int, triangle: bool,
+                  device: torch.device) -> dict:
+    """Queues one block of the sweep, spanned as ``sweep.grams``: the engine's
+    grams, and under the key ``coo`` their extraction
+    (``kernels.coo_extract_launch``), which ``_extract_coo`` then waits for."""
+    with span("sweep.grams"):
+        grams = _block_grams(engine, a, b, r0, r1, c0, device)
+        grams["coo"] = coo_extract_launch(**grams, L=a.length, dist=dist, r0=r0, c0=c0,
+                                          n_valid=n_valid, triangle=triangle)
+    return grams
+
+
 def _extract_coo(grams: dict, L: int, dist: int, r0: int, n_valid: int, c0: int, *,
                  triangle: bool):
     """Threshold + row-major compaction of one block's grams on their device
-    (``kernels.coo_extract``: no D or NN block is made), with ONE
-    device-to-host copy: the survivors' rows, ``coo.T``, are one contiguous
-    piece on the card.  Keeps ``D <= dist``, global column ``< n_valid``
-    and, on triangle blocks, global column > global row.  Returns
-    (rows_local, cols_global, dvals, nvals) as int64 numpy arrays in
+    (``kernels.coo_extract``: no D or NN block is made; launched here unless
+    ``_launch_block`` did), with ONE device-to-host copy: the survivors' rows
+    are one contiguous piece on the card, copied beside whatever was queued
+    after the launch (``PendingCoo.host``).  Keeps ``D <= dist``, global
+    column ``< n_valid`` and, on triangle blocks, global column > global row.
+    Returns (rows_local, cols_global, dvals, nvals) as int64 numpy arrays in
     row-major order, the emission order of ``tracs_tpu``.  The span
-    ``sweep.extract`` holds the wait for the block's kernels."""
+    ``sweep.extract`` holds the wait for the block's kernels and the copy;
+    the counter ``sweep.copied_bytes`` adds the bytes of the copy (16 a
+    survivor)."""
     with span("sweep.extract"):
-        coo = coo_extract(**grams, L=L, dist=dist, r0=r0, c0=c0, n_valid=n_valid,
-                          triangle=triangle)
-        rows_l, cols_l, dvals, nvals = to_host(coo.T).astype(np.int64).T
+        pending = grams.get("coo")
+        if pending is None:
+            pending = coo_extract_launch(**grams, L=L, dist=dist, r0=r0, c0=c0,
+                                         n_valid=n_valid, triangle=triangle)
+        rows = pending.host()
+        count("sweep.copied_bytes", rows.nbytes)
+        rows_l, cols_l, dvals, nvals = rows.astype(np.int64).T
     return rows_l, cols_l + c0, dvals, nvals
 
 
@@ -602,10 +623,18 @@ def pairsnp_stream(
     ``mxu`` ignore the mesh (logged).
 
     Each call is one run of runtime/profiling.py (it joins the caller's if
-    one is open).  Every block counts ``sweep.blocks``, ``sweep.pairs`` (the
-    rows times the columns it sweeps) and ``sweep.survivors``; a block of
-    the one-device sweep is spanned as ``sweep.grams`` (the grams' launches)
-    and ``sweep.extract`` (``_extract_coo``).
+    one is open).  A call that sweeps counts ``sweep.runs`` once, as its
+    first block starts, on one device and on a mesh alike.  Every block
+    counts ``sweep.blocks``, ``sweep.pairs`` (the rows times the columns it
+    sweeps) and ``sweep.survivors``; a block of the one-device sweep is
+    spanned as ``sweep.grams`` (the launches of its grams and extraction)
+    and ``sweep.extract`` (``_extract_coo``).  The one-device sweep
+    launches block r + 1 before it takes block r's survivors, so the card
+    works while the host copies and yields.
+    ``sweep.copied_bytes`` counts the survivors' copy to the host in
+    ``_extract_coo``, 16 B a survivor: on one device every survivor's, on a
+    mesh each rank's own slab or stripe (the gather that follows is the
+    collectives' traffic).
     """
     if method not in METHODS:
         raise ValueError(f"unknown method {method!r}; one of {METHODS}")
@@ -671,10 +700,18 @@ def pairsnp_stream(
             filt = np.zeros(len(rows), dtype=np.int64)
         return r0, r1, names, rows, cols + col_offset, dvals, filt, nvals
 
+    def take(r0, r1, c0, grams):
+        coo = _extract_coo(grams, a_k.length, dist, r0, b.n_seqs, c0, triangle=triangle)
+        grams.clear()  # the block's grams leave the card before the caller takes the block
+        return emit(r0, r1, *coo)
+
+    if start_row < a.n_seqs:
+        count("sweep.runs")
     if ring is not None:
         for r0, r1, *coo in ring.stripes():
             yield emit(r0, r1, *coo)
         return
+    queued = None  # (r0, r1, c0, grams) of the block launched last
     for r0 in range(start_row, a.n_seqs, row_block):
         r1 = min(a.n_seqs, r0 + row_block)
         if sweep is not None:
@@ -682,11 +719,13 @@ def pairsnp_stream(
             continue
         # triangle blocks sweep the column suffix c0 = r0; rectangles c0 = 0
         c0 = r0 if triangle else 0
-        with span("sweep.grams"):
-            grams = _block_grams(engine, a_k, b_k, r0, r1, c0, device)
-        coo = _extract_coo(grams, a_k.length, dist, r0, b.n_seqs, c0, triangle=triangle)
-        del grams  # the block's grams leave the card before the caller takes the block
-        yield emit(r0, r1, *coo)
+        grams = _launch_block(engine, a_k, b_k, r0, r1, c0, dist, b.n_seqs, triangle, device)
+        # the card runs this block while the host takes the one before it
+        if queued is not None:
+            yield take(*queued)
+        queued = (r0, r1, c0, grams)
+    if queued is not None:
+        yield take(*queued)
 
 
 def pairsnp(

@@ -19,7 +19,11 @@ stage phase.  Without it nothing is recorded and no clock is read.
   holds the device work before that read; any other holds launch time.
 * ``count(name, n=1)`` — adds ``n`` to ``counters[name]``, always; while
   recording is on each increment is also kept with its time.  ``counter``
-  reads one, ``reset`` zeroes those of a prefix.
+  reads one, ``reset`` zeroes those of a prefix.  Two count whole runs, so
+  that a reader can put another counter per run: ``stage.runs``, one a
+  ``distance`` streaming run, and ``sweep.runs``, one a ``pairsnp_stream``
+  call that sweeps (ops/pairsnp.py), beside which ``sweep.survivors`` and
+  ``sweep.copied_bytes`` (the survivors' copy to the host) are counted.
 * ``enable()`` / ``disable()`` / ``since(t)`` — recording on and off, and a
   ``Trace`` of the spans begun and the increments made at ``t`` or later
   (``table()``: spans, seconds and self seconds by name; ``count(name)``).
