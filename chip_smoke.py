@@ -97,7 +97,10 @@ Phases (each one passes or the script exits non-zero):
    [0, 1], E(K) finite and >= 0, and 2,000 sampled rows against the scalar
    ``lprob_k_given_N`` and the model run on the CPU (rtol 1e-9);
 6. ``trans_dist`` alone on the card: its time on the run's unique (N, delta)
-   lanes, and the reference goldens at 1e-6; then the transmission-model
+   lanes; the k loop's kernel (``csrc/trans_k_loop.cu``) at one lookup of a
+   job's lanes (3,425 drawn from the run's) against the blocked engine on the
+   card (exit k equal, E(K) at 1e-12), timed beside it with its latency
+   bound; the reference goldens at 1e-6; then the transmission-model
    bench (``tracs_tpu_torch.experiments.transcluster_bench``) on its
    synthetic mix of 250,000 rows, its JSON line printed;
 7. ``distance --filter`` through the CLI on the same workload: the tiled
@@ -300,6 +303,7 @@ def read_counts() -> dict:
             "partial_gram": launches("partial_gram"),
             "split_layout": launches("split_layout"),
             "split_gather": launches("split_gather"),
+            "trans_k_loop": launches("trans_k_loop"),
             **{name: launches("split_gram_mma." + name)
                for name in (kernels.variant_name(*v) for v in kernels.SPLIT_GRAM_VARIANTS)}}
 
@@ -1321,16 +1325,17 @@ def phase_sweeps(fasta: str, row_block: int, device, card):
 
 def sweep_by_step(packed, row_block: int, device, split_blocks, turns: int = 3):
     """The warm split sweep split by step: CUDA events around each call of
-    ``split_gram`` (K1), ``partial_gram`` and ``coo_extract`` inside
-    ``pairsnp_stream`` (the last one's span holds its one launch and its wait
-    for the total), summed over the row blocks, and the rest of the sweep's
-    host wall (the host copies, ``emit``, launch gaps).  Medians over
-    ``turns`` sweeps; each must yield the split engine's arrays."""
+    ``split_gram`` (K1), ``partial_gram`` and ``coo_extract_launch`` inside
+    ``pairsnp_stream`` (the last one's span holds its one launch; the wait
+    for the total comes later, in ``_extract_coo``), summed over the row
+    blocks, and the rest of the sweep's host wall (the host copies, ``emit``,
+    launch gaps).  Medians over ``turns`` sweeps; each must yield the split
+    engine's arrays."""
     import torch
 
     from tracs_tpu_torch.ops import pairsnp as port
 
-    steps = ("split_gram", "partial_gram", "coo_extract")
+    steps = ("split_gram", "partial_gram", "coo_extract_launch")
     real = {name: getattr(port, name) for name in steps}
     spans = {name: [] for name in steps}
 
@@ -1372,7 +1377,7 @@ def sweep_by_step(packed, row_block: int, device, split_blocks, turns: int = 3):
     med = {name: float(np.median(v)) for name, v in rows.items()}
     print(f"# warm split sweep by step (median of {turns}): wall {med['wall']:.3f} ms = K1 "
           f"{med['split_gram']:.3f} + partial_gram {med['partial_gram']:.3f} + coo_extract "
-          f"{med['coo_extract']:.3f} + the rest {med['rest']:.3f} ms "
+          f"{med['coo_extract_launch']:.3f} + the rest {med['rest']:.3f} ms "
           f"({len(spans['split_gram'])} blocks)")
     return med
 
@@ -1529,6 +1534,10 @@ def phase_meta(packed, fasta: str, cluster_size: int, row_block: int, seed: int,
         fail("a p0 outside [0, 1] or an E(K) that is not finite and >= 0")
     if any(f[6] != "NA" for f in fields):
         fail("the filtered column is not NA on a --meta run")
+    n_blocks = -(-n // row_block)
+    if not 1 <= counts["trans_k_loop"] <= n_blocks:
+        fail(f"--meta run: {counts['trans_k_loop']} trans_k_loop launches for {n_blocks} "
+             "row blocks (one a lookup with novel lanes)")
 
     rng = np.random.default_rng(seed + 3)
     pick = rng.choice(len(fields), size=min(2000, len(fields)), replace=False)
@@ -1549,28 +1558,90 @@ def phase_meta(packed, fasta: str, cluster_size: int, row_block: int, seed: int,
 
 def phase_trans_dist(N, years, device):
     """trans_dist alone on the card over the run's pairs (every (N, delta)
-    lane new), and the reference goldens on the card at 1e-6."""
+    lane new), the k loop's kernel at one lookup of a job's lanes, and the
+    reference goldens on the card at 1e-6.  Returns the kernel's record."""
     import torch
 
-    from tracs_tpu_torch.models.transcluster import trans_dist
+    from tracs_tpu_torch.models import transcluster as tc
 
-    lanes = len(np.unique(np.stack([N, years], axis=1), axis=0))
+    lanes = np.unique(np.stack([N.astype(np.float64), years], axis=1), axis=0)
     times = []
     for _ in range(3):
         t0 = time.perf_counter()
-        trans_dist(N, years, LAMB, BETA, PRECISION, device=device)
+        tc.trans_dist(N, years, LAMB, BETA, PRECISION, device=device)
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
-    print(f"# trans_dist on the card: {len(N)} pairs, {lanes} unique (N, delta) lanes, "
+    print(f"# trans_dist on the card: {len(N)} pairs, {len(lanes)} unique (N, delta) lanes, "
           f"{', '.join(f'{t:.4f}' for t in times)} s (median {float(np.median(times)):.4f} s)")
+    rec = trans_k_loop_kernel(lanes, device)
     day = 86400 / 31556952
-    p0, eK = trans_dist([0, 2], [day, day], 29.903, 73.0, 0.01, device=device)
+    p0, eK = tc.trans_dist([0, 2], [day, day], 29.903, 73.0, 0.01, device=device)
     want_p0 = [0.23794988406662973, 0.024467137572328577]
     want_ek = [2.6335200453700187, 7.315670110063259]
     err = max(np.max(np.abs(np.exp(p0) - want_p0)), np.max(np.abs(eK - want_ek)))
     print(f"# trans_dist reference goldens on the card: max |err| {err:.3e}")
     if not err < 1e-6:
         fail("trans_dist misses the reference goldens on the card")
+    return rec
+
+
+#: lanes of one lookup of the 4,096-sample job: its ~13,700 novel (N, delta)
+#: lanes come in 4 lookups, one a row block of 1,024
+LOOKUP_LANES = 3425
+
+
+def trans_k_loop_kernel(lanes, device, seed: int = 0) -> dict:
+    """The k loop's kernel (``csrc/trans_k_loop.cu``) against its plain
+    version, the blocked engine, at one lookup of ``LOOKUP_LANES`` lanes
+    drawn from ``lanes`` (unique (N, years) rows): the same exit k on every
+    lane and E(K) at 1e-12, or ``fail``.  Times a call (CUDA events around
+    the wrapper), the card's own time (``device_ms``) and the plain engine.
+    The bound is the latency of the longest lane's chain of dependent steps:
+    the card's time for that lane alone, one thread in one launch (a step's
+    latency depends on the lane's values, so no other lane's stands in)."""
+    from tracs_tpu_torch.models import transcluster as tc
+
+    rng = np.random.default_rng(seed)
+    pick = lanes[np.sort(rng.choice(len(lanes), size=min(LOOKUP_LANES, len(lanes)),
+                                    replace=False))]
+    pick = pick[np.lexsort((pick[:, 0], pick[:, 1]))]
+    kw = dict(lamb=LAMB, beta=BETA, threshold_Ek=PRECISION)
+    lane, log_I0, lg_N2, _ = tc._seed_lanes(pick[:, 0].copy(), pick[:, 1].copy(),
+                                            lamb=LAMB, beta=BETA, device=device)
+
+    def kernel():
+        return tc.trans_k_loop(lane, log_I0, lg_N2, **kw)
+
+    def plain():
+        return tc._k_loop_blocked(lane, log_I0, lg_N2, **kw)
+
+    eK, k = (t.cpu().numpy() for t in kernel())
+    weK, wk = (t.cpu().numpy() for t in plain())
+    same_k = bool(np.array_equal(k, wk))
+    bitwise = bool(np.array_equal(eK, weK))
+    rel = float(np.max(np.abs(eK - weK) / np.maximum(np.abs(weK), 1e-300)))
+    print(f"# trans_k_loop at one lookup ({len(pick)} lanes): exit k equal {same_k}, "
+          f"E(K) bit for bit {bitwise}, max rel err {rel:.3e}; exit k "
+          f"{int(k.min())}-{int(k.max())}, median {float(np.median(k)):.0f}")
+    if not same_k or not rel <= 1e-12:
+        fail("trans_k_loop disagrees with the blocked engine on the card")
+    call = time_ms(kernel, 20)
+    card = device_ms(kernel, 20)
+    plain_ms = time_ms(plain, 3)
+    last = int(np.argmax(k))
+    alone = tuple(t[last:last + 1] for t in (*lane, log_I0, lg_N2))
+    bound = device_ms(lambda: tc.trans_k_loop(alone[:6], *alone[6:], **kw), 5)
+    steps = int(k.max()) - 1
+    rec = {"max_abs_err": float(np.max(np.abs(eK - weK))), "ms": call, "device_ms": card,
+           "plain_ms": plain_ms, "bound_ms": bound, "bound_by": "latency",
+           "step_us": bound / steps * 1e3, "steps": steps, "lanes": len(pick), "bitwise": bitwise,
+           **build_facts("trans_k_loop")}
+    print(f"# trans_k_loop: a call {call:.4f} ms; card {card:.4f} ms; plain engine "
+          f"{plain_ms:.3f} ms; the longest lane alone ({steps} steps, "
+          f"{bound / steps * 1e3:.4f} us a step) {bound:.4f} ms, the bound (latency): share "
+          f"{100 * bound / card:.1f}% (card), {100 * bound / call:.1f}% (a call); bytes "
+          f"{len(pick) * 80 / 3.35e9:.5f} ms at 3.35 TB/s")
+    return rec
 
 
 def host_filter(packed, i, j, d, chunk: int = 256) -> np.ndarray:
@@ -2705,7 +2776,7 @@ def main() -> None:
             fasta, ROW_BLOCK, device, card)
         _, meta_launches, N, years = phase_meta(packed, fasta, cluster_size, ROW_BLOCK,
                                                 args.seed, tmp, fields, device)
-        phase_trans_dist(N, years, device)
+        recs["trans_k_loop"] = phase_trans_dist(N, years, device)
         phase_transcluster_bench(device)
         filter_launches, sha_filter = phase_filter(packed, fasta, ROW_BLOCK, args.seed, tmp,
                                                    fields, device)
@@ -2796,6 +2867,12 @@ def main() -> None:
         entry("split_layout (gather)", "split_gather", "split_layout",
               "none (the host pass tracs_tpu/ops/packing.py::split_alignment)",
               slice_launches["split_gather"]),
+        # the transmission model's k loop: no TPU kernel, it replaces the
+        # blocked elementwise loop (XLA code in tracs_tpu); launches in the
+        # --meta run, error and times at one lookup of a job's lanes
+        entry("trans_k_loop", "trans_k_loop", "trans_k_loop",
+              "none (the k loop of tracs_tpu/models/transcluster.py, XLA code)",
+              meta_launches["trans_k_loop"]),
         *(entry(f"coo_extract ({what})", "coo_extract", "coo_extract", f"{jax_pairsnp}:928",
                 launches["coo_extract"]) for what, launches in others[:3]),
         entry("coo_extract (bench path)", "coo_extract", "coo_extract", f"{jax_pairsnp}:928",

@@ -5,8 +5,10 @@ Tolerances: the reference goldens at 1e-6, as tracs_tpu's own tests hold
 them; the two engines against each other at rtol 1e-9 (both are float64,
 but lgamma, exp and log come from different libraries and the sums may
 round differently by a few ulps); the scalar API exactly, since it is the
-same Python arithmetic.  The card-only test holds the model on the card
-against the model on the CPU at rtol 1e-9.
+same Python arithmetic.  The card-only tests hold the model on the card
+against the model on the CPU at rtol 1e-9, and the k loop's kernel
+(``csrc/trans_k_loop.cu``) against its plain version, the blocked engine,
+on the same card.
 
 jax is imported inside the tests that need it, so the card-only test runs
 on a machine without it."""
@@ -18,6 +20,8 @@ import pytest
 import torch
 
 from tracs_tpu_torch.models import transcluster as tc
+from tracs_tpu_torch.ops import kernels
+from tracs_tpu_torch.runtime import profiling
 
 LAMB, BETA = 29.903, 73.0
 DAY = 0.002737907006988508  # 1 day in years (86400 / 31556952)
@@ -282,6 +286,100 @@ def test_calculate_trans_prob_missing_date_raises():
                                 samplenames=["s0", "s1", "nodate"], device="cpu")
 
 
+# -- the k loop's dispatch on the CPU --
+
+def _lanes(N, delta):
+    """Seeded lanes as ``_trans_dist_steps`` hands them to ``trans_k_loop``."""
+    lane, log_I0, lg_N2, _ = tc._seed_lanes(np.array(N, dtype=np.float64),
+                                            np.array(delta, dtype=np.float64),
+                                            lamb=LAMB, beta=BETA, device=CPU)
+    return lane, log_I0, lg_N2
+
+
+def test_cpu_lanes_never_load_the_kernel(monkeypatch):
+    """CPU lanes take the blocked engine: the kernel library is never built
+    or loaded, and no kernel launch is counted."""
+    from tracs_tpu_torch.runtime import build
+
+    def refuse(*a, **k):
+        raise AssertionError("the CPU path loaded the kernel library")
+
+    monkeypatch.setattr(build, "load_cuda_library", refuse)
+    monkeypatch.setattr(kernels, "_kernel_entry", refuse)
+    before = profiling.counter("kernel.launches.trans_k_loop")
+    p0, eK = tc.trans_dist([0, 2, 27, 5], [DAY, DAY, 7.3101, 0.0], LAMB, BETA, 0.01,
+                           device="cpu")
+    assert abs(eK[1] - 7.315670110063259) < 1e-6
+    assert profiling.counter("kernel.launches.trans_k_loop") == before
+
+
+@pytest.mark.parametrize("N,delta,blocks,steps", [
+    (5, 0.0, 1, 8),                # delta == 0: exits after k = 1, one block of 8
+    (20000, 0.5, 25, 10232),       # the k cap: 504 steps, then 19 blocks of 512
+])
+def test_cpu_k_counters_keep_their_blocked_values(N, delta, blocks, steps):
+    """On the CPU ``meta.k_blocks`` counts each block of the blocked engine
+    and ``meta.k_steps`` its steps, as before the kernel existed."""
+    b0 = profiling.counter("meta.k_blocks")
+    s0 = profiling.counter("meta.k_steps")
+    _, _, k = tc._trans_dist_steps([N], [delta], LAMB, BETA, 0.01, device="cpu")
+    assert k[0] == (2.0 if delta == 0 else tc._K_CAP)
+    assert profiling.counter("meta.k_blocks") - b0 == blocks
+    assert profiling.counter("meta.k_steps") - s0 == steps
+
+
+def test_cpu_trans_k_loop_is_the_blocked_engine_and_keeps_its_inputs():
+    lane, log_I0, lg_N2 = _lanes([0, 3, 40, 27], [0.0, 0.1, 1.3, 7.3101])
+    kept = [t.clone() for t in (*lane, log_I0, lg_N2)]
+    got = tc.trans_k_loop(lane, log_I0, lg_N2, lamb=LAMB, beta=BETA, threshold_Ek=0.01)
+    want = tc._k_loop_blocked(lane, log_I0, lg_N2, lamb=LAMB, beta=BETA, threshold_Ek=0.01)
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+    for t, k in zip((*lane, log_I0, lg_N2), kept):
+        torch.testing.assert_close(t, k, rtol=0, atol=0, equal_nan=True)
+
+
+def _bad_lanes(kind):
+    lane, log_I0, lg_N2 = _lanes([0, 3, 40, 27], [0.0, 0.1, 1.3, 7.3101])
+    lane = list(lane)
+    if kind == "float32":
+        lane[1] = lane[1].float()
+    elif kind == "strided":
+        lane[2] = torch.stack([lane[2], lane[2]], dim=1)[:, 0]
+    elif kind == "length":
+        log_I0 = log_I0[:3]
+    elif kind == "2-d":
+        lane[0] = lane[0][None, :]
+    elif kind == "meta":
+        lane = [t.to("meta") for t in lane]
+        log_I0, lg_N2 = log_I0.to("meta"), lg_N2.to("meta")
+    return tuple(lane), log_I0, lg_N2
+
+
+@pytest.mark.parametrize("kind,error", [("float32", TypeError), ("strided", ValueError),
+                                        ("length", ValueError), ("2-d", ValueError),
+                                        ("meta", ValueError)])
+def test_trans_k_loop_refuses_what_the_kernel_does_not_take(kind, error):
+    lane, log_I0, lg_N2 = _bad_lanes(kind)
+    with pytest.raises(error):
+        tc.trans_k_loop(lane, log_I0, lg_N2, lamb=LAMB, beta=BETA, threshold_Ek=0.01)
+
+
+def test_kernel_wrapper_refuses_cpu_lanes():
+    """The kernel's wrapper takes CUDA lanes only; the model keeps CPU lanes
+    on the blocked engine."""
+    lane, log_I0, lg_N2 = _lanes([0, 3, 40, 27], [0.0, 0.1, 1.3, 7.3101])
+    with pytest.raises(ValueError, match="runs on cuda"):
+        kernels.trans_k_loop(lane, log_I0, lg_N2, lamb=LAMB, beta=BETA, threshold_Ek=0.01,
+                             k_cap=tc._K_CAP)
+
+
+def test_trans_k_loop_empty_on_the_cpu():
+    e = torch.zeros(0, dtype=torch.float64)
+    eK, k = tc.trans_k_loop((e,) * 6, e, e, lamb=LAMB, beta=BETA, threshold_Ek=0.01)
+    assert eK.shape == k.shape == (0,)
+
+
 # -- on the card --
 
 @pytest.mark.cuda
@@ -299,6 +397,96 @@ def test_trans_dist_cuda_matches_cpu():
     p0, eK = tc.trans_dist([0, 2], [DAY, DAY], LAMB, BETA, 0.01, device="cuda")
     assert abs(np.exp(p0[0]) - 0.23794988406662973) < 1e-6
     assert abs(eK[1] - 7.315670110063259) < 1e-6
+
+
+def _grid_lanes():
+    N, d = np.meshgrid(np.arange(0, 301, 4), np.linspace(0.0, 3.0, 41))
+    return N.ravel(), d.ravel().round(6)
+
+
+def _extended_lanes():
+    # the bound is unusable (upper * 1e-12 >= threshold): the tiny-term exit
+    return np.array([27, 3, 120, 0, 60]), np.array([7.3101, 9.99, 6.5, 3.0, 5.5])
+
+
+def _k_loop_cases():
+    gN, gd = _grid_lanes()
+    zN = np.arange(0, 300, 7)
+    eN, ed = _extended_lanes()
+    return {
+        "grid": (gN, gd),
+        "delta0": (zN, np.zeros(zN.shape)),
+        "extended": (eN, ed),
+        "k_cap": (np.array([20000, 40]), np.array([0.5, 0.2])),
+        "one_lane": (np.array([17]), np.array([0.35])),
+    }
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("threshold", [0.01, 1e-6])
+@pytest.mark.parametrize("case", ["grid", "delta0", "extended", "k_cap", "one_lane"])
+def test_k_loop_kernel_matches_blocked_engine_on_the_card(cuda_device, case, threshold):
+    """The kernel (one launch a call) against the plain blocked engine on the
+    same card and the same seeded lanes: the same exit k on every lane, p0
+    and E(K) at rtol 1e-12.  They are also bit for bit: the kernel rounds
+    each operation as the plain path's one-operation kernels do (no FMA
+    contraction, the same CUDA math functions), so the E(K) sums are
+    asserted equal too.  p0 comes from the seeds, which both engines share.
+    The launch counts one ``meta.k_blocks`` and its largest exit k less 1
+    ``meta.k_steps``."""
+    N, delta = _k_loop_cases()[case]
+    keys = np.unique(np.stack([N, delta], axis=1).astype(np.float64), axis=0)
+    sN, sd = keys[np.lexsort((keys[:, 0], keys[:, 1]))].T.copy()
+    before = {c: profiling.counter(c) for c in
+              ("kernel.launches.trans_k_loop", "meta.k_blocks", "meta.k_steps")}
+    p0, eK, k = tc._trans_dist_steps(sN, sd, LAMB, BETA, threshold, device=cuda_device)
+    assert profiling.counter("kernel.launches.trans_k_loop") == before[
+        "kernel.launches.trans_k_loop"] + 1
+    assert profiling.counter("meta.k_blocks") == before["meta.k_blocks"] + 1
+    assert profiling.counter("meta.k_steps") - before["meta.k_steps"] == int(k.max()) - 1
+    lane, log_I0, lg_N2, wp0 = tc._seed_lanes(sN, sd, lamb=LAMB, beta=BETA, device=cuda_device)
+    weK, wk = (t.cpu().numpy() for t in tc._k_loop_blocked(
+        lane, log_I0, lg_N2, lamb=LAMB, beta=BETA, threshold_Ek=threshold))
+    np.testing.assert_array_equal(k, wk)
+    np.testing.assert_allclose(p0, wp0.cpu().numpy(), rtol=1e-12)
+    np.testing.assert_allclose(eK, weK, rtol=1e-12)
+    np.testing.assert_array_equal(eK, weK)
+    if case == "delta0":
+        assert np.all(k == 2.0)
+    if case == "k_cap":
+        assert k[np.argmax(sN)] == tc._K_CAP
+
+
+@pytest.mark.cuda
+def test_k_loop_kernel_empty_input(cuda_device):
+    launches = profiling.counter("kernel.launches.trans_k_loop")
+    p0, eK, k = tc._trans_dist_steps([], [], LAMB, BETA, 0.01, device=cuda_device)
+    assert p0.size == eK.size == k.size == 0
+    e = torch.zeros(0, dtype=torch.float64, device=cuda_device)
+    got = tc.trans_k_loop((e,) * 6, e, e, lamb=LAMB, beta=BETA, threshold_Ek=0.01)
+    assert got[0].shape == got[1].shape == (0,)
+    assert profiling.counter("kernel.launches.trans_k_loop") == launches
+
+
+@pytest.mark.cuda
+def test_cache_lookup_launches_the_kernel_once(cuda_device):
+    """Each lookup with novel lanes is one launch; a repeated lookup none."""
+    cache = tc.TransClusterCache(LAMB, BETA, 0.01, device=cuda_device)
+    N, delta = _grid_lanes()
+    launches = profiling.counter("kernel.launches.trans_k_loop")
+    p0, eK = cache.lookup(N, delta)
+    cache.lookup(N, delta)
+    assert profiling.counter("kernel.launches.trans_k_loop") == launches + 1
+    want = tc.trans_dist(N, delta, LAMB, BETA, 0.01, device="cpu")
+    np.testing.assert_allclose(p0, want[0], rtol=1e-9)
+    np.testing.assert_allclose(eK, want[1], rtol=1e-9)
 
 
 def test_cuda_without_card_raises():

@@ -6,11 +6,13 @@ of the reference C++ kernel, src/transcluster.hpp).
 * ``lprob_k_given_N``, ``upper_bound_E`` — the reference's scalar first
   variant and its E(K) bound, in plain Python as in ``tracs_tpu``.
 * ``trans_dist`` — (log p0, E(K)) per pair: the unique (N, delta) lanes are
-  seeded in chunks with adaptive series caps, then the k-loop runs in
-  geometrically growing blocks with active-lane compaction between blocks.
-  Everything per lane is float64 elementwise tensor work on the ``device``
-  it is given; the H100 has native float64, so unlike the JAX package
-  (whose TPU has none) the model runs on the card.
+  seeded in chunks with adaptive series caps (float64 elementwise tensor
+  work), then ``trans_k_loop`` runs each lane's k loop to its own exit: on
+  a card one launch of the kernel ``csrc/trans_k_loop.cu``, a thread a
+  lane; on the CPU its plain version, geometrically growing blocks of steps
+  with active-lane compaction between blocks.  Everything runs on the
+  ``device`` it is given, in float64; the H100 has native float64, so
+  unlike the JAX package (whose TPU has none) the model runs on the card.
 * ``TransClusterCache`` — the (N, delta) memo across streamed row blocks.
 * ``calculate_trans_prob`` — the date glue of the distance stage.
 
@@ -28,6 +30,7 @@ from datetime import date
 import numpy as np
 import torch
 
+from tracs_tpu_torch.ops import kernels
 from tracs_tpu_torch.runtime.device import resolve_device, to_host
 from tracs_tpu_torch.runtime.profiling import count, span
 
@@ -282,16 +285,85 @@ def _pow2(n: int, lo: int = 64) -> int:
     return max(lo, 1 << max(0, int(n - 1).bit_length()))
 
 
+def _k_loop_blocked(lane, log_I0, lg_N2, *, lamb, beta, threshold_Ek):
+    """The k loop's plain version, on any device: (E(K), exit k) of the
+    lanes ``lane`` = (N, delta, log delta, log_pois, upper bound,
+    lgamma(N+1)) from their seeded log I(N) ``log_I0`` and lgamma(N+2)
+    ``lg_N2``.  Blocks of 8, 16, ... 512 ``_k_step_fast`` steps, dropping
+    finished lanes between blocks, so a lane that needs the k cap does not
+    stall the others; each block counts ``meta.k_blocks`` and its steps
+    ``meta.k_steps``.  Per-lane math is elementwise, so the blocking does
+    not change a lane's result."""
+    N = lane[0]
+    zeros = torch.zeros_like(N)
+    # k, E(K) sum, bound sum, log I, lgamma(N+k+1), lgamma(k+1), log k at k=1
+    state = [torch.ones_like(N), zeros, zeros.clone(), log_I0.clone(), lg_N2.clone(),
+             zeros.clone(), zeros.clone()]
+    eK = torch.empty_like(N)
+    k_end = torch.empty_like(N)
+    active = torch.arange(N.shape[0], device=N.device)
+    n_steps = 8
+    while active.numel():
+        sub = tuple(x[active] for x in lane)
+        blk = [x[active] for x in state] + [torch.zeros_like(active, dtype=torch.bool)]
+        *blk, fin = _k_block(sub, tuple(blk), lamb=lamb, beta=beta,
+                             threshold_Ek=threshold_Ek, n_steps=n_steps)
+        for x, v in zip(state, blk):
+            x[active] = v
+        eK[active[fin]] = blk[1][fin]
+        k_end[active[fin]] = blk[0][fin]
+        active = active[~fin]
+        count("meta.k_blocks")
+        count("meta.k_steps", n_steps)
+        n_steps = min(n_steps * 2, 512)
+    return eK, k_end
+
+
+def trans_k_loop(lane, log_I0, lg_N2, *, lamb, beta, threshold_Ek):
+    """The k loop of sorted lanes: (E(K), exit k), float64 tensors on the
+    lanes' device; the arguments as ``_k_loop_blocked``'s.  CPU tensors take
+    ``_k_loop_blocked``; any others ``ops.kernels.trans_k_loop``, which
+    launches the kernel ``csrc/trans_k_loop.cu`` once on CUDA tensors or
+    raises.  Both refuse lanes the kernel does not take
+    (``kernels.check_k_lanes``)."""
+    if lane[0].device.type != "cpu":
+        return kernels.trans_k_loop(lane, log_I0, lg_N2, lamb=lamb, beta=beta,
+                                    threshold_Ek=threshold_Ek, k_cap=_K_CAP)
+    kernels.check_k_lanes((*lane, log_I0, lg_N2))
+    return _k_loop_blocked(lane, log_I0, lg_N2, lamb=lamb, beta=beta, threshold_Ek=threshold_Ek)
+
+
+def _seed_lanes(sN, sd, *, lamb, beta, device):
+    """The k loop's inputs for lanes sorted by (delta, N), given as host
+    float64 arrays ``sN`` and ``sd``: ``(lane, log_I0, lg_N2, p0)`` on
+    ``device``, as ``trans_k_loop`` takes them, and each lane's log p0.
+    The loop-invariant seeds are made in chunks of ``_SEED_CHUNK`` lanes,
+    each with series caps from its own peak."""
+    N = torch.from_numpy(sN).to(device)
+    delta = torch.from_numpy(sd).to(device)
+    seeds = []
+    for s in range(0, sN.shape[0], _SEED_CHUNK):
+        e = min(sN.shape[0], s + _SEED_CHUNK)
+        d_max, n_max = float(sd[s:e].max()), int(sN[s:e].max())
+        cap_pois = _pow2(_sum_cap(lamb * d_max, n_max), lo=8)
+        cap_int = _pow2(_sum_cap(d_max * (lamb + beta), n_max + _K_CAP), lo=8)
+        seeds.append(_seed_batch(N[s:e], delta[s:e], lamb=lamb, beta=beta,
+                                 cap_pois=cap_pois, cap_int=cap_int))
+    log_pois, log_I0, p0, upper = (torch.cat(c) for c in zip(*seeds))
+    lane = (N, delta, torch.log(delta), log_pois, upper, torch.lgamma(N + 1.0))
+    return lane, log_I0, torch.lgamma(N + 2.0), p0
+
+
 def trans_dist(snpdiff, datediff, lamb, beta, threshold_Ek=1e-6, *, device):
     """(log p0, E(K)) per pair as float64 numpy arrays (reference trans_dist,
     src/transcluster.hpp:240-287).  The reference's per-(N, delta) hash
     maps become a host-side unique, device batches and a scatter.
 
     Lanes sorted by (delta, N) are seeded in chunks of ``_SEED_CHUNK``, each
-    with series caps from its own peak; then the k-loop runs in blocks of
-    8, 16, ... 512 steps, dropping finished lanes between blocks, so a lane
-    that needs the k cap does not stall the others.  Per-lane math is
-    elementwise, so the result does not depend on the batching."""
+    with series caps from its own peak; then ``trans_k_loop`` runs each lane
+    to its own exit: on a card one kernel launch, on the CPU blocks of
+    steps.  Per-lane math is elementwise, so the result does not depend on
+    the batching."""
     return _trans_dist_steps(snpdiff, datediff, lamb, beta, threshold_Ek, device=device)[:2]
 
 
@@ -300,8 +372,9 @@ def _trans_dist_steps(snpdiff, datediff, lamb, beta, threshold_Ek=1e-6, *, devic
     the k after its last step, so E(K) sums the terms k' P(k') for
     1 <= k' < k.  Spans: ``meta.seed`` (the lanes' dedup, upload and seeds)
     and ``meta.k_loop`` (the k loop through the results' copies to the
-    host); each k block counts ``meta.k_blocks`` and its steps
-    ``meta.k_steps``."""
+    host).  On a card the launch counts one ``meta.k_blocks`` and its steps,
+    its largest exit k less 1, ``meta.k_steps``; on the CPU the blocked
+    engine counts its blocks and their steps."""
     device = resolve_device(device)
     snpdiff = np.asarray(snpdiff, dtype=np.int64)
     datediff = np.asarray(datediff, dtype=np.float64)
@@ -313,52 +386,20 @@ def _trans_dist_steps(snpdiff, datediff, lamb, beta, threshold_Ek=1e-6, *, devic
         keys = np.stack([snpdiff.astype(np.float64), datediff], axis=1)
         uniq, inverse = np.unique(keys, axis=0, return_inverse=True)
         order = np.lexsort((uniq[:, 0], uniq[:, 1]))
-        sN, sd = uniq[order, 0], uniq[order, 1]
-        m = sN.shape[0]
-        N = torch.from_numpy(sN).to(device)
-        delta = torch.from_numpy(sd).to(device)
-
-        # phase 1: loop-invariant seeds, chunked with adaptive caps
-        seeds = []
-        for s in range(0, m, _SEED_CHUNK):
-            e = min(m, s + _SEED_CHUNK)
-            d_max, n_max = float(sd[s:e].max()), int(sN[s:e].max())
-            cap_pois = _pow2(_sum_cap(lamb * d_max, n_max), lo=8)
-            cap_int = _pow2(_sum_cap(d_max * (lamb + beta), n_max + _K_CAP), lo=8)
-            seeds.append(_seed_batch(N[s:e], delta[s:e], lamb=lamb, beta=beta,
-                                     cap_pois=cap_pois, cap_int=cap_int))
-        log_pois, log_I0, p0, upper = (torch.cat(c) for c in zip(*seeds))
+        m = order.shape[0]
+        lane, log_I0, lg_N2, p0 = _seed_lanes(uniq[order, 0], uniq[order, 1], lamb=lamb,
+                                              beta=beta, device=device)
 
     with span("meta.k_loop"):
-        # phase 2: blocked k loop with active-lane compaction
-        lg_N1 = torch.lgamma(N + 1.0)
-        invariants = (N, delta, torch.log(delta), log_pois, upper, lg_N1)
-        zeros = torch.zeros_like(N)
-        # k, E(K) sum, bound sum, log I, lgamma(N+k+1), lgamma(k+1), log k at k=1
-        state = [torch.ones_like(N), zeros, zeros.clone(), log_I0, torch.lgamma(N + 2.0),
-                 zeros.clone(), zeros.clone()]
-        eK = torch.empty_like(N)
-        k_end = torch.empty_like(N)
-        active = torch.arange(m, device=device)
-        n_steps = 8
-        while active.numel():
-            lane = tuple(x[active] for x in invariants)
-            blk = [x[active] for x in state] + [torch.zeros_like(active, dtype=torch.bool)]
-            *blk, fin = _k_block(lane, tuple(blk), lamb=lamb, beta=beta,
-                                 threshold_Ek=threshold_Ek, n_steps=n_steps)
-            for x, v in zip(state, blk):
-                x[active] = v
-            eK[active[fin]] = blk[1][fin]
-            k_end[active[fin]] = blk[0][fin]
-            active = active[~fin]
-            count("meta.k_blocks")
-            count("meta.k_steps", n_steps)
-            n_steps = min(n_steps * 2, 512)
-
+        eK, k_end = trans_k_loop(lane, log_I0, lg_N2, lamb=lamb, beta=beta,
+                                 threshold_Ek=threshold_Ek)
         p0_u, eK_u, k_u = np.empty(m), np.empty(m), np.empty(m)
         p0_u[order] = to_host(p0)
         eK_u[order] = to_host(eK)
         k_u[order] = to_host(k_end)
+        if device.type != "cpu":
+            count("meta.k_blocks")
+            count("meta.k_steps", int(k_u.max()) - 1)
     return p0_u[inverse], eK_u[inverse], k_u[inverse]
 
 

@@ -44,13 +44,19 @@ pass, and its partial planes gathered at the partial sites, from the two
 kernels of ``csrc/split_layout.cu``: the host pass they replace on the card
 is ops/packing.py::split_alignment's.
 
+``trans_k_loop`` — the transmission model's k loop, from the CUDA kernel
+``csrc/trans_k_loop.cu`` in one launch (a thread a lane, its recurrence in
+float64 registers to its own exit).  It takes CUDA tensors only: its plain
+version is the model's blocked engine
+(models/transcluster.py::_k_loop_blocked), and the model picks between them.
+
 On a CUDA tensor each wrapper launches its kernel (built for sm_90a at first
 use, runtime/build.py) and counts the launch in the counter
 ``kernel.launches.<kernel>`` of runtime/profiling.py (``split_gram``,
 ``popcount_gram``, ``split_gram_mma.<variant>``, ``mism_positions`` and, for
 the tiled design also, ``mism_positions_tiled``, ``partial_gram``,
-``coo_extract``, ``split_layout``, ``split_gather``); on a CPU tensor it returns its ``*_reference``, the plain
-exact version.  There is no fallback from one to the other.
+``coo_extract``, ``split_layout``, ``split_gather``, ``trans_k_loop``); on a
+CPU tensor it returns its ``*_reference``, the plain exact version.  There is no fallback from one to the other.
 
 Layouts: packed words are ``int32`` tensors holding the bits of the uint32
 planes; the kernel reads them as ``uint32``.  The gram kernels copy their
@@ -65,6 +71,7 @@ any count, and a CUDA operand that breaks the rule is refused, not copied.
 from __future__ import annotations
 
 import ctypes
+import math
 import warnings
 from typing import NamedTuple
 
@@ -1349,3 +1356,55 @@ def split_gather(excl, positions):
         raise RuntimeError(f"split_gather kernel launch failed: CUDA error {rc}")
     count("kernel.launches.split_gather")
     return out
+
+
+# ---------------------------------------------------------------------------
+# the transmission model's k loop
+# ---------------------------------------------------------------------------
+
+def check_k_lanes(tensors) -> None:
+    """Raise unless ``tensors`` are k-loop lanes as ``trans_k_loop`` and
+    its plain version take them: float64, contiguous, one-dimensional, of
+    one length and on one device."""
+    first = tensors[0]
+    for t in tensors:
+        if t.dtype != torch.float64:
+            raise TypeError(f"the k loop's lanes are float64, got {t.dtype}")
+        if t.device != first.device:
+            raise ValueError(f"the k loop's lanes lie on {first.device} and {t.device}")
+        if t.dim() != 1 or t.shape != first.shape:
+            raise ValueError(f"the k loop's lanes are one [m] vector each, got "
+                             f"{tuple(first.shape)} and {tuple(t.shape)}")
+        if not t.is_contiguous():
+            raise ValueError("the k loop's lanes must be contiguous")
+
+
+def trans_k_loop(lane, log_I0, lg_N2, *, lamb: float, beta: float, threshold_Ek: float,
+                 k_cap: int):
+    """(E(K), exit k) of the k loop's lanes, float64 [m] tensors on their
+    card: ``lane`` = (N, delta, log delta, log_pois, upper bound,
+    lgamma(N+1)), ``log_I0`` their seeded log I(N) and ``lg_N2``
+    lgamma(N+2), each float64 [m] on one CUDA device, best sorted by
+    (delta, N).  One launch of ``csrc/trans_k_loop.cu``, each lane run to
+    its own exit or to ``k_cap``; raises if the launch is refused or the
+    lanes are not CUDA tensors (``check_k_lanes``)."""
+    tensors = (*lane, log_I0, lg_N2)
+    check_k_lanes(tensors)
+    dev = lane[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"trans_k_loop's kernel runs on cuda, not {dev}")
+    eK = torch.empty_like(lane[0])
+    k_end = torch.empty_like(lane[0])
+    if eK.numel() == 0:
+        return eK, k_end
+    fn = _kernel_entry("trans_k_loop", [ctypes.c_void_p] * 8 + [ctypes.c_longlong]
+                       + [ctypes.c_double] * 7 + [ctypes.c_void_p] * 3)
+    with torch.cuda.device(dev):
+        rc = fn(*(t.data_ptr() for t in tensors), eK.shape[0], math.log(lamb),
+                math.log(beta), math.log(lamb + beta), lamb + beta, beta, threshold_Ek,
+                float(k_cap), eK.data_ptr(), k_end.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"trans_k_loop kernel launch failed: CUDA error {rc}")
+    count("kernel.launches.trans_k_loop")
+    return eK, k_end

@@ -45,11 +45,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-#: the kernel sources ``csrc/<name>.cu``: the seven of the port's paths and the
+#: the kernel sources ``csrc/<name>.cu``: the eight of the port's paths and the
 #: tensor-core yardstick of experiments/tensor_rate.py (``doctor`` and
 #: chip_smoke.py build all of them)
 KERNELS = ("split_gram", "popcount_gram", "split_gram_mma", "mism_positions", "partial_gram",
-           "coo_extract", "split_layout", "tensor_rate")
+           "coo_extract", "split_layout", "trans_k_loop", "tensor_rate")
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}
