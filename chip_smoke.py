@@ -13,11 +13,7 @@ Phases (each one passes or the script exits non-zero):
    then the port's ``doctor`` runtime check (``check_runtime``: the native
    library, torch and its CUDA, the card, nvcc, every kernel source), which
    fails the run on any problem line, and the versions of matplotlib and
-   pandas (or ``absent``: the port imports neither outside ``plot``); then
-   the tensor cores' issue rates for b1 and int8 operands
-   (``tracs_tpu_torch.experiments.tensor_rate``): the data sheet names no b1
-   peak, so the bounds below take 8 x int8's, and the run fails unless the
-   card's b1 ``wgmma`` rate is measured within 10% of that;
+   pandas (or ``absent``: the port imports neither outside ``plot``);
 2. each kernel against its plain PyTorch version on the card, exact equality,
    at two ragged shapes (word counts that are no multiple of the 16-word
    chunk, rows and columns that are no multiple of a tile), a rectangle with
@@ -223,8 +219,8 @@ PEAK_INT8, PEAK_BF16, PEAK_BYTES = 1979e12, 989e12, 3.35e12
 #: single-bit (AND + POPC) tensor-core operations a second.  The data sheet
 #: names no such rate; a b1 instruction covers 8 times the sites of the int8
 #: one of the same shape and issues as fast (wgmma m64n128k256 b1 against
-#: m64n128k32 s8: 15.8 POP/s against 1.97 POP/s on an H100 at 700 W, measured
-#: by tracs_tpu_torch/experiments/tensor_rate.py), so the peak is 8 x int8's
+#: m64n128k32 s8: 15.8 POP/s against 1.97 POP/s measured on an H100 at 700 W),
+#: so the peak is 8 x int8's
 PEAK_B1 = 8 * PEAK_INT8
 #: the tensor cores' peak for the operand type of a split-gram kernel
 PEAK_BY_DOT = {"b1": PEAK_B1, "s8": PEAK_INT8, "bf16": PEAK_BF16}
@@ -525,22 +521,6 @@ def _random_words(device, seed: int):
         return torch.randint(-2**31, 2**31, shape, dtype=torch.int32, device=device,
                              generator=gen)
     return words
-
-
-def phase_tensor_rate():
-    """The premise of the b1 bounds: ``PEAK_B1`` is 8 x the data sheet's int8
-    peak because a b1 instruction covers 8 times the sites of an int8 one and
-    issues as fast.  Measures both and fails if the card says otherwise."""
-    from tracs_tpu_torch.experiments import tensor_rate
-
-    rows = {r["name"]: r for r in tensor_rate.run(5000)}
-    b1, s8 = rows["wgmma.m64n128k256.b1.and.popc"], rows["wgmma.m64n128k32.s8"]
-    print(f"# tensor cores: b1 wgmma {b1['tops']:.1f} TOP/s, int8 wgmma {s8['tops']:.1f} TOP/s "
-          f"(data sheet {PEAK_INT8 / 1e12:.0f}); the bounds take {PEAK_B1 / 1e12:.0f} TOP/s "
-          f"for b1")
-    if not 0.9 * PEAK_B1 <= b1["tops"] * 1e12 <= 1.1 * PEAK_B1:
-        fail(f"the measured b1 wgmma rate, {b1['tops']:.1f} TOP/s, is not within 10% of the "
-             f"{PEAK_B1 / 1e12:.0f} TOP/s the bounds assume")
 
 
 def phase_doctor():
@@ -1152,7 +1132,7 @@ def phase_mism_positions(packed, block, device):
 
     comp = _cached_compact(packed, packed)
     a_k = packed if comp is None else comp[0]
-    ea, nm, _ = _split_device(_split_pair(a_k, None)[0], device)
+    ea, nm, _ = _split_device(_split_pair(a_k, None, device)[0], device)
     raw = _planes_device(a_k, device)
     n, L, W = a_k.n_seqs, a_k.length, ea.shape[2]
     if raw.shape[2] != W or W % kernels.LAYOUT_WORD_MULTIPLE:
@@ -1864,7 +1844,7 @@ def phase_experiments(n: int, L: int, device, card, recs):
     rows = {r["name"]: r for r in rows}
 
     # the entry point's layout again (it keeps none), as kernel_experiments.run builds it
-    ea, nm, _ = _split_device(_cached_split(make_clustered(n, L)), device)
+    ea, nm, _ = _split_device(_cached_split(make_clustered(n, L), device), device)
     W = (L + 31) // 32   # the work; the layout's pitch, ea.shape[2], pads it to a multiple of 4
     shape = f"full square rb={n} n={n} W={W}"
     want, plain_ms = {}, {}
@@ -2247,7 +2227,7 @@ def phase_pipe(seed: int, tmp: str, device, card):
     packed = pack_fasta(os.path.join(out, "combinedREFA"))
     comp = _cached_compact(packed, packed)
     a_k = packed if comp is None else comp[0]
-    ea, nm, _ = _split_device(_split_pair(a_k, None)[0], device)
+    ea, nm, _ = _split_device(_split_pair(a_k, None, device)[0], device)
     W = ea.shape[2]
     shape = f"the pipe run's shape, n={n} W={W} (of {-(-L // 32)} words before compaction)"
     args = (ea, nm, 0, n, 0)
@@ -2560,7 +2540,7 @@ def phase_mesh(packed, fasta: str, cache: str, row_block: int, sha_plain: str,
 
     from tracs_tpu_torch.ops import kernels
     from tracs_tpu_torch.ops.packing import pack_fasta
-    from tracs_tpu_torch.ops.pairsnp import _cached_compact, _split_pair, pairsnp_stream
+    from tracs_tpu_torch.ops.pairsnp import _cached_compact, pairsnp_stream
     from tracs_tpu_torch.parallel import allpairs, mesh as mesh_mod, multihost
 
     n = packed.n_seqs
@@ -2570,7 +2550,7 @@ def phase_mesh(packed, fasta: str, cache: str, row_block: int, sha_plain: str,
           f"of headroom)")
     # the ring's plan at a shape, on the compacted split layout the stream uses
     comp = _cached_compact(packed, packed)
-    n_words = _split_pair(packed if comp is None else comp[0], None)[0].excl.shape[2]
+    n_words = (packed if comp is None else comp[0]).planes.shape[2]
 
     def plan(shape):
         return (allpairs.RingCoo.stripe_bytes(n, shape),
@@ -2762,7 +2742,6 @@ def main() -> None:
     print(f"# {card['sms']} SMs, max SM clock {sm_mhz:.0f} MHz")
 
     phase_doctor()
-    phase_tensor_rate()
     recs = phase_kernels(device, args.seed, card)
     with tempfile.TemporaryDirectory() as tmp:
         packed, fasta, cluster_size = _headline(args.n, args.length, args.seed, tmp)

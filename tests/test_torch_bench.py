@@ -125,9 +125,12 @@ def test_pair_count_equals_the_blocks_the_kernels_received(monkeypatch, n, rb, m
 def test_layout_is_built_once(monkeypatch, method, builds):
     """The first warm-up builds and uploads the device layout; nothing
     rebuilds it, so the timed sweeps run on the resident one."""
+    from tracs_tpu_torch.ops import kernels
+
     calls = []
-    real = getattr(port_pairsnp, builds)
-    monkeypatch.setattr(port_pairsnp, builds, lambda *a: calls.append(1) or real(*a))
+    where = kernels if builds == "split_layout" else port_pairsnp  # split_alignment's kernel
+    real = getattr(where, builds)
+    monkeypatch.setattr(where, builds, lambda *a: calls.append(1) or real(*a))
     port_bench.bench_gpu(packed=_headline(40, 3000), row_block=16, method=method,
                          device="cpu", iters=3)
     assert len(calls) == 1

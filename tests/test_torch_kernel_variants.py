@@ -108,11 +108,11 @@ def test_variant_reference_equals_split_gram_reference(dot):
     """Each variant's plain version equals K1's plain version, partial IUPAC
     codes (up to 3 bits a site in the exclusive planes) included."""
     from tracs_tpu_torch.ops.packing import pack_sequences, split_alignment
+    from tracs_tpu_torch.ops.pairsnp import _split_device
 
     rng = np.random.default_rng(5)
     seqs = ["".join(rng.choice(np.array(list("ACGTMRWSYKVHDBN-")), size=700)) for _ in range(21)]
-    sa = split_alignment(pack_sequences(seqs))
-    ea, nm = _words(sa.excl), _words(sa.nmask)
+    ea, nm = _split_device(split_alignment(pack_sequences(seqs)), torch.device("cpu"))[:2]
     want = kernels.split_gram_reference(ea, nm, 2, 17, 3)
     got = kernels.split_gram_variant_reference(ea, nm, 2, 17, 3, dot=dot)
     assert all(torch.equal(a, b) for a, b in zip(got, want))

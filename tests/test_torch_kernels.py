@@ -24,6 +24,14 @@ def _seqs(rng, n, L, alphabet=IUPAC):
     return ["".join(rng.choice(alphabet, size=L)) for _ in range(n)]
 
 
+def _split_words(seqs):
+    """(excl, nmask) int32 CPU tensors of the port's split layout of
+    ``seqs``, at the card's word pitch."""
+    from tracs_tpu_torch.ops.pairsnp import _split_device
+
+    return _split_device(split_alignment(pack_sequences(seqs)), torch.device("cpu"))[:2]
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -56,13 +64,8 @@ def test_split_gram_matches_pallas_and_xla(na, nb, L):
         jnp.asarray(sb.nmask), wc=W, n_chunks=1, with_nn=True,
     )
 
-    pa = split_alignment(pack_sequences(qa))
-    ea, nm = _words(pa.excl), _words(pa.nmask)
-    if nb == na:
-        eb = nmb = None
-    else:
-        pb = split_alignment(pack_sequences(qb))
-        eb, nmb = _words(pb.excl), _words(pb.nmask)
+    ea, nm = _split_words(qa)
+    eb, nmb = (None, None) if nb == na else _split_words(qb)
     g, gn = kernels.split_gram(ea, nm, 0, na, 0, eb, nmb)
     g0, gn0 = kernels.split_gram_reference(ea, nm, 0, na, 0, eb, nmb)
     assert g.dtype == gn.dtype == torch.int32
@@ -84,15 +87,19 @@ def test_split_gram_ranged_matches_xla(n, L, r0, rb, c0):
 
     from tracs_tpu.ops.pairsnp import _dense_split_ranged
 
+    from tracs_tpu.ops.packing import pack_sequences as jax_pack
+    from tracs_tpu.ops.packing import split_alignment as jax_split
+
     rng = np.random.default_rng(n + L + r0)
-    sa = split_alignment(pack_sequences(_seqs(rng, n, L)))
+    seqs = _seqs(rng, n, L)
+    sa = jax_split(jax_pack(seqs))
     W = sa.excl.shape[2]
     assert W * 32 != L  # a ragged last word
     gx, gnx = _dense_split_ranged(
         jnp.asarray(sa.excl), jnp.asarray(sa.nmask), jnp.int32(r0),
         rb=rb, c0=c0, wc=8, n_chunks=-(-W // 8),
     )
-    g, gn = kernels.split_gram(_words(sa.excl), _words(sa.nmask), r0, rb, c0)
+    g, gn = kernels.split_gram(*_split_words(seqs), r0, rb, c0)
     assert g.shape == (rb, n - c0)
     assert np.array_equal(g.numpy(), np.asarray(gx))
     assert np.array_equal(gn.numpy(), np.asarray(gnx))
@@ -102,8 +109,7 @@ def test_split_gram_reference_chunking_is_exact(monkeypatch):
     """One-word chunks (the memory bound at its tightest) give the same
     grams as one chunk."""
     rng = np.random.default_rng(7)
-    sa = split_alignment(pack_sequences(_seqs(rng, 23, 250)))
-    ea, nm = _words(sa.excl), _words(sa.nmask)
+    ea, nm = _split_words(_seqs(rng, 23, 250))
     want = kernels.split_gram_reference(ea, nm, 3, 15, 4)
     monkeypatch.setattr(kernels, "_REFERENCE_BYTES", 1)
     got = kernels.split_gram_reference(ea, nm, 3, 15, 4)
@@ -112,9 +118,9 @@ def test_split_gram_reference_chunking_is_exact(monkeypatch):
 
 def test_cpu_call_counts_no_launch():
     rng = np.random.default_rng(3)
-    sa = split_alignment(pack_sequences(_seqs(rng, 5, 64)))
+    ea, nm = _split_words(_seqs(rng, 5, 64))
     before = profiling.counter("kernel.launches.split_gram")
-    kernels.split_gram(_words(sa.excl), _words(sa.nmask), 0, 5, 0)
+    kernels.split_gram(ea, nm, 0, 5, 0)
     assert profiling.counter("kernel.launches.split_gram") == before
 
 
@@ -185,8 +191,7 @@ def test_split_gram_on_padded_layout_matches_unpadded_and_pallas(W):
     ja, jb = jax_split(jax_pack(qa)), jax_split(jax_pack(qb))
     gp, gnp = split_gram_pallas(ja.excl, ja.nmask, jb.excl, jb.nmask, interpret=True)
 
-    sa, sb = split_alignment(pack_sequences(qa)), split_alignment(pack_sequences(qb))
-    a, b = (_words(sa.excl), _words(sa.nmask)), (_words(sb.excl), _words(sb.nmask))
+    a, b = (_words(ja.excl), _words(ja.nmask)), (_words(jb.excl), _words(jb.nmask))
     assert a[0].shape[2] == W
     want = kernels.split_gram(*a, 3, 11, 2, *b)
     got = kernels.split_gram(*kernels.pad_layout(*a), 3, 11, 2, *kernels.pad_layout(*b))

@@ -94,18 +94,29 @@ def test_pack_fasta_matches_reference(tmp_path):
     assert (got.length, got.names) == (want.length, want.names)
 
 
-@pytest.mark.parametrize("native", [True, False])
-def test_split_alignment_matches_reference(monkeypatch, native):
+def test_split_alignment_matches_reference():
     rng = np.random.default_rng(3)
     j, p = _both(_seqs(rng, 11, 300))
-    if not native:
-        import tracs_tpu_torch.runtime.native as nat
-
-        monkeypatch.setattr(nat, "native_split_stats", lambda planes: None)
     got, want = split_alignment(p), jpacking.split_alignment(j)
-    for f in ("excl", "nmask", "partial", "cnt_n", "partial_pos"):
+    _assert_layout_words(got, want)
+    for f in ("cnt_n", "partial_pos"):
         assert np.array_equal(getattr(got, f), getattr(want, f)), f
     assert (got.n_partial, got.length) == (want.n_partial, want.length)
+
+
+def _assert_layout_words(sa, want, device=CPU):
+    """The layout's tensors on ``device`` hold tracs_tpu's excl, nmask and
+    partial words, then zero words up to the card's pitch, and its N counts."""
+    from tracs_tpu_torch.ops import kernels
+
+    ea, nm, pt = port._split_device(sa, device)
+    W, Wp = want.excl.shape[2], want.partial.shape[2]
+    assert ea.shape[2] == nm.shape[1] == kernels.padded_words(W)
+    assert pt.shape[2] == kernels.padded_words(Wp)
+    for got, ref, w in ((ea, want.excl, W), (nm, want.nmask, W), (pt, want.partial, Wp)):
+        words = got.numpy().view(np.uint32)
+        assert np.array_equal(words[..., :w], ref) and not words[..., w:].any()
+    assert np.array_equal(port._cnt_device(sa, device).numpy(), want.cnt_n)
 
 
 #: the split layout's cases: (samples, sites, alphabet, all-N rows, another
@@ -137,41 +148,64 @@ def _layout_case(name):
     return j, p, np.union1d(port.partial_site_positions(p), port.partial_site_positions(po))
 
 
-@pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
 @pytest.mark.parametrize("case", list(LAYOUT_CASES))
-def test_device_layout_matches_host_layout_and_reference(monkeypatch, case, native):
-    """The layout built on a device (``split_on_device``: the kernels' plain
-    versions here) against the host's (the native pass or numpy) and
-    tracs_tpu's, every field exact: excl and nmask at the card's pitch with
-    zero pad words, the partial planes at theirs, the N counts, the partial
-    positions and their count."""
-    from tracs_tpu_torch.ops import kernels
-    from tracs_tpu_torch.ops.packing import split_on_device
-
+def test_device_layout_matches_host_layout_and_reference(case):
+    """The layout built on a device (``split_alignment``: the kernels' plain
+    versions here) against tracs_tpu's host layout, every field exact: excl
+    and nmask at the card's pitch with zero pad words, the partial planes at
+    theirs, the N counts, the partial positions and their count."""
     j, p, sites = _layout_case(case)
-    if not native:
-        import tracs_tpu_torch.runtime.native as nat
-
-        monkeypatch.setattr(nat, "native_split_stats", lambda planes: None)
-    host, want = split_alignment(p, sites), jpacking.split_alignment(j, sites)
-    dev = split_on_device(p, sites, CPU)
-    for f in ("excl", "nmask", "partial", "cnt_n", "partial_pos"):
-        assert np.array_equal(getattr(host, f), getattr(want, f)), f
-    assert (host.n_partial, host.length) == (want.n_partial, want.length)
-    assert dev.device == CPU and dev.excl is None and dev.nmask is None and dev.partial is None
+    dev, want = split_alignment(p, sites), jpacking.split_alignment(j, sites)
+    assert dev.device == CPU
     assert np.array_equal(dev.cnt_n, want.cnt_n) and dev.cnt_n.dtype == np.int64
     assert np.array_equal(dev.partial_pos, want.partial_pos)
     assert (dev.n_partial, dev.length, dev.n_seqs) == (want.n_partial, want.length, len(p.names))
     if case == "no partial sites":
         assert dev.n_partial == 0 and not want.partial.any() and want.partial.shape[2] == 1
-    ea, nm, pt = port._split_device(dev, CPU)
-    W, Wp = want.excl.shape[2], want.partial.shape[2]
-    assert ea.shape[2] == nm.shape[1] == kernels.padded_words(W)
-    assert pt.shape[2] == kernels.padded_words(Wp)
-    for got, ref, w in ((ea, want.excl, W), (nm, want.nmask, W), (pt, want.partial, Wp)):
-        words = got.numpy().view(np.uint32)
-        assert np.array_equal(words[..., :w], ref) and not words[..., w:].any()
-    assert np.array_equal(port._cnt_device(dev, CPU).numpy(), want.cnt_n)
+    _assert_layout_words(dev, want)
+
+
+def _pairs_of(n_a, n_b, rng):
+    """Pair lists over an [n_a, n_b] rectangle: every pair, then 50 drawn."""
+    ii, jj = np.divmod(np.arange(n_a * n_b), n_b)
+    return (np.concatenate([ii, rng.integers(0, n_a, 50)]),
+            np.concatenate([jj, rng.integers(0, n_b, 50)]))
+
+
+@pytest.mark.parametrize("case", list(LAYOUT_CASES))
+def test_comparable_sites_pairs_on_one_route_layouts_matches_reference(case):
+    """``comparable_sites_pairs`` on layouts built by the one route (their
+    planes only on a device) equals tracs_tpu's, for a self pair and a
+    query-vs-db pair, in batches that cut the list."""
+    j, p, sites = _layout_case(case)
+    rng = np.random.default_rng(list(LAYOUT_CASES).index(case) + 90)
+    sa, jsa = split_alignment(p, sites), jpacking.split_alignment(j, sites)
+    ii, jj = _pairs_of(p.n_seqs, p.n_seqs, rng)
+    got = port.comparable_sites_pairs(sa, sa, ii, jj, device="cpu", batch=7)
+    want = np.asarray(jref.comparable_sites_pairs(jsa, jsa, ii, jj, batch=7))
+    assert got.dtype == np.int64 and np.array_equal(got, want)
+    jo, po = _both(_seqs(rng, 5, p.length, np.array(list("ACGTRN"))))
+    pos = np.union1d(port.partial_site_positions(p), port.partial_site_positions(po))
+    sa, sb = split_alignment(p, pos), split_alignment(po, pos)
+    jsa, jsb = jpacking.split_alignment(j, pos), jpacking.split_alignment(jo, pos)
+    ii, jj = _pairs_of(p.n_seqs, po.n_seqs, rng)
+    got = port.comparable_sites_pairs(sa, sb, ii, jj, device=CPU, batch=11)
+    assert np.array_equal(got, np.asarray(jref.comparable_sites_pairs(jsa, jsb, ii, jj)))
+
+
+def test_comparable_sites_pairs_on_another_device_matches_reference():
+    """A layout asked for on another device than its own: the N masks are
+    read from the tensors that device builds (the cross-device route), and
+    the counts equal tracs_tpu's."""
+    j, p, sites = _layout_case("all-N rows")
+    sa = split_alignment(p, sites)
+    elsewhere = torch.device("cpu", 0)  # a second key: the CPU is this machine's only device
+    ii, jj = _pairs_of(p.n_seqs, p.n_seqs, np.random.default_rng(97))
+    got = port.comparable_sites_pairs(sa, sa, ii, jj, device=elsewhere)
+    assert elsewhere in sa._dev_cache and sa.device == CPU
+    jsa = jpacking.split_alignment(j, sites)
+    assert np.array_equal(got, np.asarray(jref.comparable_sites_pairs(jsa, jsa, ii, jj)))
+    _assert_layout_words(sa, jsa, elsewhere)
 
 
 def test_gram_partial_matches_reference():
@@ -179,7 +213,7 @@ def test_gram_partial_matches_reference():
 
     rng = np.random.default_rng(4)
     j, p = _both(_seqs(rng, 9, 900, np.array(list("ACGTMRWSYKVHDBN"))))
-    pt = split_alignment(p).partial
+    pt = np.asarray(jpacking.split_alignment(j).partial)
     assert pt.shape[2] > 1
     want = np.asarray(jref._gram_partial(jnp.asarray(pt[2:7]), jnp.asarray(pt)))
     got = port.partial_gram(port._as_words(pt[2:7]), port._as_words(pt))
@@ -188,12 +222,14 @@ def test_gram_partial_matches_reference():
 
 def test_derive_split_planes_matches_host_layout():
     """The device layout's planes (``split_layout``, here its plain version)
-    are the host layout's words, then zero words up to the card's pitch."""
+    are tracs_tpu's host layout's words, then zero words up to the card's pitch."""
+    from tracs_tpu_torch.ops import kernels
+
     rng = np.random.default_rng(5)
-    _, p = _both(_seqs(rng, 8, 200))
-    sa = split_alignment(p)
+    j, p = _both(_seqs(rng, 8, 200))
+    sa = jpacking.split_alignment(j)
     W = p.planes.shape[2]
-    ea, nm = port.split_layout(port._as_words(p.planes))[:2]
+    ea, nm = kernels.split_layout(port._as_words(p.planes))[:2]
     assert np.array_equal(ea.numpy().view(np.uint32)[:, :, :W], sa.excl)
     assert np.array_equal(nm.numpy().view(np.uint32)[:, :W], sa.nmask)
     assert not ea[:, :, W:].any() and not nm[:, W:].any()
@@ -209,9 +245,10 @@ def test_split_device_pads_the_word_pitch(W):
     rng = np.random.default_rng(50 + W)
     L = 32 * W - 9
     j, p = _both(_seqs(rng, 9, L))
-    sa = split_alignment(p)
+    layout = split_alignment(p)
+    ea, nm, pt = port._split_device(layout, CPU)
+    sa = jpacking.split_alignment(j)
     assert sa.excl.shape[2] == W
-    ea, nm, pt = port._split_device(sa, CPU)
     Wp = kernels.padded_words(W)
     assert Wp % 4 == 0 and W <= Wp < W + 4
     assert ea.shape == (9, 4, Wp) and nm.shape == (9, Wp)
@@ -224,7 +261,7 @@ def test_split_device_pads_the_word_pitch(W):
     assert pt.shape == (9, 4, kernels.padded_words(Wq)) and pt.is_contiguous()
     assert np.array_equal(pt.numpy().view(np.uint32)[:, :, :Wq], sa.partial)
     assert not pt[:, :, Wq:].any()
-    assert port._split_device(sa, CPU)[0] is ea  # cached, padded once
+    assert port._split_device(layout, CPU)[0] is ea  # cached, padded once
     D, NN = port.snp_distance_dense(p, device="cpu")
     Dj, NNj = jref.snp_distance_dense(j)
     assert np.array_equal(D, np.asarray(Dj)) and np.array_equal(NN, np.asarray(NNj))
@@ -434,7 +471,8 @@ def test_layout_caches_hold_the_partner_not_its_id(monkeypatch, cache):
     fresh = (port.split_alignment if cache == "split pair" else None)
     if cache == "split pair":
         pos = np.union1d(port.partial_site_positions(a), port.partial_site_positions(b2))
-        assert np.array_equal(second[1].excl, fresh(b2, pos).excl)
+        assert torch.equal(port._split_device(second[1], CPU)[0],
+                           port._split_device(fresh(b2, pos), CPU)[0])
     else:
         want = port.compact_variant_columns(a, b2)
         assert np.array_equal(second[1].planes, want[1].planes)

@@ -417,8 +417,8 @@ def test_mismatch_positions_layouts_agree():
     sa = split_alignment(p)
     ii, jj = np.triu_indices(8, k=1)
     raw = kernels.mismatch_positions_kernel(kernels._as_words(p.planes), None, ii, jj, 500, 512)
-    split = kernels.mismatch_positions_kernel(kernels._as_words(sa.excl), None, ii, jj, 500, 512,
-                                              kernels._as_words(sa.nmask))
+    ea, nm, _ = port._split_device(sa, torch.device("cpu"))
+    split = kernels.mismatch_positions_kernel(ea, None, ii, jj, 500, 512, nm)
     assert torch.equal(raw, split) and int(raw[:, 0].min()) > 0
 
 
@@ -738,16 +738,3 @@ def test_stream_filter_cuda_matches_cpu(cuda_device, method):
     got = list(port.pairsnp_stream([pack_sequences(seqs)], device=cuda_device, **kw))
     assert profiling.counter("kernel.launches.mism_positions") > before
     _assert_streams_equal(got, want)
-
-
-@pytest.mark.cuda
-def test_shared_memory_design_builds_and_agrees(cuda_device):
-    """``csrc/mism_positions_shared.cu`` is on no path: the probe that times it
-    beside the committed kernels builds it, holds all three against the plain
-    version on both layouts at every group size (the committed two also on
-    the other callers' pair lists and on tiles of fewer samples), and exits
-    on a difference."""
-    from tracs_tpu_torch.experiments import mism_positions_probe
-
-    mism_positions_probe.main(["--n", "256", "--length", "100000", "--row-block", "128",
-                               "--groups", "32,8,128", "--patterns", "--samples", "14"])

@@ -1,16 +1,18 @@
-"""The split layout built on the card (ops/packing.py::split_on_device, the
-kernels ``split_layout`` and ``split_gather`` of ops/kernels.py).
+"""The split layout (ops/packing.py::split_alignment, the kernels
+``split_layout`` and ``split_gather`` of ops/kernels.py), built by one route
+on the device that asks for it.
 
-Here on the CPU: ``split_alignment`` without a CUDA device stays on the host
-and builds nothing on a device, and a run picks the layout that serves its
-device.  On a card (``-m cuda``): each kernel against its plain version,
-exact, on every bit pattern of the words, at word counts below, at and past
-the card's pitch and across the layout kernel's blocks of words and of
-samples; the layout built on the card against the host's; and a split-engine
-``distance --meta --filter`` run on a layout built on the card against the
-same run on the host layout, byte for byte, with the kernel's launches and
-the device builds counted once a layout; a query-vs-db pair on layouts built
-on the card against the CPU.  The tests against tracs_tpu are in
+Here on the CPU: ``split_alignment`` without a device builds on the CPU,
+with the kernels' plain versions, and a layout asked for on another device
+builds that device's tensors once and keeps them.  On a card (``-m cuda``):
+each kernel against its plain version, exact, on every bit pattern of the
+words, at word counts below, at and past the card's pitch and across the
+layout kernel's blocks of words and of samples; the layout built on the card
+against the CPU's; and a split-engine ``distance --meta --filter`` run on a
+layout built on the card against the same run on a layout built on the CPU
+and crossed to the card, byte for byte, with the kernel's launches and the
+device builds counted; a query-vs-db pair on layouts built on the card
+against the CPU.  The tests against tracs_tpu are in
 tests/test_torch_pairsnp.py; this file imports no jax."""
 
 import os
@@ -20,9 +22,9 @@ import pytest
 import torch
 
 from tracs_tpu_torch import cli
-from tracs_tpu_torch.ops import kernels, packing
+from tracs_tpu_torch.ops import kernels
 from tracs_tpu_torch.ops import pairsnp as port
-from tracs_tpu_torch.ops.packing import pack_sequences, split_alignment, split_on_device
+from tracs_tpu_torch.ops.packing import pack_sequences, split_alignment
 from tracs_tpu_torch.runtime import profiling
 
 IUPAC = np.array(list("ACGTMRWSYKVHDBN-"))
@@ -42,29 +44,46 @@ def _packed(rng, n, L, alphabet=IUPAC):
 
 @pytest.mark.parametrize("device", [None, "cpu", CPU])
 def test_split_alignment_without_a_card_stays_on_the_host(device):
+    """Without a card the layout is built on the CPU: its tensors, at the
+    card's word pitch, are its only planes, and no build on a card is
+    counted."""
     rng = np.random.default_rng(1)
     p = _packed(rng, 5, 100)
     before = profiling.counter("layout.device_builds")
+    sent = profiling.counter("layout.upload_bytes")
     sa = split_alignment(p) if device is None else split_alignment(p, device=device)
-    assert sa.device is None and getattr(sa, "_dev_cache", None) is None
-    for f in ("excl", "nmask", "partial"):
-        assert isinstance(getattr(sa, f), np.ndarray) and getattr(sa, f).dtype == np.uint32, f
-    assert sa.excl.shape == p.planes.shape and sa.n_seqs == 5
+    assert sa.device == CPU and list(sa._dev_cache) == [CPU]
+    assert not any(hasattr(sa, f) for f in ("excl", "nmask", "partial"))
+    ea, nm, pt = port._split_device(sa, CPU)
+    for t in (ea, nm, pt, port._cnt_device(sa, CPU)):
+        assert t.device == CPU and t.dtype == torch.int32
+    assert ea.shape == (5, 4, kernels.padded_words(p.planes.shape[2])) and sa.n_seqs == 5
     assert profiling.counter("layout.device_builds") == before
+    assert profiling.counter("layout.upload_bytes") == sent + p.planes.nbytes
 
 
 def test_a_run_rebuilds_a_device_layout_that_does_not_serve_it():
-    """A layout built on a device serves runs there only; a host layout
-    serves every run (it crosses to a card that asks)."""
+    """A layout asked for on another device builds that device's tensors
+    once, from ``src`` at its own partial positions, and keeps them beside
+    its own; a run on another device builds a layout of its own."""
     rng = np.random.default_rng(2)
-    p = _packed(rng, 4, 70)
-    p._split_cache = on_device = split_on_device(p, None, CPU)
-    assert not port._serves(on_device, CPU) and not port._serves(on_device, None)
-    host = port._cached_split(p, CPU)
-    assert host is not on_device and host.device is None and host.excl is not None
-    assert port._cached_split(p, None) is host and port._serves(host, CPU)
-    with pytest.raises(ValueError, match="built on"):
-        port._split_device(on_device, torch.device("meta"))
+    p, other = _packed(rng, 4, 70), _packed(rng, 3, 70)
+    sites = np.union1d(port.partial_site_positions(p), port.partial_site_positions(other))
+    sa = split_alignment(p, sites)
+    held = sa._dev_cache
+    elsewhere = torch.device("cpu", 0)  # a second key: the CPU is this machine's only device
+    sent = profiling.counter("layout.upload_bytes")
+    got = port._split_device(sa, elsewhere)
+    assert profiling.counter("layout.upload_bytes") == sent + p.planes.nbytes
+    assert port._split_device(sa, elsewhere)[0] is got[0] and sa._dev_cache is held
+    assert profiling.counter("layout.upload_bytes") == sent + p.planes.nbytes
+    assert list(held) == [CPU, elsewhere] and sa.device == CPU
+    for g, w in zip(got + (port._cnt_device(sa, elsewhere),), held[CPU]):
+        assert g is not w and torch.equal(g, w)
+    p._split_cache = sa
+    assert port._cached_split(p, CPU) is sa and port._cached_split(p, None) is sa
+    mine = port._cached_split(p, elsewhere)
+    assert mine is not sa and mine.device == elsewhere and p._split_cache is mine
 
 
 def test_an_empty_alignment_has_an_empty_layout():
@@ -113,7 +132,7 @@ def test_split_layout_kernel_matches_plain(cuda_device, n, W):
 @pytest.mark.parametrize("method", ["split", "auto"])
 def test_query_vs_db_on_card_layouts_matches_the_cpu(cuda_device, method):
     """A query-vs-db pair: both sides built on the card at the union of their
-    partial sites give the D and NN of the host layouts on the CPU."""
+    partial sites give the D and NN of the CPU's layouts."""
     rng = np.random.default_rng(5)
     a, b = _packed(rng, 21, 2500), _packed(rng, 34, 2500, np.array(list("ACGTYN")))
     builds = profiling.counter("layout.device_builds")
@@ -124,6 +143,25 @@ def test_query_vs_db_on_card_layouts_matches_the_cpu(cuda_device, method):
     assert np.array_equal(sa.partial_pos, sb.partial_pos) and sa.n_partial > 0
     want = port.snp_distance_dense(a, b, device="cpu", method=method, row_block=8)
     assert all(np.array_equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+def test_comparable_sites_pairs_on_a_card_layout_matches_the_cpu(cuda_device):
+    """A layout whose planes live only on the card gives the listed pairs'
+    comparable sites, as the CPU's layout does, and so does a CPU layout
+    asked for on the card."""
+    rng = np.random.default_rng(6)
+    p = _packed(rng, 30, 2100)
+    ii, jj = np.divmod(np.arange(30 * 30), 30)
+    want = port.comparable_sites_pairs(split_alignment(p), split_alignment(p), ii, jj,
+                                       device="cpu")
+    on_card = split_alignment(p, device=cuda_device)
+    got = port.comparable_sites_pairs(on_card, on_card, ii, jj, device=cuda_device, batch=77)
+    assert got.dtype == np.int64 and np.array_equal(got, want)
+    on_cpu = split_alignment(p)
+    assert np.array_equal(port.comparable_sites_pairs(on_cpu, on_cpu, ii, jj,
+                                                      device=cuda_device), want)
+    assert cuda_device in on_cpu._dev_cache
 
 
 def _clustered_aln(path, rng, n, L):
@@ -142,6 +180,8 @@ def _clustered_aln(path, rng, n, L):
 
 @pytest.mark.cuda
 def test_card_layout_matches_the_host_layout(cuda_device):
+    """The layout built on the card: the CPU's one-route layout, word for
+    word, with one device build and one layout launch."""
     rng = np.random.default_rng(3)
     p = _packed(rng, 45, 1337)
     host = split_alignment(p)
@@ -150,23 +190,22 @@ def test_card_layout_matches_the_host_layout(cuda_device):
     dev = split_alignment(p, device=cuda_device)
     assert profiling.counter("layout.device_builds") == builds + 1
     assert profiling.counter("kernel.launches.split_layout") == launches + 1
-    assert dev.device == cuda_device and dev.excl is None
+    assert dev.device == cuda_device and list(dev._dev_cache) == [cuda_device]
     assert np.array_equal(dev.cnt_n, host.cnt_n) and np.array_equal(dev.partial_pos,
                                                                     host.partial_pos)
-    ea, nm, pt = port._split_device(dev, cuda_device)
-    W, Wp = host.excl.shape[2], host.partial.shape[2]
-    for got, ref, w in ((ea, host.excl, W), (nm, host.nmask, W), (pt, host.partial, Wp)):
-        words = got.cpu().numpy().view(np.uint32)
-        assert np.array_equal(words[..., :w], ref) and not words[..., w:].any()
+    got = port._split_device(dev, cuda_device) + (port._cnt_device(dev, cuda_device),)
+    want = port._split_device(host, CPU) + (port._cnt_device(host, CPU),)
+    for g, w in zip(got, want):
+        assert g.device == cuda_device and torch.equal(g.cpu(), w)
 
 
 @pytest.mark.cuda
 def test_distance_on_a_card_layout_writes_the_host_layout_bytes(cuda_device, tmp_path,
                                                                 monkeypatch):
     """``distance --meta --filter`` on the card, once with its layout built
-    there and once with the host's layout uploaded: the same CSV bytes; the
-    first counts one device build and one layout launch, the second no
-    device build."""
+    there and once with a layout built on the CPU whose card tensors the
+    run builds from its raw planes: the same CSV bytes; each counts one
+    device build and one layout launch (the CPU's build counts none)."""
     rng = np.random.default_rng(4)
     msa, names = _clustered_aln(tmp_path / "c.fasta", rng, 40, 3000)
     with open(tmp_path / "dates.csv", "w") as fh:
@@ -184,10 +223,9 @@ def test_distance_on_a_card_layout_writes_the_host_layout_bytes(cuda_device, tmp
                     profiling.counter("kernel.launches.split_layout") - launches)
 
     card, card_builds, card_launches = run(tmp_path / "card.csv")
-    real = packing.split_alignment
-    monkeypatch.setattr(port, "split_alignment",
-                        lambda p, sites=None, *, device=None: real(p, sites))
-    host, host_builds, _ = run(tmp_path / "host.csv")
+    real = port._cached_split
+    monkeypatch.setattr(port, "_cached_split", lambda packed, device=None: real(packed, CPU))
+    host, host_builds, host_launches = run(tmp_path / "host.csv")
     assert card == host and card.count(b"\n") > 20
-    assert (card_builds, card_launches, host_builds) == (1, 1, 0)
+    assert (card_builds, card_launches, host_builds, host_launches) == (1, 1, 1, 1)
     assert os.path.getsize(tmp_path / "card.csv") == len(card)

@@ -35,8 +35,8 @@
 // block_kernels) the block above takes 0.051 ms on the card (186 registers,
 // no spills).  A 128 x 128 tile (one stage of 128 KiB, twice the
 // accumulators, the A rows staged once per 128 columns) was no faster: 0.052
-// ms at 255 registers with 32 B spilled (experiments/partial_gram_probe.py
-// builds it from this source and times both).  Each 128 x 64 tile stages
+// ms at 255 registers with 32 B spilled (both built from this source and
+// timed on the card).  Each 128 x 64 tile stages
 // 192 KiB of planes from L2 for 8 k256 steps of 80 mma a warp, one block an
 // SM, so the staging and the store of each tile do not overlap the next
 // tile's mma.  Where whole tiles would leave SMs idle the word axis is cut

@@ -57,7 +57,7 @@
 // memory as 64-byte row pieces, 41 GB per main-path block (rb=1024 x n=4096 x
 // 1 Mb), and the 16-byte cp.async requests deliver them at about 3.3 TB/s.
 // Measured on an NVIDIA H100 80GB HBM3 at 700 W
-// (experiments/split_gram_probe.py, experiments/tensor_rate.py): the whole
+// (experiments/split_gram_probe.py): the whole
 // kernel 14 ms for that block, the copies alone 12 ms, the mma with their
 // fragment loads alone 7 ms, and the same mma issued back to back from
 // registers 4.1 ms (6.7 clocks an instruction a tensor core).  8-word chunks

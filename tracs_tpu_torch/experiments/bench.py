@@ -53,8 +53,8 @@ SNP_THRESHOLD = 200
 #: single-bit (AND + POPC) tensor-core operations a second of one H100 SXM.
 #: The data sheet names no b1 rate: a b1 instruction covers 8 times the sites
 #: of the int8 one of the same shape and issues as fast, so the peak is 8 x
-#: the data sheet's dense int8 1,979 TOP/s (experiments/tensor_rate.py measured
-#: wgmma b1 at 15,820 TOP/s on an H100 80GB HBM3 at 700 W)
+#: the data sheet's dense int8 1,979 TOP/s (wgmma b1 measured at 15,820 TOP/s
+#: on an H100 80GB HBM3 at 700 W)
 PEAK_B1_OPS = 8 * 1979e12
 #: bit-products a site pair in the mfu: the split decomposition's 4
 #: exclusive-base channels and its N channel

@@ -54,7 +54,7 @@ def run(n: int, L: int, device: str | torch.device) -> list[dict]:
     """One row per kernel: ``name``, ``ms``, ``pairs_per_s``, ``ok`` (None for
     K1, the baseline the others are held against)."""
     device = resolve_device(device)
-    sa = _cached_split(make_clustered(n, L))
+    sa = _cached_split(make_clustered(n, L), device)
     ea, nm, _ = _split_device(sa, device)
     print(f"# n={n} L={L} W={ea.shape[2]} device={device}", flush=True)
 

@@ -1,5 +1,5 @@
-"""The mismatch-position kernels at the main path's block: the three
-designs of ``csrc/mism_positions*.cu`` side by side.
+"""The mismatch-position kernels at the main path's block: the two
+designs of ``csrc/mism_positions.cu`` side by side.
 
 Builds the headline workload (``make_clustered`` at n x L, clusters of
 ``max(6, round(0.005 n) + 1)``), takes the pairs its first row block emits
@@ -12,14 +12,9 @@ raw planes) times
   pairs that stage each of their samples' rows once, the word axis cut into
   parts across the card),
 * the warp kernel, the first version (the same source: one warp a pair,
-  straight from the resident layout), and
-* ``csrc/mism_positions_shared.cu``, a slower design on no path, in which a
-  block takes ``group`` consecutive pairs and stages each distinct sample
-  among them in shared memory once, for every ``--groups`` value.  For each
-  it prints the words the blocks stage for every pair-word (10 without
-  sharing), counted from the pair list on the host.
+  straight from the resident layout).
 
-The first two are timed in turns (tiled, warp, warp, tiled), each a call
+The two are timed in turns (tiled, warp, warp, tiled), each a call
 (CUDA events around the wrapper, its host part included) and on the card
 alone (launches of one prepared launcher queued behind a spin), with the
 host part (the tile plan) timed apart.  ``--patterns`` times the same two,
@@ -33,16 +28,11 @@ plans of fewer samples a tile (at most ``MISM_TILE_SAMPLES``, the kernel's
 ``kTileSamples``), ``--tiled-warps`` rewritten copies of the source with
 other numbers of warps a block and blocks an SM, and ``--tiled-parts``
 copies whose kernel does only its copies, only its pairs, or its pairs
-without ranks.  Every run must equal the plain version's table.
-``--parts`` builds rewritten copies of the shared-memory source and times
-each through the split layout at ``--groups``: other numbers of warps a
-block, staging buffers and buffer sizes, and for each the copies alone (no
-pair is read) and the pairs alone (on whatever the first chunks left in
-shared memory: its table means nothing).  A tool for PERF.md: nothing in
-the port calls it.
+without ranks.  Every run must equal the plain version's table.  A tool for
+PERF.md: nothing in the port calls it.
 
 Run: python -m tracs_tpu_torch.experiments.mism_positions_probe [--patterns]
-    [--samples 14,24] [--tiled-parts] [--tiled-warps 16,8x2] [--parts]
+    [--samples 14,24] [--tiled-parts] [--tiled-warps 16,8x2]
 """
 
 from __future__ import annotations
@@ -81,108 +71,10 @@ def _median_ms(fn, reps: int = 10) -> float:
     return float(np.median(times))
 
 
-def staged_words_per_pair_word(ii: np.ndarray, jj: np.ndarray, group: int, planes: int) -> float:
-    """Words the kernel's blocks copy to shared memory for every word of a
-    pair: ``planes`` for each distinct sample of a group of consecutive pairs,
-    over the group's pairs (2 x ``planes`` when nothing is shared)."""
-    staged = sum(len(np.unique(np.concatenate([ii[s:s + group], jj[s:s + group]])))
-                 for s in range(0, len(ii), group))
-    return planes * staged / len(ii)
-
-
-_WARPS = "constexpr int kWarps = 8;"
-_STAGES = "constexpr int kStages = 2;"
-_STAGE = "constexpr int kStageWords = 10240;"
-_MAX_GROUP = "constexpr int kMaxGroup = 128;"
-_PAIRS = "    for (int q = q_begin; q < q_end; ++q) {\n      uint32_t m[4]"
-_AHEAD = "    if (ahead < n_chunks) stage_chunk(static_cast<int>(ahead % kStages), ahead);"
-_WAIT = "    if constexpr (VEC)\n      mbar_wait("
-#: (warps a block, staging buffers, words a buffer); the first is the source's own
-SHAPES = ((8, 2, 10240), (8, 3, 6400), (8, 4, 5120), (8, 2, 5120), (8, 4, 2560),
-          (16, 2, 10240), (16, 2, 5120), (16, 4, 5120), (4, 2, 10240))
-
-
 def _swap(src: str, old: str, new: str) -> str:
     if old not in src:
         raise RuntimeError(f"the kernel source no longer holds {old!r}: bring this script up to date")
     return src.replace(old, new)
-
-
-def part_variants(src: str) -> dict[str, str]:
-    """name -> source of every variant of ``mism_positions_shared.cu``; the
-    first is the source as it stands.  Buffers below 5120 words hold a chunk
-    of at most 64 pairs' samples, so those variants cap the group at 64."""
-    out = {}
-    for warps, stages, words in SHAPES:
-        base = _swap(_swap(_swap(src, _WARPS, f"constexpr int kWarps = {warps};"), _STAGES,
-                           f"constexpr int kStages = {stages};"), _STAGE,
-                     f"constexpr int kStageWords = {words};")
-        if words < 5120:
-            base = _swap(base, _MAX_GROUP, "constexpr int kMaxGroup = 64;")
-        name = f"{warps} warps, {stages} buffers of {words * 4 / 1024:g} KB"
-        out[name + (" (as it stands)" if (warps, stages, words) == SHAPES[0] else "")] = base
-        out[name + ", copies only (part)"] = _swap(base, _PAIRS, _PAIRS.replace("q < q_end", "q < 0"))
-        # nothing refills a buffer and nothing waits for one past the first chunks
-        out[name + ", pairs only (part)"] = _swap(
-            _swap(base, _AHEAD, "    ;"), _WAIT, "    if (VEC && chunk < kStages - 1)\n      mbar_wait(")
-    return out
-
-
-def _build(path: str, so: str):
-    """Starts nvcc on ``path`` with the build's own flags; returns a function
-    that waits for it and gives the typed entry point."""
-    proc = subprocess.Popen([nvcc_path(), *NVCC_FLAGS, "-o", so, path], stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True)
-
-    def entry():
-        log = proc.communicate()[0]
-        if proc.returncode:
-            sys.exit(f"mism_positions_probe: building {path} failed:\n{log[-3000:]}")
-        fn = ctypes.CDLL(so).tracs_mism_positions_shared
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 2
-                       + [ctypes.c_void_p] * 2)
-        return fn
-    return entry
-
-
-def _shared_call(fn, planes, mask, ii, jj, L: int, cap: int, group: int, out):
-    """A launch of the shared-memory design on one layout (both sides)."""
-    m = None if mask is None else mask.data_ptr()
-    stream = torch.cuda.current_stream(planes.device).cuda_stream
-
-    def call():
-        rc = fn(planes.data_ptr(), m, planes.data_ptr(), m, ii.data_ptr(), jj.data_ptr(),
-                len(ii), planes.shape[2], L, cap, group, out.data_ptr(), stream)
-        if rc != 0:
-            raise RuntimeError(f"launch failed, CUDA error {rc}")
-    return call
-
-
-def run_parts(src: str, groups, ea, nm, ii, jj, L: int, cap: int, want) -> None:
-    """Builds every variant at once and times each at ``groups``."""
-    out = torch.empty((len(ii), 1 + cap), dtype=torch.int32, device=ea.device)
-    with tempfile.TemporaryDirectory() as tmp:
-        entries = {}
-        for k, (name, text) in enumerate(part_variants(src).items()):
-            cu = os.path.join(tmp, f"v{k}.cu")
-            with open(cu, "w") as fh:
-                fh.write(text)
-            entries[name] = (_build(cu, os.path.join(tmp, f"v{k}.so")),
-                             64 if "kMaxGroup = 64;" in text else 128)
-        for name, (entry, max_group) in entries.items():
-            fn = entry()
-            cells = []
-            for group in groups:
-                if group > max_group:
-                    continue
-                ms = _median_ms(_shared_call(fn, ea, nm, ii, jj, L, cap, group, out))
-                if "(part)" not in name and not torch.equal(out, want):
-                    sys.exit(f"mism_positions_probe: {name!r} at group {group} disagrees with "
-                             f"the plain version")
-                cells.append(f"group {group}: {ms:.3f} ms")
-            print(f"{name}: {', '.join(cells)}" + ("" if "(part)" in name else " [OK]"),
-                  flush=True)
 
 
 def _alone_ms(launch, reps: int = 20) -> float:
@@ -399,23 +291,17 @@ def main(argv=None) -> None:
     ap.add_argument("--n", type=int, default=4096)
     ap.add_argument("--length", type=int, default=1_000_000)
     ap.add_argument("--row-block", type=int, default=1024)
-    ap.add_argument("--groups", default="32,8,16,64,128",
-                    help="pairs a block of the shared-memory design; the first is timed in "
-                         "turns with the committed kernels")
     ap.add_argument("--patterns", action="store_true",
                     help="time both committed kernels on other callers' pair lists")
     ap.add_argument("--samples", default="",
                     help="fewer samples a tile of the tiled kernel to time besides the "
                          f"default ({kernels.MISM_TILE_SAMPLES})")
-    ap.add_argument("--parts", action="store_true",
-                    help="time rewritten copies of the shared-memory source")
     ap.add_argument("--tiled-parts", action="store_true",
                     help="time the tiled kernel's copies alone and its pairs alone")
     ap.add_argument("--tiled-warps", default="",
                     help="warps a block of the tiled kernel, each as W or WxB (B blocks an "
                          "SM), to build and time at every --samples tile size (and the default)")
     args = ap.parse_args(argv)
-    groups = [int(g) for g in args.groups.split(",")]
     samples = [int(x) for x in args.samples.split(",") if x]
     if any(not 2 <= x <= kernels.MISM_TILE_SAMPLES for x in samples):
         ap.error(f"--samples: tiles of 2 to {kernels.MISM_TILE_SAMPLES} samples")
@@ -434,7 +320,7 @@ def main(argv=None) -> None:
     cap = 1 << max(7, int(np.ceil(np.log2(max(2, int(dvals.max()))))))
     comp = _cached_compact(packed, packed)
     a_k = packed if comp is None else comp[0]
-    ea, nm, _ = _split_device(_split_pair(a_k, None)[0], device)
+    ea, nm, _ = _split_device(_split_pair(a_k, None, device)[0], device)
     raw = _planes_device(a_k, device)
     L, W, P = a_k.length, ea.shape[2], len(rows)
     used = len(np.unique(np.concatenate([rows, cols])))
@@ -451,45 +337,29 @@ def main(argv=None) -> None:
     layouts = {"split layout": (ea, None, rows, cols, L, cap, nm, None),
                "raw planes": (raw, None, rows, cols, L, cap)}
     want = {name: kernels.mismatch_positions_reference(*a) for name, a in layouts.items()}
-    shared_cu = os.path.join(CSRC_DIR, "mism_positions_shared.cu")
-    ii, jj = torch.from_numpy(rows).to(device), torch.from_numpy(cols).to(device)
-    with tempfile.TemporaryDirectory() as tmp:
-        shared = _build(shared_cu, os.path.join(tmp, "shared.so"))()
-        out = torch.empty((P, 1 + cap), dtype=torch.int32, device=device)
-        for name, a in layouts.items():
-            planes, mask = a[0], (a[6] if len(a) == 8 else None)
-            n_planes = 4 if mask is None else 5
-            # the two committed designs in turns
-            times = {"tiled": [], "warp": []}
-            for who in ("tiled", "warp", "warp", "tiled"):
-                times[who].append(_design(who, a, want[name]))
-            for who, runs in times.items():
-                print(f"{name}: {who} kernel: a call "
-                      f"{', '.join(f'{r[0]:.3f}' for r in runs)} ms; on the card alone "
-                      f"{', '.join(f'{r[1]:.4f}' for r in runs)} ms [OK]", flush=True)
-            print(f"{name}: the wrapper's rule on the host (the tile plan included) "
-                  f"{_rule_ms(a):.3f} ms", flush=True)
-            for group in groups:
-                call = _shared_call(shared, planes, mask, ii, jj, L, cap, group, out)
-                ms = _median_ms(call)
-                if not torch.equal(out, want[name]):
-                    sys.exit(f"mism_positions_probe: shared-memory design, group {group}, "
-                             f"{name}: disagrees with the plain version")
-                print(f"shared-memory design, group {group:3d}, {name}: {ms:.3f} ms, "
-                      f"{-(-P // group)} blocks, "
-                      f"{staged_words_per_pair_word(rows, cols, group, n_planes):.2f} of "
-                      f"{2 * n_planes} words staged a pair-word [OK]", flush=True)
-            for tile in samples:
-                p = kernels.mism_tile_plan(rows, cols, samples=tile)
-                res = torch.empty_like(want[name])
-                launch = kernels._mism_tiled_launcher(planes, planes, mask, mask, p, L, cap, res)
-                alone = _alone_ms(launch)
-                if not torch.equal(res, want[name]):
-                    sys.exit(f"mism_positions_probe: tiles of {tile} samples, {name}: disagree "
-                             f"with the plain version")
-                print(f"tiled kernel, {tile:2d} samples a tile ({p.tiles} tiles, "
-                      f"{len(p.keys) / P:.3f} staged a pair), {name}: on the card alone "
-                      f"{alone:.4f} ms [OK]", flush=True)
+    for name, a in layouts.items():
+        planes, mask = a[0], (a[6] if len(a) == 8 else None)
+        # the two committed designs in turns
+        times = {"tiled": [], "warp": []}
+        for who in ("tiled", "warp", "warp", "tiled"):
+            times[who].append(_design(who, a, want[name]))
+        for who, runs in times.items():
+            print(f"{name}: {who} kernel: a call "
+                  f"{', '.join(f'{r[0]:.3f}' for r in runs)} ms; on the card alone "
+                  f"{', '.join(f'{r[1]:.4f}' for r in runs)} ms [OK]", flush=True)
+        print(f"{name}: the wrapper's rule on the host (the tile plan included) "
+              f"{_rule_ms(a):.3f} ms", flush=True)
+        for tile in samples:
+            p = kernels.mism_tile_plan(rows, cols, samples=tile)
+            res = torch.empty_like(want[name])
+            launch = kernels._mism_tiled_launcher(planes, planes, mask, mask, p, L, cap, res)
+            alone = _alone_ms(launch)
+            if not torch.equal(res, want[name]):
+                sys.exit(f"mism_positions_probe: tiles of {tile} samples, {name}: disagree "
+                         f"with the plain version")
+            print(f"tiled kernel, {tile:2d} samples a tile ({p.tiles} tiles, "
+                  f"{len(p.keys) / P:.3f} staged a pair), {name}: on the card alone "
+                  f"{alone:.4f} ms [OK]", flush=True)
     if args.patterns:
         run_patterns(ea, nm, rows, cols, L, cap)
     if args.tiled_parts:
@@ -499,9 +369,6 @@ def main(argv=None) -> None:
                   for w in args.tiled_warps.split(",")]
         run_tiled_warps(layouts["split layout"], want["split layout"], shapes,
                         sorted({kernels.MISM_TILE_SAMPLES, *samples}))
-    if args.parts:
-        with open(shared_cu) as fh:
-            run_parts(fh.read(), groups, ea, nm, ii, jj, L, cap, want["split layout"])
 
 
 if __name__ == "__main__":

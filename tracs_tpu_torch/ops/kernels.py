@@ -1271,8 +1271,9 @@ def split_layout(planes):
     [n, padded_words(W)] (the pad words zero: the card's pitch, as
     ``pad_layout`` gives it), cnt_n int32 [n] the popcount of each sample's
     all4, and partial_or int32 [W] the OR over the samples of the sites that
-    hold a 2- or 3-bit code (two or more planes set, not all four).  The
-    host pass ``ops/packing.py::split_alignment`` gives the same words.
+    hold a 2- or 3-bit code (two or more planes set, not all four).
+    tracs_tpu's host pass ``tracs_tpu/ops/packing.py::split_alignment``
+    gives the same words.
 
     planes : int32 [n, 4, W], contiguous, at their natural width W.  CPU
     tensors take ``split_layout_reference``; CUDA tensors launch the kernel
@@ -1333,7 +1334,7 @@ def split_gather(excl, positions):
     ``excl`` (int32 [n, 4, W'], any pitch) at the sites ``positions`` (host
     integers [P], each below 32 W'; they cross to the card), packed 32 a word in the order given, int32
     [n, 4, padded_words(max(1, ceil(P / 32)))] with the words past the
-    last site zero: the host layout's ``partial`` at the card's pitch, as
+    last site zero: tracs_tpu's ``partial`` at the card's pitch, as
     ``pad_planes`` gives it.  CPU tensors take ``split_gather_reference``;
     CUDA tensors launch the second kernel of ``csrc/split_layout.cu`` (a warp
     an output word) or raise."""

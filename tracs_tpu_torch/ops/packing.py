@@ -1,6 +1,6 @@
 """IUPAC codec: FASTA sequences <-> 4-plane bit-packed allele tensors
 (counterpart of tracs_tpu/ops/packing.py; host numpy code, but for the split
-layout built on a card, ``split_on_device``).
+layout, which ``split_alignment`` builds on a device).
 
 Canonical layout: ``planes`` is a ``[n_samples, 4, W] uint32`` array, where
 plane ``p`` in (A=0, C=1, G=2, T=3) holds one bit per genome position (site
@@ -306,14 +306,13 @@ class SplitAlignment:
     the correction channels are nonzero only at sites where some sample holds
     a 2- or 3-bit IUPAC code — gathered into a compact [n, 4, Wp] tensor.
 
-    A layout built on a card (``device`` set) keeps ``excl``, ``nmask`` and
-    ``partial`` there only, at the card's word pitch (``_dev_cache``, read
-    through ops/pairsnp.py::_split_device): its three host fields are None.
+    The planes live only on a device: ``_dev_cache`` maps a device to its
+    tensors (excl int32 [n, 4, W'], nmask int32 [n, W'], partial int32
+    [n, 4, Wp'] at the card's word pitch, cnt_n int32 [n]), read through
+    ops/pairsnp.py::_split_device.  ``split_alignment`` fills the entry of
+    ``device``; another device builds its own from ``src`` on first use.
     """
 
-    excl: np.ndarray | None     # [n, 4, W] uint32: singleton planes with N sites cleared
-    nmask: np.ndarray | None    # [n, W]   uint32: N (all-four) mask
-    partial: np.ndarray | None  # [n, 4, Wp] uint32: exclusive planes gathered at partial sites
     cnt_n: np.ndarray     # [n] int64: per-sample N counts
     length: int
     n_partial: int
@@ -321,8 +320,9 @@ class SplitAlignment:
     partial_pos: np.ndarray  # [n_partial] int64 gathered positions
     # the PackedAlignment this layout was built from
     src: PackedAlignment
-    # the card that holds the layout; None: built on the host
-    device: torch.device | None = None
+    # the device the layout was built on
+    device: torch.device
+    _dev_cache: dict = dataclasses.field(default_factory=dict, repr=False, compare=False)
 
     @property
     def n_seqs(self) -> int:
@@ -347,71 +347,20 @@ def split_alignment(
     packed: PackedAlignment, partial_sites: np.ndarray | None = None, *,
     device: str | torch.device | None = None,
 ) -> SplitAlignment:
-    """Build the SplitAlignment layout (once per alignment): on the host, or
-    on ``device`` when it is a CUDA device (``split_on_device``); without a
-    device, or with the CPU, on the host.
+    """Build the SplitAlignment layout (once per alignment) on ``device``
+    (None: the CPU) from the raw planes, which cross to it once (the span
+    ``layout.upload``, the counter ``layout.upload_bytes``):
+    ``kernels.split_layout`` writes the exclusive planes and N masks at the
+    card's word pitch, each sample's N count and the partial-site OR over
+    the samples; only the counts and the OR come back, the partial sites
+    are read from the OR and ``kernels.split_gather`` gathers the partial
+    planes on the device.  A build on a card is counted in
+    ``layout.device_builds``.  On the CPU the kernels' plain versions run.
 
     ``partial_sites`` overrides the gathered partial-site positions — pass
     the union of both alignments' positions when building the two sides of
     a query-vs-db pair, so their correction grams share the gather axis."""
-    from tracs_tpu_torch.runtime.native import native_split_stats
-
-    device = None if device is None else resolve_device(device)
-    if device is not None and device.type == "cuda":
-        return split_on_device(packed, partial_sites, device)
-
-    p = packed.planes
-    stats = native_split_stats(p)
-    if stats is not None:
-        excl, all4, cnt_n, partial_or = stats
-        if partial_sites is None:
-            bits = np.unpackbits(partial_or.view(np.uint8), bitorder="little")
-            partial_sites = np.nonzero(bits[: packed.length])[0].astype(np.int64)
-    else:
-        a, c, g, t = p[:, 0], p[:, 1], p[:, 2], p[:, 3]
-        all4 = a & c & g & t
-        excl = (p & ~all4[:, None, :]).astype(np.uint32)
-        cnt_n = popcount_words(all4).sum(axis=-1)
-        if partial_sites is None:
-            partial_sites = partial_site_positions(packed)
-
-    idx = np.asarray(partial_sites, dtype=np.int64)
-    n_partial = len(idx)
-    if n_partial:
-        word = (idx >> 5).astype(np.int64)
-        bit = (idx & 31).astype(np.uint32)
-        # gather the EXCLUSIVE planes: an N sample contributes zero to the
-        # correction channels (its match is accounted for by the n term)
-        vals = ((excl[:, :, word] >> bit[None, None, :]) & 1).astype(np.uint8)  # [n,4,P]
-        Wp = (n_partial + 31) // 32
-        padded = np.zeros((p.shape[0], 4, Wp * 32), dtype=np.uint8)
-        padded[:, :, :n_partial] = vals
-        packed_bytes = np.packbits(padded, axis=-1, bitorder="little")
-        b = packed_bytes.reshape(p.shape[0], 4, Wp, 4).astype(np.uint32)
-        partial = b[..., 0] | (b[..., 1] << 8) | (b[..., 2] << 16) | (b[..., 3] << 24)
-    else:
-        partial = np.zeros((p.shape[0], 4, 1), dtype=np.uint32)
-
-    return SplitAlignment(
-        excl=excl, nmask=all4.astype(np.uint32), partial=partial,
-        cnt_n=cnt_n, length=packed.length, n_partial=n_partial,
-        names=packed.names, partial_pos=idx, src=packed,
-    )
-
-
-def split_on_device(packed: PackedAlignment, partial_sites,
-                    device: torch.device) -> SplitAlignment:
-    """The SplitAlignment layout built on ``device`` from the raw planes,
-    which cross to it once (the span ``layout.upload``, the counter
-    ``layout.upload_bytes``): ``kernels.split_layout`` writes the
-    exclusive planes and N masks at the card's word pitch, each sample's N
-    count and the partial-site OR over the samples; only the counts and the
-    OR come back, the partial sites are read from the OR (unless
-    ``partial_sites`` is given) and ``kernels.split_gather`` gathers the
-    partial planes on the device.  The layout's device tensors are set
-    (``_dev_cache``, ``_dev_cnt``) and its host planes are None.  Counted in
-    ``layout.device_builds``.  On the CPU it runs the kernels' plain
-    versions."""
+    device = resolve_device("cpu" if device is None else device)
     with span("layout.upload"):
         planes = kernels._as_words(packed.planes).to(device)
     count("layout.upload_bytes", packed.planes.nbytes)
@@ -423,15 +372,13 @@ def split_on_device(packed: PackedAlignment, partial_sites,
         partial_sites = np.nonzero(bits[: packed.length])[0]
     idx = np.asarray(partial_sites, dtype=np.int64)
     partial = kernels.split_gather(excl, idx)
-    count("layout.device_builds")
-    split = SplitAlignment(
-        excl=None, nmask=None, partial=None, cnt_n=cnt_n, length=packed.length,
-        n_partial=len(idx), names=packed.names, partial_pos=idx, src=packed,
-        device=device,
+    if device.type == "cuda":
+        count("layout.device_builds")
+    return SplitAlignment(
+        cnt_n=cnt_n, length=packed.length, n_partial=len(idx),
+        names=packed.names, partial_pos=idx, src=packed, device=device,
+        _dev_cache={device: (excl, nmask, partial, cnt)},
     )
-    split._dev_cache = (device, excl, nmask, partial)
-    split._dev_cnt = (device, cnt)
-    return split
 
 
 # ---------------------------------------------------------------------------

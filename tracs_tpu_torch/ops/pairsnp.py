@@ -60,6 +60,7 @@ import torch
 from tracs_tpu_torch.ops.kernels import (
     _SUBSET_SIGNS,
     _as_words,
+    _popcount,
     _subset_products,
     _unpack_bits,
     coo_extract_launch,
@@ -68,7 +69,6 @@ from tracs_tpu_torch.ops.kernels import (
     partial_gram,
     popcount_gram,
     split_gram,
-    split_layout,
 )
 from tracs_tpu_torch.ops.packing import (
     PackedAlignment,
@@ -100,28 +100,27 @@ _QUAD = 14
 METHODS = ("auto", "split", "popcount", "mxu")
 
 
+def _device_layout(sa: SplitAlignment, device: torch.device) -> tuple:
+    """(excl, nmask, partial, cnt_n) of a SplitAlignment on ``device``, held
+    in ``sa._dev_cache``: the tensors ``split_alignment`` built there, or,
+    for another device, that device's own, built once by the same route
+    (``split_alignment``) from ``sa.src`` at ``sa.partial_pos`` and kept
+    beside them."""
+    device = resolve_device(device)
+    held = getattr(sa, "_dev_cache", None)
+    if held is None:
+        held = sa._dev_cache = {}
+    if device not in held:
+        held[device] = split_alignment(sa.src, sa.partial_pos, device=device)._dev_cache[device]
+    return held[device]
+
+
 def _split_device(sa: SplitAlignment, device: torch.device):
-    """(excl, nmask, partial) of a SplitAlignment on ``device``, cached on it.
-    A layout built on the card (``split_alignment(..., device=)``) holds them
-    already.  A host layout crosses once: its 4 raw planes, from which the
-    kernel ``split_layout`` writes excl and nmask at the word pitch
-    ``padded_words(W)`` (zero words past the sites, so a plane row starts on
-    a 16-byte boundary whatever the sequence length), and its partial planes,
-    brought to the same rule on their own word axis (``pad_planes``: a zero
-    word adds nothing to the correction gram).  Such a miss is the span
-    ``layout.upload`` (the pageable copies and the launches) and adds the
-    bytes copied to ``layout.upload_bytes``."""
-    cache = getattr(sa, "_dev_cache", None)
-    if cache is None or cache[0] != device:
-        if sa.device is not None:
-            raise ValueError(f"the layout was built on {sa.device}, not {device}")
-        with span("layout.upload"):
-            ea, nm = split_layout(_as_words(sa.src.planes).to(device))[:2]
-            pt = pad_planes(_as_words(sa.partial).to(device))
-        count("layout.upload_bytes", sa.src.planes.nbytes + sa.partial.nbytes)
-        cache = (device, ea, nm, pt)
-        sa._dev_cache = cache
-    return cache[1:]
+    """(excl, nmask, partial) of a SplitAlignment on ``device``, at the card's
+    word pitch ``padded_words`` (zero words past the sites, so a plane row
+    starts on a 16-byte boundary whatever the sequence length; the partial
+    planes on their own word axis by the same rule)."""
+    return _device_layout(sa, device)[:3]
 
 
 def _planes_device(packed: PackedAlignment, device: torch.device) -> torch.Tensor:
@@ -133,7 +132,7 @@ def _planes_device(packed: PackedAlignment, device: torch.device) -> torch.Tenso
     the sequence length: a zero word adds nothing to ``matches`` or
     ``nunion``, and the mismatch-position kernel, to which it reads as 32
     mismatches, reports nothing at or past the length.  A miss is spanned
-    and counted as ``_split_device``'s is."""
+    and counted as ``split_alignment``'s upload is."""
     cache = getattr(packed, "_dev_planes", None)
     if cache is None or cache[0] != device:
         with span("layout.upload"):
@@ -144,12 +143,8 @@ def _planes_device(packed: PackedAlignment, device: torch.device) -> torch.Tenso
 
 
 def _cnt_device(sa: SplitAlignment, device: torch.device) -> torch.Tensor:
-    """Per-sample N counts of a SplitAlignment as int32 on ``device``, cached."""
-    cache = getattr(sa, "_dev_cnt", None)
-    if cache is None or cache[0] != device:
-        cache = (device, torch.from_numpy(sa.cnt_n.astype(np.int32)).to(device))
-        sa._dev_cnt = cache
-    return cache[1]
+    """Per-sample N counts of a SplitAlignment as int32 on ``device``."""
+    return _device_layout(sa, device)[3]
 
 
 def _assemble_d(m, gp, cnt_a, cnt_b, L: int) -> torch.Tensor:
@@ -355,20 +350,22 @@ def comparable_sites_dense(sa: SplitAlignment, sb: SplitAlignment, *,
 def comparable_sites_pairs(sa: SplitAlignment, sb: SplitAlignment, pairs_i, pairs_j, *,
                            device: str | torch.device, batch: int = 65536) -> np.ndarray:
     """nn = L - popcount(N_i | N_j), int64 numpy, for the listed pairs only:
-    a host popcount over the packed N masks in batches of ``batch`` pairs, so
-    that millions of pairs never gather pairs x W words at once (counterpart
-    of tracs_tpu.ops.pairsnp.comparable_sites_pairs).  ``device`` is checked
-    as every entry point's is; the popcount runs on the host whatever it
-    is, as in tracs_tpu."""
-    resolve_device(device)
+    the pairs' N-mask rows gathered from the layouts' tensors on ``device``
+    and popcounted there in batches of ``batch`` pairs, so that millions of
+    pairs never gather pairs x W words at once (counterpart of
+    tracs_tpu.ops.pairsnp.comparable_sites_pairs); the pad words are zero
+    and count nothing."""
+    device = resolve_device(device)
+    nm_a = _split_device(sa, device)[1]
+    nm_b = nm_a if sb is sa else _split_device(sb, device)[1]
     pairs_i = np.asarray(pairs_i, dtype=np.int64)
     pairs_j = np.asarray(pairs_j, dtype=np.int64)
     out = np.empty(len(pairs_i), dtype=np.int64)
     for s in range(0, len(pairs_i), batch):
         e = min(len(pairs_i), s + batch)
-        ni = sa.nmask[pairs_i[s:e]]
-        nj = sb.nmask[pairs_j[s:e]]
-        out[s:e] = sa.length - popcount_words(ni | nj).sum(axis=-1)
+        ii = torch.from_numpy(pairs_i[s:e]).to(device)
+        jj = torch.from_numpy(pairs_j[s:e]).to(device)
+        out[s:e] = sa.length - to_host(_popcount(nm_a[ii] | nm_b[jj]).sum(dim=-1))
     return out
 
 
@@ -409,27 +406,15 @@ def _extract_coo(grams: dict, L: int, dist: int, r0: int, n_valid: int, c0: int,
     return rows_l, cols_l + c0, dvals, nvals
 
 
-def _layout_device(device: torch.device | None) -> torch.device | None:
-    """Where the split layout of a run on ``device`` is built: on a CUDA
-    device there; else (the CPU, or None for a mesh, which slices the host
-    layout) on the host."""
-    return device if device is not None and device.type == "cuda" else None
-
-
-def _serves(split: SplitAlignment, device: torch.device | None) -> bool:
-    """Whether a cached layout serves a run on ``device``: a host layout
-    serves every run (it crosses to a card when one asks), a card's layout
-    only runs on that card."""
-    return split.device is None or split.device == _layout_device(device)
-
-
 def _cached_split(packed: PackedAlignment,
                   device: torch.device | None = None) -> SplitAlignment:
-    """Build (and cache on the object) the SplitAlignment layout, on the card
-    for a run on one (``_layout_device``)."""
+    """Build (and cache on the object) the SplitAlignment layout of a run on
+    ``device`` (None: the CPU, as a mesh builds it); a cached layout of
+    another device is replaced."""
+    device = torch.device("cpu") if device is None else device
     split = getattr(packed, "_split_cache", None)
-    if split is None or not _serves(split, device):
-        split = split_alignment(packed, device=_layout_device(device))
+    if split is None or split.device != device:
+        split = split_alignment(packed, device=device)
         packed._split_cache = split
     return split
 
@@ -440,18 +425,18 @@ def _split_pair(a: PackedAlignment, b: PackedAlignment | None,
     ``_cached_split`` builds them.  For a query-vs-db pair both sides are
     gathered at the union of their partial positions, so the correction
     gram's contraction axis lines up site for site.  Cached on ``a`` beside
-    the partner itself: the entry keeps ``b`` alive, so no later object can
-    take its identity and be served its layout."""
+    the partner itself and the device: the entry keeps ``b`` alive, so no
+    later object can take its identity and be served its layout."""
     if b is None or b is a:
         sa = _cached_split(a, device)
         return sa, sa
+    device = torch.device("cpu") if device is None else device
     cache = getattr(a, "_split_pair_cache", None)
-    if cache is not None and cache[0] is b and _serves(cache[1][0], device):
-        return cache[1]
+    if cache is not None and cache[0] is b and cache[1] == device:
+        return cache[2]
     pos = np.union1d(partial_site_positions(a), partial_site_positions(b))
-    dev = _layout_device(device)
-    pair = (split_alignment(a, pos, device=dev), split_alignment(b, pos, device=dev))
-    a._split_pair_cache = (b, pair)
+    pair = (split_alignment(a, pos, device=device), split_alignment(b, pos, device=device))
+    a._split_pair_cache = (b, device, pair)
     return pair
 
 
@@ -668,7 +653,8 @@ def pairsnp_stream(
             a_k, b_k, pos_map, nn_off = comp
             if b is a:
                 b_k = a_k
-    # one device builds its split layout there; a mesh slices the host's
+    # one device builds its split layout there; a mesh builds it on the CPU,
+    # from which each rank slices its shard
     layout_device = device if mesh is None else None
     engine = _engine(method, a_k, b_k, layout_device)
     ring = sweep = None
@@ -678,7 +664,7 @@ def pairsnp_stream(
             from tracs_tpu_torch.parallel.allpairs import RingCoo, ShardedSweep
 
             if triangle and start_row == 0 and RingCoo.fits(
-                sa.n_seqs, mesh, n_words=sa.excl.shape[2], device=device
+                sa.n_seqs, mesh, n_words=sa.src.planes.shape[2], device=device
             ):
                 ring = RingCoo(sa, mesh, dist, device)
             else:

@@ -6,7 +6,7 @@ Every engine is the one-device split path (ops/pairsnp.py: the gram kernels
 the threshold and the COO compaction in one kernel) applied to one rank's
 shard: samples split over ``dp``, packed words over ``sp``.  A rank uploads
 only its shard, as the raw planes, and builds the N-exclusive planes and
-the N mask on its device with ``split_layout``, as ``_split_device`` does.
+the N mask on its device with ``split_layout``, as ``split_alignment`` does.
 Word shards are ``pad_to(W, 8 * sp) / sp`` words, a multiple of the
 kernels' word pitch.  The sp ranks hold partial grams of the same pairs,
 which one ``psum`` adds; every value is an exact int32 sum, so every output equals the
@@ -44,6 +44,7 @@ from tracs_tpu_torch.ops.kernels import (_as_words, coo_capacity, pad_planes, pa
 from tracs_tpu_torch.ops.packing import PackedAlignment, compact_variant_columns
 from tracs_tpu_torch.ops.pairsnp import (
     _extract_coo,
+    _split_device,
     _split_pair,
     snp_distance_dense,
 )
@@ -105,18 +106,21 @@ def _host_slice(arr: np.ndarray, r0: int, r1: int, rows: int, w0: int, w1: int) 
 class _Shard:
     """Rows [r0, r0 + rows) of a SplitAlignment and this rank's word shard,
     on ``device``: N-exclusive planes and N mask built there from the raw
-    planes (``split_layout``), the partial-site words (at the card's word
-    pitch, ``pad_planes``) and the N counts.  Rows past the alignment are zero and count no N."""
+    planes (``split_layout``), the partial-site words sliced from the
+    layout's own on the device it was built on (at the card's word pitch,
+    ``pad_planes``: zero words add nothing to the correction gram) and the
+    N counts.  Rows past the alignment are zero and count no N."""
 
     def __init__(self, sa, r0: int, rows: int, ranks: _Ranks, device: torch.device):
-        W, Wp = sa.excl.shape[2], sa.partial.shape[2]
+        partial = _split_device(sa, sa.device)[2].cpu().numpy()
+        W, Wp = sa.src.planes.shape[2], partial.shape[2]
         ws = pad_to(max(W, 1), 8 * ranks.sp) // ranks.sp
         wps = pad_to(max(Wp, 1), ranks.sp) // ranks.sp
         s = ranks.my_sp
         planes = _host_slice(sa.src.planes, r0, r0 + rows, rows, s * ws, (s + 1) * ws)
         self.ex, self.nm = split_layout(_as_words(planes).to(device))[:2]
-        self.pt = pad_planes(_as_words(
-            _host_slice(sa.partial, r0, r0 + rows, rows, s * wps, (s + 1) * wps)).to(device))
+        self.pt = pad_planes(torch.from_numpy(
+            _host_slice(partial, r0, r0 + rows, rows, s * wps, (s + 1) * wps)).to(device))
         cnt = np.zeros(rows, dtype=np.int32)
         r1 = min(r0 + rows, sa.n_seqs)
         if r1 > r0:

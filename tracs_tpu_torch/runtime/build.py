@@ -3,8 +3,8 @@
 
 Three kinds of library are built here:
 
-* the host library ``src/tracs_native.cpp`` (FASTA packing, split-layout
-  statistics, CSV row formatting), with g++ into ``build/native/``;
+* the host library ``src/tracs_native.cpp`` (FASTA packing, CSV row
+  formatting), with g++ into ``build/native/``;
 * the port's own host code beside its kernels,
   ``tracs_tpu_torch/csrc/<name>.cpp`` (the tiled mismatch-position kernel's
   tile plan), with g++ into ``build/native/``;
@@ -45,11 +45,10 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-#: the kernel sources ``csrc/<name>.cu``: the eight of the port's paths and the
-#: tensor-core yardstick of experiments/tensor_rate.py (``doctor`` and
-#: chip_smoke.py build all of them)
+#: the kernel sources ``csrc/<name>.cu``: the eight of the port's paths
+#: (``doctor`` and chip_smoke.py build all of them)
 KERNELS = ("split_gram", "popcount_gram", "split_gram_mma", "mism_positions", "partial_gram",
-           "coo_extract", "split_layout", "trans_k_loop", "tensor_rate")
+           "coo_extract", "split_layout", "trans_k_loop")
 
 _LOCK = threading.Lock()
 _LOADED: dict[str, ctypes.CDLL] = {}

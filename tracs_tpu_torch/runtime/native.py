@@ -1,6 +1,5 @@
 """ctypes loader for the native C++ host library ``src/tracs_native.cpp``
-(counterpart of tracs_tpu/runtime/native.py): FASTA packing, split-layout
-statistics, the recombination filter's window passes, CSV row formatting,
+(counterpart of tracs_tpu/runtime/native.py): FASTA packing, the recombination filter's window passes, CSV row formatting,
 the distance-CSV reader of the ``cluster`` stage, and the pileup parser and
 FracMinHash sketcher of the ``align`` stage (``tn_parse_pileup`` and
 ``tn_sketch_file``, called by io/pileup.py and sketch.py on ``get_lib()``).
@@ -117,13 +116,6 @@ def _configure(lib) -> None:
         u8p, i64p, i64p,               # tables, tab_off, tab_width
         ctypes.c_int64,                # cap
         i64p, u8p,                     # kept out, ovf_mark out
-    ]
-
-    lib.tn_split_stats.restype = None
-    lib.tn_split_stats.argtypes = [
-        u32p, ctypes.c_int64, ctypes.c_int64,        # planes, n, W
-        u32p, u32p, i64p,                            # excl, nmask, cnt_n
-        u32p, u32p, u32p, u32p,                      # ge2, b0, b1, partial_or
     ]
 
 
@@ -260,34 +252,6 @@ def native_read_dist_csv(path, col_index, threshold):
     n_edges, _n_names, n_rows, blob_len = (int(x) for x in n_out)
     names = ctypes.string_at(blob, blob_len).decode().split("\x00")[:-1] if blob_len else []
     return I[:n_edges], J[:n_edges], names, n_rows
-
-
-def native_split_stats(planes):
-    """Single-pass split-layout statistics over [n, 4, W] packed planes.
-
-    Returns ``(excl, nmask, cnt_n, partial_or)`` — the N-exclusive planes,
-    N mask, per-sample N counts and the OR-over-samples partial-site mask —
-    or None when the native library is unavailable."""
-    lib = get_lib()
-    if lib is None:
-        return None
-    planes = np.ascontiguousarray(planes, dtype=np.uint32)
-    n, _, W = planes.shape
-    excl = np.empty((n, 4, W), dtype=np.uint32)
-    nmask = np.empty((n, W), dtype=np.uint32)
-    cnt_n = np.empty(n, dtype=np.int64)
-    # the exception mask and 2-bit code planes feed the TPU package's
-    # compact upload; the port uploads raw planes, so they are scratch here
-    ge2 = np.empty((n, W), dtype=np.uint32)
-    b0 = np.empty((n, W), dtype=np.uint32)
-    b1 = np.empty((n, W), dtype=np.uint32)
-    partial_or = np.empty(W, dtype=np.uint32)
-    lib.tn_split_stats(
-        planes.reshape(-1), n, W,
-        excl.reshape(-1), nmask.reshape(-1), cnt_n,
-        ge2.reshape(-1), b0.reshape(-1), b1.reshape(-1), partial_or,
-    )
-    return excl, nmask, cnt_n, partial_or
 
 
 def native_window_stats(pos, seg_bounds, w):
