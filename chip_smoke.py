@@ -1644,7 +1644,7 @@ def phase_filter(packed, fasta: str, row_block: int, seed: int, tmp: str, plain_
     kernel's launches in that run and the CSV's sha256.  Splits the time of
     ``filter_pairs`` by step, with timers wrapped around the functions it
     calls (nothing of the filter changes): the ``scipy.stats`` import, the
-    keep-table builds (``_keep_table``), the native window pass
+    keep-table builds (``_keep_tables_for``), the native window pass
     (``native_filter_windows``), the mismatch-position kernel (launch and
     plan, to the card's end) and the position table's copy to the host
     with its numpy unpacking (the rest of ``mismatch_positions_device``)."""
@@ -1687,7 +1687,7 @@ def phase_filter(packed, fasta: str, row_block: int, seed: int, tmp: str, plain_
                 timer("device step", port.mismatch_positions_device)),
                (port, "mismatch_positions_kernel",
                 timer("kernel", port.mismatch_positions_kernel, sync=True)),
-               (recomb, "_keep_table", timer("keep tables", recomb._keep_table)),
+               (recomb, "_keep_tables_for", timer("keep tables", recomb._keep_tables_for)),
                (native, "native_filter_windows",
                 timer("native window pass", native.native_filter_windows)),
                (recomb, "_binom_sf", binom_sf)]
@@ -1711,7 +1711,7 @@ def phase_filter(packed, fasta: str, row_block: int, seed: int, tmp: str, plain_
             setattr(mod, name, fn)
     total = spent["filter_pairs"]
     split = {"scipy.stats import": spent["scipy.stats import"],
-             f"keep tables ({calls['keep tables']} builds)": spent["keep tables"],
+             f"keep tables ({calls['keep tables']} batches)": spent["keep tables"],
              "native window pass": spent["native window pass"],
              f"mismatch-position kernel ({calls['kernel']} calls, plan to the card's end)":
                  spent["kernel"],

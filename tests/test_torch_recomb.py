@@ -198,6 +198,68 @@ def test_keep_table_and_lookup_match_reference(jx):
     assert (count > precomb._SF_TABLE_CAP).any() and got.any() and not got.all()
 
 
+def _full_keep_table(d, length):
+    """A keep table evaluated over its whole [count, span] grid."""
+    from scipy.stats import binom
+
+    w = int(precomb._window_w(d, length)[()])
+    spans = np.arange(2 * w + 2, dtype=np.int64)
+    cnts = np.arange(2, precomb._SF_TABLE_CAP + 1, dtype=np.int64)
+    return binom.sf(cnts[:, None], spans[None, :], d / length) >= 0.05 / d
+
+
+@pytest.mark.parametrize("length", [4_000, 29_903, 200_000, 1_000_000])
+def test_bisected_keep_tables_equal_the_whole_grid(length):
+    """Each table built by bisection on span equals, element for element, the
+    one binom.sf gives over the whole grid: from w = _WIN_MAX (d <= 100 at
+    1 Mb) through the widths between to w = _WIN_MIN (large d)."""
+    d = np.unique(np.geomspace(2, length // 2, 24).astype(np.int64))
+    precomb._keep_tables.clear()
+    tabs = precomb._keep_tables_for(d, length)
+    for dv, tab in zip(d.tolist(), tabs):
+        want = _full_keep_table(dv, length)
+        assert tab.dtype == bool and tab.shape == want.shape, dv
+        assert np.array_equal(tab, want), dv
+    widths = precomb._window_w(d, length)
+    assert (widths == precomb._WIN_MIN).any() and (widths < 2000).any() and (widths > 50).any()
+    first = [int(np.argmax(row)) for tab in tabs for row in tab if row.any()]
+    cnt = [k for tab in tabs for k, row in enumerate(tab, start=2) if row.any()]
+    if length == 1_000_000:
+        assert (widths == precomb._WIN_MAX).any()
+        assert not tabs[0].any()  # d = 2: no span is ever kept
+    if length == 4_000:
+        # sf(k, n, p) is 0 for n <= k: the earliest a row can switch is n = k + 1
+        assert any(f == k + 1 for f, k in zip(first, cnt))
+
+
+def test_keep_tables_build_in_one_batch_and_count_what_they_evaluate():
+    length = 200_000
+    d = [40, 3, 150, 1200, 3]
+    builds, evals = "filter.keep_table_builds", "filter.keep_table_sf_evals"
+    precomb._keep_tables.clear()
+    b0, e0 = profiling.counter(builds), profiling.counter(evals)
+    batch = precomb._keep_tables_for(d, length)
+    n_evals = profiling.counter(evals) - e0
+    assert profiling.counter(builds) - b0 == 4  # one a distinct distance
+    steps = np.ceil(np.log2(2 * precomb._window_w(np.unique(d), length) + 3))
+    assert 0 < n_evals <= int((precomb._SF_TABLE_CAP - 1) * steps.sum())
+    assert batch[1] is batch[4]
+    # built again, nothing is built or evaluated
+    b1, e1 = profiling.counter(builds), profiling.counter(evals)
+    again = precomb._keep_tables_for(d, length)
+    assert all(x is y for x, y in zip(again, batch))
+    assert (profiling.counter(builds), profiling.counter(evals)) == (b1, e1)
+    # one at a time, cold, the same tables
+    precomb._keep_tables.clear()
+    for dv, tab in zip(d, batch):
+        one = precomb._keep_table(dv, length)
+        assert one.shape == tab.shape and np.array_equal(one, tab)
+    # a batch of known and new distances builds only the new ones
+    b2 = profiling.counter(builds)
+    precomb._keep_tables_for([3, 40, 41, 7], length)
+    assert profiling.counter(builds) - b2 == 2
+
+
 @pytest.mark.parametrize("native", [True, False])
 def test_filter_flat_matches_reference(jx, monkeypatch, native):
     """_filter_flat (and through it _filter_flat_native, overflow branch

@@ -97,8 +97,9 @@ def filter_pairs(
     through the host bitset path in fixed-size chunks instead.
 
     Spans: ``filter`` (the call), ``filter.positions`` (the device step),
-    ``filter.keep_table`` (each table built, also counted in
-    ``filter.keep_table_builds``) and ``filter.windows`` (the window pass).
+    ``filter.keep_table`` (each batch of tables built; the tables are counted
+    in ``filter.keep_table_builds`` and their sf evaluations in
+    ``filter.keep_table_sf_evals``) and ``filter.windows`` (the window pass).
     """
     from tracs_tpu_torch.ops.pairsnp import mismatch_positions_device, mismatch_words
 
@@ -235,22 +236,64 @@ _SF_TABLE_CAP = 16
 _keep_tables: dict = {}
 
 
+def _first_kept_spans(d, widths, length):
+    """int64 [len(d), _SF_TABLE_CAP - 1]: for each distance of ``d``, whose
+    table is ``widths`` (2w + 2) spans wide, and each count
+    2.._SF_TABLE_CAP, the least span n in [0, 2w + 1] with
+    binom.sf(count, n, d/L) >= 0.05/d, or 2w + 2 where there is none.
+
+    For a fixed count the survival function strictly increases with n
+    (P_{n+1}(X > k) - P_n(X > k) = p P_n(X = k)), so a row's keep decisions
+    are false up to one span and true from it on.  Where they switch, sf is
+    near 0.05/d, deep in the upper tail, and its step from n to n + 1 (about
+    (k + 1)/n relative) dwarfs scipy's rounding, so the computed values
+    switch there once too.  Every row is bisected at once, each step calling
+    ``_binom_sf`` on the rows still open (counted in
+    ``filter.keep_table_sf_evals``): ~15 log2(2w + 3) evaluations a table in
+    place of the 15 (2w + 2) of the whole grid, on the same (k, n, p) doubles
+    and against the same threshold, so the tables are the grid's own."""
+    rows = _SF_TABLE_CAP - 1
+    k = np.tile(np.arange(2, _SF_TABLE_CAP + 1, dtype=np.int64), len(d))
+    p = np.repeat(d / length, rows)
+    thresh = np.repeat(0.05 / d, rows)
+    lo = np.zeros(k.size, dtype=np.int64)
+    hi = np.repeat(widths, rows)
+    while True:
+        todo = np.nonzero(lo < hi)[0]
+        if todo.size == 0:
+            return lo.reshape(len(d), rows)
+        mid = (lo[todo] + hi[todo]) // 2
+        profiling.count("filter.keep_table_sf_evals", int(todo.size))
+        kept = _binom_sf(k[todo], mid, p[todo]) >= thresh[todo]
+        hi[todo] = np.where(kept, mid, hi[todo])
+        lo[todo] = np.where(kept, lo[todo], mid + 1)
+
+
+def _keep_tables_for(d_values, length):
+    """The keep tables of the distances ``d_values`` (each > 1), in that
+    order: bool [(_SF_TABLE_CAP - 1), 2w + 2] each, keep[count - 2, span].
+    The distances without a table yet are built in one batch: the span
+    ``filter.keep_table`` around it, one ``filter.keep_table_builds`` a
+    table."""
+    want = [int(d) for d in d_values]
+    tabs = {d: _keep_tables[(d, length)] for d in want if (d, length) in _keep_tables}
+    new = np.unique(np.array([d for d in want if d not in tabs], dtype=np.int64))
+    if new.size:
+        if len(_keep_tables) + new.size > 4096:  # bound process-level growth
+            _keep_tables.clear()
+        profiling.count("filter.keep_table_builds", int(new.size))
+        with profiling.span("filter.keep_table"):
+            widths = 2 * _window_w(new, length) + 2
+            first = _first_kept_spans(new, widths, length)
+            for d, width, f in zip(new.tolist(), widths.tolist(), first):
+                tab = np.arange(width, dtype=np.int64)[None, :] >= f[:, None]
+                _keep_tables[(d, length)] = tabs[d] = tab
+    return [tabs[d] for d in want]
+
+
 def _keep_table(d, length):
     """bool [(_SF_TABLE_CAP - 1), 2w + 2] — keep[count - 2, span]."""
-    key = (d, length)
-    tab = _keep_tables.get(key)
-    if tab is None:
-        if len(_keep_tables) > 4096:  # bound process-level growth
-            _keep_tables.clear()
-        profiling.count("filter.keep_table_builds")
-        with profiling.span("filter.keep_table"):
-            w = int(_window_w(d, length)[()])
-            spans = np.arange(2 * w + 2, dtype=np.int64)
-            cnts = np.arange(2, _SF_TABLE_CAP + 1, dtype=np.int64)
-            pv = _binom_sf(cnts[:, None], spans[None, :], d / length)
-            tab = pv >= (0.05 / d)
-        _keep_tables[key] = tab
-    return tab
+    return _keep_tables_for([d], length)[0]
 
 
 def _keep_lookup(count, span, d_u, d_inv_flat, length):
@@ -263,7 +306,7 @@ def _keep_lookup(count, span, d_u, d_inv_flat, length):
     if np.any(small):
         cs, ss = count[small], span[small]
         d_inv = d_inv_flat[small]
-        tabs = [_keep_table(int(dv), length) for dv in d_u]
+        tabs = _keep_tables_for(d_u, length)
         widths = np.array([t.shape[1] for t in tabs], dtype=np.int64)
         offs = np.concatenate([[0], np.cumsum(widths * (_SF_TABLE_CAP - 1))])
         flat = np.concatenate([t.ravel() for t in tabs])
@@ -295,7 +338,7 @@ def _filter_flat_native(pos, bounds, w_t, d_per_pair, length):
     d_u, d_rank = np.unique(
         np.asarray(d_per_pair, dtype=np.int64), return_inverse=True
     )
-    tabs = [_keep_table(int(dv), length) for dv in d_u]
+    tabs = _keep_tables_for(d_u, length)
     sizes = np.array([t.size for t in tabs], dtype=np.int64)
     offs_u = np.concatenate([[0], np.cumsum(sizes)])
     flat = np.concatenate(
