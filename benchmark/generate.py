@@ -17,6 +17,12 @@ A configuration's ``structure`` key chooses the alignment's shape:
   substitutions placed by a molecular clock on the sampling dates and N
   drawn for each sample (``make_clock_tree``), as in a collection of one
   pathogen's genomes.
+- ``"mixtures"``: samples of one species, some of which carry two or more
+  strains (``make_mixtures``): founders drawn from one root's biallelic
+  segregating sites, members with their own substitutions, and a share of
+  samples whose code at each site is the OR of their strains' bases, the
+  IUPAC codes that ``align`` calls when every strain passes its frequency
+  threshold; then each sample's own N and the M/R columns.
 
 ``sample_days`` and ``write_dates`` copy ``chip_smoke.py::write_dates``.
 """
@@ -24,12 +30,17 @@ A configuration's ``structure`` key chooses the alignment's shape:
 from __future__ import annotations
 
 from datetime import date, timedelta
+from typing import NamedTuple
 
 import numpy as np
 
 #: bit order of the planes: bit0=A, bit1=C, bit2=G, bit3=T; N sets all four
 _CODES = np.array([1, 2, 4, 8, 15], dtype=np.uint8)
-STRUCTURES = ("clusters", "clock")
+STRUCTURES = ("clusters", "clock", "mixtures")
+#: the keys a mixtures configuration has to give
+MIXTURE_KEYS = ("samples", "sites", "cluster_size", "max_mutations", "n_share",
+                "partial_columns", "segregating_share", "minor_allele_share", "mixed_share",
+                "strains")
 #: days in the program's year of 31,556,952 s
 DAYS_A_YEAR = 365.2425
 
@@ -165,17 +176,23 @@ def _new_bases(rng, root_code: np.ndarray, site: np.ndarray) -> np.ndarray:
 
 def _n_sites(planes: np.ndarray, rng, L: int, n_share: float) -> None:
     """Sets each site of each sample to N with probability ``n_share`` (in
-    steps of 1/256, as ``random_planes``), drawn for each sample, in place;
-    1,024 samples a draw, to bound the draws' memory."""
+    steps of 1/256, as ``random_planes``), drawn for each sample, in place.
+    A byte a site, drawn for up to 1,024 samples at a time and at most
+    32 MiB: larger buffers would be mapped and faulted in anew for every
+    draw.  How the samples are grouped leaves the bytes unchanged."""
     n, _, W = planes.shape
     below = int(round(n_share * 256))
     if not below:
         return
-    for lo in range(0, n, 1024):
-        is_n = rng.integers(0, 256, size=(min(1024, n - lo), W * 32), dtype=np.uint8) < below
+    rows = max(1, min(1024, (32 << 20) // (W * 32)))
+    for lo in range(0, n, rows):
+        # the bytes that rng.integers(0, 256, dtype=np.uint8) would draw, in
+        # its order (the low byte of each 32-bit draw first), four at a time
+        draw = rng.integers(0, 2**32, size=(min(rows, n - lo), W * 8), dtype=np.uint32)
+        is_n = draw.view(np.uint8) < below
         is_n[:, L:] = False
         mask = np.packbits(is_n, axis=-1, bitorder="little").view(np.uint32)
-        planes[lo: lo + 1024] |= mask[:, None, :]
+        planes[lo: lo + rows] |= mask[:, None, :]
 
 
 def day_parts(n: int, cluster_size: int, seed: int):
@@ -255,6 +272,118 @@ def make_clock_tree(n: int, L: int, *, cluster_size: int, clock_rate: float,
     return planes
 
 
+class MixtureDraws(NamedTuple):
+    """The draws of ``make_mixtures``, in the order they are made."""
+
+    #: int64 [S] ascending segregating sites, and the alternative base
+    #: (0..3: A, C, G, T) of each, never the root's
+    seg_site: np.ndarray
+    seg_base: np.ndarray
+    #: bool [clusters, S]: each cluster's founder holds the alternative base
+    alleles: np.ndarray
+    #: (sample, site, base) int64 arrays of each member's own substitutions
+    own: tuple
+    #: int64 [m] ascending mixed samples, and int64 [m, strains - 1] the
+    #: samples whose strains each carries besides its own
+    mixed: np.ndarray
+    donors: np.ndarray
+
+
+def mixture_draws(root: np.ndarray, L: int, *, n: int, cluster_size: int, max_mut: int,
+                  segregating_share: float, minor_allele_share: float, mixed_share: float,
+                  strains: int, rng) -> MixtureDraws:
+    """The draws of ``make_mixtures`` from ``rng``, in this order:
+    ``round(segregating_share x L)`` distinct segregating sites and an
+    alternative base for each; each founder's alleles, the alternative with
+    probability ``minor_allele_share`` at each site (float32 draws, 1,024
+    founders at a time); each member's 5..``max_mut`` distinct sites of its
+    own (``make_clustered``'s ranges) and a base (0..3) for each; the
+    ``round(mixed_share x n)`` mixed samples; and for each of them
+    ``strains - 1`` donors, each drawn uniformly from the samples of the
+    other clusters."""
+    if strains < 2:
+        raise ValueError(f"strains {strains}: a mixture carries 2 or more")
+    n_clusters = -(-n // cluster_size)
+    root_code = planes_to_nibbles(root, L)[0]
+    seg_site = np.sort(rng.choice(L, size=int(round(segregating_share * L)), replace=False))
+    seg_base = _new_bases(rng, root_code, seg_site)
+    alleles = np.concatenate(
+        [rng.random((min(1024, n_clusters - lo), len(seg_site)), dtype=np.float32)
+         < minor_allele_share for lo in range(0, n_clusters, 1024)])
+    max_mut = min(max_mut, max(5, L // 16))
+    k = rng.integers(min(5, max_mut), max_mut + 1, size=n)
+    sample, site = _distinct_sites(rng, k, L)
+    own = (sample, site, rng.integers(0, 4, size=len(site)))
+    mixed = np.sort(rng.choice(n, size=int(round(mixed_share * n)), replace=False))
+    if len(mixed) and n_clusters < 2:
+        raise ValueError("a mixture takes its strains from other clusters: there is one")
+    lo = mixed // cluster_size * cluster_size
+    size = (np.minimum(n, lo + cluster_size) - lo)[:, None]
+    donors = rng.integers(0, n - size, size=(len(mixed), strains - 1))
+    donors += (donors >= lo[:, None]) * size
+    return MixtureDraws(seg_site, seg_base, alleles, own, mixed, donors)
+
+
+def _founder_planes(root: np.ndarray, draws: MixtureDraws) -> np.ndarray:
+    """uint32 planes [clusters, 4, W] of the founders: the root with the
+    alternative base at each segregating site that a founder holds, 1,024
+    founders at a time."""
+    _, _, W = root.shape
+    alt = np.zeros((4, W * 32), dtype=bool)
+    alt[draws.seg_base, draws.seg_site] = True
+    alt = np.packbits(alt, axis=-1, bitorder="little").view(np.uint32)  # [4, W]
+    founders = np.empty((len(draws.alleles), 4, W), dtype=np.uint32)
+    for lo in range(0, len(founders), 1024):
+        chunk = draws.alleles[lo: lo + 1024]
+        held = np.zeros((len(chunk), W * 32), dtype=bool)
+        held[:, draws.seg_site] = chunk
+        held = np.packbits(held, axis=-1, bitorder="little").view(np.uint32)[:, None, :]
+        founders[lo: lo + 1024] = (root & ~held) | (held & alt)
+    return founders
+
+
+def _mix(planes: np.ndarray, mixed: np.ndarray, donors: np.ndarray) -> None:
+    """ORs the strains of each mixed sample's donors into it, in place,
+    1,024 mixed samples at a time; every strain is read before any sample
+    is mixed."""
+    extra = np.empty((len(mixed),) + planes.shape[1:], dtype=np.uint32)
+    for lo in range(0, len(mixed), 1024):
+        chunk = donors[lo: lo + 1024]
+        extra[lo: lo + 1024] = planes[chunk[:, 0]]
+        for k in range(1, chunk.shape[1]):
+            extra[lo: lo + 1024] |= planes[chunk[:, k]]
+    for lo in range(0, len(mixed), 1024):
+        planes[mixed[lo: lo + 1024]] |= extra[lo: lo + 1024]
+
+
+def make_mixtures(n: int, L: int, *, cluster_size: int, max_mut: int, segregating_share: float,
+                  minor_allele_share: float, mixed_share: float, strains: int,
+                  n_partial_cols: int, n_share: float, seed: int) -> np.ndarray:
+    """uint32 planes [n, 4, ceil(L/32)] of one species: a random root genome
+    (no N); clusters of ``cluster_size`` samples whose founder holds, at
+    each of the root's biallelic segregating sites, the alternative base
+    with probability ``minor_allele_share``; each member its founder plus
+    substitutions of its own; each sample's genome so far its strain.  A
+    share ``mixed_share`` of the samples carry the strains of
+    ``strains - 1`` samples of other clusters besides their own: their code
+    at a site is the OR of their strains' bases (``mixture_draws``).  Then
+    each sample's own N, at ``n_share`` of its sites (``_n_sites``), and
+    ``n_partial_cols`` columns where every sample holds M or R, as
+    ``make_clustered`` makes them."""
+    root = random_planes(1, L, 0.0, seed)
+    rng = np.random.default_rng(seed + 1)
+    draws = mixture_draws(root, L, n=n, cluster_size=cluster_size, max_mut=max_mut,
+                          segregating_share=segregating_share,
+                          minor_allele_share=minor_allele_share, mixed_share=mixed_share,
+                          strains=strains, rng=rng)
+    planes = _founder_planes(root, draws)[np.arange(n) // cluster_size]
+    _substitute(planes, *draws.own)
+    _mix(planes, draws.mixed, draws.donors)
+    _n_sites(planes, rng, L, n_share)
+    _partial_columns(planes, rng, L, n_partial_cols)
+    return planes
+
+
 def write_dates(path: str, n: int, cluster_size: int, seed: int) -> None:
     """The dates CSV of ``distance --meta``: header, then ``name,ISO date``
     for samples named 0..n-1."""
@@ -269,7 +398,8 @@ def write_dates(path: str, n: int, cluster_size: int, seed: int) -> None:
 def alignment(cfg: dict, seed: int) -> np.ndarray:
     """The configuration's planes for ``seed``, in its ``structure``.  A
     clock configuration reads ``clock_rate`` and takes no ``max_mutations``
-    (a null one counts as none, so that an override can take it away)."""
+    (a null one counts as none, so that an override can take it away); a
+    mixtures configuration reads every key of ``MIXTURE_KEYS``."""
     structure = cfg.get("structure", "clusters")
     if structure == "clusters":
         return make_clustered(cfg["samples"], cfg["sites"], cluster_size=cfg["cluster_size"],
@@ -284,4 +414,15 @@ def alignment(cfg: dict, seed: int) -> np.ndarray:
                                clock_rate=cfg["clock_rate"],
                                n_partial_cols=cfg["partial_columns"], n_share=cfg["n_share"],
                                seed=seed)
+    if structure == "mixtures":
+        missing = [k for k in MIXTURE_KEYS if cfg.get(k) is None]
+        if missing:
+            raise ValueError(f"a mixtures configuration needs {', '.join(missing)}")
+        return make_mixtures(cfg["samples"], cfg["sites"], cluster_size=cfg["cluster_size"],
+                             max_mut=cfg["max_mutations"],
+                             segregating_share=cfg["segregating_share"],
+                             minor_allele_share=cfg["minor_allele_share"],
+                             mixed_share=cfg["mixed_share"], strains=cfg["strains"],
+                             n_partial_cols=cfg["partial_columns"], n_share=cfg["n_share"],
+                             seed=seed)
     raise ValueError(f"structure {structure!r}: one of {', '.join(STRUCTURES)}")

@@ -5,8 +5,8 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import control, harness
-from benchmark.tests.conftest import CELLS, CLOCK, tiny
+from benchmark import control, generate, harness, roofline
+from benchmark.tests.conftest import CELLS, CLOCK, MIXTURES, tiny
 
 
 @pytest.mark.parametrize("seed", [1, 2, 2**31 + 7])
@@ -21,6 +21,19 @@ def test_control_is_not_correct(cell, seed):
 def test_control_on_a_clock_alignment_is_not_correct(cell, seed):
     overrides = dict(tiny(cell), **CLOCK)
     assert harness.Cell(cell).config["partial_columns"] > 0
+    checks = control.control(harness.Cell(cell), seed, torch.device("cpu"), overrides)
+    assert any(c["value"] > c["limit"] for c in checks.values())
+
+
+@pytest.mark.parametrize("seed", [3, 2**31 + 9])
+def test_control_on_a_mixtures_alignment_is_not_correct(seed):
+    """With no M/R columns the mixtures alone bite: two mixed samples that
+    carry the same two strains hold equal 2-bit codes where the strains
+    differ, and the control counts each such site twice."""
+    cell = "bact-1mb-10000.sweep"
+    overrides = dict(tiny(cell), **MIXTURES, partial_columns=0)
+    assert roofline.partial_sites(generate.alignment(dict(harness.Cell(cell).config,
+                                                          **overrides), seed)) > 0
     checks = control.control(harness.Cell(cell), seed, torch.device("cpu"), overrides)
     assert any(c["value"] > c["limit"] for c in checks.values())
 

@@ -1,6 +1,7 @@
 """The benchmark's generator: the copied clusters and dates equal the
-program's originals, the existing configurations' planes are pinned, and
-the clock structure follows its clock."""
+program's originals, the existing configurations' planes are pinned, the
+clock structure follows its clock, and the mixtures structure's codes are
+its strains' bases."""
 
 import hashlib
 import json
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 
 from benchmark import generate
+from benchmark.tests.conftest import mixtures, rebuilt_mixtures
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -38,6 +40,24 @@ def test_n_share_is_a_parameter():
     assert 0.45 < share < 0.55
 
 
+@pytest.mark.parametrize("n,L,n_share", [(3, 29903, 0.03125), (1030, 100, 0.14), (5, 64, 0.5),
+                                         (40, 2_000_000, 0.05)])
+def test_n_sites_are_the_uint8_draws_below_the_share(n, L, n_share):
+    """Each sample's N are the sites whose byte of one uint8 draw a row
+    (1,024 rows a draw) lies below n_share x 256, and the generator goes on
+    from where those draws leave it, whatever rows it draws together."""
+    W = -(-L // 32)
+    planes = np.zeros((n, 4, W), np.uint32)
+    rng, again = np.random.default_rng(5), np.random.default_rng(5)
+    generate._n_sites(planes, rng, L, n_share)
+    byte = np.concatenate([again.integers(0, 256, size=(min(1024, n - lo), W * 32), dtype=np.uint8)
+                           for lo in range(0, n, 1024)])
+    is_n = generate.planes_to_nibbles(planes, L) == 15
+    assert np.array_equal(is_n, byte[:, :L] < round(n_share * 256))
+    assert (generate.planes_to_nibbles(planes, L) % 15 == 0).all()
+    assert rng.integers(0, 2**62) == again.integers(0, 2**62)
+
+
 @pytest.mark.parametrize("n,cluster,seed", [(50, 6, 0), (100, 21, 2**31 + 9), (7, 3, 12)])
 def test_write_dates_equals_chip_smokes(tmp_path, n, cluster, seed):
     sys.path.insert(0, ROOT)
@@ -49,7 +69,8 @@ def test_write_dates_equals_chip_smokes(tmp_path, n, cluster, seed):
 
 
 #: sha256 of ``alignment``'s planes at each configuration's ``conftest.TINY``
-#: size, taken before the generator had a ``structure`` key
+#: size: the bact ones taken before the generator had a ``structure`` key,
+#: the sc2 ones before it had the mixtures structure
 PINNED = {
     ("bact-1mb-10000", 3): "9d000a16026c21737b19e20c944d3196e66c296c6bbed315763c151929ba6c20",
     ("bact-1mb-10000", 2**31 + 5):
@@ -57,6 +78,9 @@ PINNED = {
     ("bact-1mb-4096", 3): "75422235be2b5b81b9ee5189e91a3300cc55850cfc35aeabb19f71bcb6e80192",
     ("bact-1mb-4096", 2**31 + 5):
         "87f6a4ecba7a1610a8dbf756dfa1ad845f11262dd9d00b418066f27e02dcbb89",
+    ("sc2-30kb-32768", 3): "2e701d53677e284d58ca4f9bed41ac810da31fb79fe2b2cba423e9de5ce19400",
+    ("sc2-30kb-32768", 2**31 + 5):
+        "1dc45c8608aa70da5023c52bb42ec5057208ed5d8cdb9a901637bb67e26d9b4e",
 }
 
 
@@ -190,5 +214,103 @@ def test_a_clock_configuration_takes_no_max_mutations():
 
 
 def test_an_unknown_structure_raises():
-    with pytest.raises(ValueError, match="one of clusters, clock"):
+    with pytest.raises(ValueError, match="one of clusters, clock, mixtures$"):
         generate.alignment(_clock(structure="tree"), 1)
+
+
+def test_a_mixtures_alignment_is_made_from_its_seed():
+    a, b = generate.alignment(mixtures(), 11), generate.alignment(mixtures(), 11)
+    assert np.array_equal(a, b)
+    assert not np.array_equal(a, generate.alignment(mixtures(), 12))
+    assert a.shape == (120, 4, 188)
+
+
+@pytest.mark.parametrize("strains", [2, 3])
+@pytest.mark.parametrize("seed", [4, 2**31 + 11])
+def test_a_mixtures_code_is_the_or_of_its_strains_bases(seed, strains):
+    """Away from each sample's own N and the M/R columns every code is the
+    OR of its strains' bases; the sample's own N reads N, and the M/R
+    columns read M or R in every sample."""
+    cfg = mixtures(strains=strains)
+    code = generate.planes_to_nibbles(generate.alignment(cfg, seed), cfg["sites"])
+    want = rebuilt_mixtures(cfg, seed)
+    read = ~want.is_n & ~want.partial[None]
+    assert np.array_equal(code[read], want.mixed[read])
+    assert (code[want.is_n & ~want.partial[None]] == 15).all()
+    assert np.isin(code[:, want.partial], (3, 5)).all()
+    assert want.partial.sum() == cfg["partial_columns"]
+    # N is each sample's own, at n_share's step (13/256) to 5 standard errors
+    share, sd = 13 / 256, np.sqrt(13 / 256 * (1 - 13 / 256) / cfg["sites"])
+    assert (np.abs(want.is_n.mean(axis=1) - share) < 5 * sd).all()
+    assert len({row.tobytes() for row in want.is_n}) == cfg["samples"]
+
+
+@pytest.mark.parametrize("share", [0.15, 0.3, 0.5])
+def test_mixed_samples_make_up_mixed_share(share):
+    """The mixed samples are round(mixed_share x n), each with its donors
+    in other clusters, and they alone hold a 2-bit code outside the M/R
+    columns."""
+    cfg, seed = mixtures(mixed_share=share), 2**31 + 21
+    n, cs = cfg["samples"], cfg["cluster_size"]
+    code = generate.planes_to_nibbles(generate.alignment(cfg, seed), cfg["sites"])
+    draws = rebuilt_mixtures(cfg, seed).draws
+    assert len(draws.mixed) == round(share * n) == len(set(draws.mixed.tolist()))
+    assert (draws.donors // cs != draws.mixed[:, None] // cs).all()
+    assert ((0 <= draws.donors) & (draws.donors < n)).all()
+    bits = np.unpackbits(code[:, :, None], axis=-1).sum(axis=-1)
+    partial_columns = np.isin(code, (3, 5)).all(axis=0)
+    multi = (bits >= 2) & (code != 15) & ~partial_columns[None]
+    assert np.array_equal(np.nonzero(multi.any(axis=1))[0], draws.mixed)
+
+
+@pytest.mark.parametrize("seed", [6, 2**31 + 13])
+def test_segregating_sites_hold_the_root_or_the_alternative(seed):
+    """Each founder holds the root's base or the drawn alternative at every
+    segregating site, the alternative at minor_allele_share of them, and
+    the root's base elsewhere; so a strain differs from its founder only at
+    its own substitutions."""
+    cfg = mixtures(samples=700, partial_columns=0)
+    n, L, cs = cfg["samples"], cfg["sites"], cfg["cluster_size"]
+    code = generate.planes_to_nibbles(generate.alignment(cfg, seed), L)
+    want = rebuilt_mixtures(cfg, seed)
+    draws = want.draws
+    seg, alt = draws.seg_site, np.uint8(1) << draws.seg_base
+    assert len(seg) == round(0.1 * L) == len(np.unique(seg))
+    assert not (alt == want.root[seg]).any()
+    # the unmixed samples' strains, read where no N and no own substitution lies
+    own = np.zeros((n, L), dtype=bool)
+    own[draws.own[0], draws.own[1]] = True
+    unmixed = np.setdiff1d(np.arange(n), draws.mixed)
+    read = ~want.is_n[unmixed] & ~own[unmixed]
+    held = (code[unmixed][:, seg] == alt) & read[:, seg]
+    assert ((code[unmixed][:, seg] == want.root[seg]) | held | ~read[:, seg]).all()
+    rest = np.ones(L, dtype=bool)
+    rest[seg] = False
+    assert (code[unmixed][:, rest] == want.root[rest])[read[:, rest]].all()
+    # a member holds its founder's allele where it is read
+    founder_alt = draws.alleles[unmixed // cs]
+    assert (held == founder_alt & read[:, seg]).all()
+    # the minor allele's share over the founders, to 5 standard errors
+    q, m = 0.2, draws.alleles.size
+    assert abs(draws.alleles.mean() - q) < 5 * np.sqrt(q * (1 - q) / m)
+
+
+@pytest.mark.parametrize("strains,most", [(2, 2), (3, 3)])
+def test_three_strains_give_three_bit_codes(strains, most):
+    cfg = mixtures(strains=strains, samples=200)
+    code = generate.planes_to_nibbles(generate.alignment(cfg, 2**31 + 17), cfg["sites"])
+    bits = np.unpackbits(code[:, :, None], axis=-1).sum(axis=-1)
+    assert bits[code != 15].max() == most
+
+
+@pytest.mark.parametrize("key", generate.MIXTURE_KEYS)
+def test_a_mixtures_configuration_missing_a_key_raises(key):
+    cfg = mixtures()
+    del cfg[key]
+    with pytest.raises(ValueError, match=f"needs {key}$"):
+        generate.alignment(cfg, 1)
+
+
+def test_a_mixture_carries_two_strains_or_more():
+    with pytest.raises(ValueError, match="2 or more"):
+        generate.alignment(mixtures(strains=1), 1)

@@ -12,13 +12,22 @@ import pytest  # noqa: E402
 from benchmark import generate  # noqa: E402
 from benchmark.reference import recomb, transmission  # noqa: E402
 from benchmark.reference.distances import Distances  # noqa: E402
+from benchmark.tests.conftest import mixtures, rebuilt_mixtures  # noqa: E402
 
 
-def _planted(n, length, seed):
-    """A clustered alignment with a dense substitution tract on every fourth
-    sample, so that the filter drops sites."""
-    planes = generate.make_clustered(n, length, cluster_size=7, max_mut=60, n_partial_cols=200,
-                                     n_share=0.14, seed=seed)
+def _mixtures(n, length, **changes) -> dict:
+    return mixtures(samples=n, sites=length, max_mutations=60, partial_columns=200,
+                    n_share=0.14, **changes)
+
+
+def _planted(n, length, seed, structure="clusters"):
+    """A clustered or mixtures alignment with a dense substitution tract on
+    every fourth sample, so that the filter drops sites."""
+    if structure == "clusters":
+        planes = generate.make_clustered(n, length, cluster_size=7, max_mut=60,
+                                         n_partial_cols=200, n_share=0.14, seed=seed)
+    else:
+        planes = generate.alignment(_mixtures(n, length), seed)
     rng = np.random.default_rng(seed)
     for i in range(0, n, 4):
         pos = length // 3 + rng.choice(300, 30, replace=False)
@@ -29,13 +38,16 @@ def _planted(n, length, seed):
     return planes
 
 
-@pytest.mark.parametrize("n,length,dist,seed", [(40, 20000, 150, 1), (35, 29903, 20, 2),
-                                                (28, 5000, 10**9, 3)])
-def test_distances_and_filter_equal_tracs_tpu(n, length, dist, seed):
+@pytest.mark.parametrize("n,length,dist,seed,structure", [
+    pytest.param(40, 20000, 150, 1, "clusters", id="40-20000-150-1"),
+    pytest.param(35, 29903, 20, 2, "clusters", id="35-29903-20-2"),
+    pytest.param(28, 5000, 10**9, 3, "clusters", id="28-5000-1000000000-3"),
+    pytest.param(42, 20000, 300, 4, "mixtures", id="mixtures-42-20000-300-4")])
+def test_distances_and_filter_equal_tracs_tpu(n, length, dist, seed, structure):
     from tracs_tpu.ops.packing import PackedAlignment
     from tracs_tpu.ops.pairsnp import pairsnp
 
-    planes = _planted(n, length, seed)
+    planes = _planted(n, length, seed, structure)
     ref = Distances(planes, length, "cpu", site_chunk=4096)
     rows, cols, d, nn = ref.survivors(dist, block_rows=16)
     pair, site = ref.mismatch_positions(rows, cols)
@@ -45,6 +57,27 @@ def test_distances_and_filter_equal_tracs_tpu(n, length, dist, seed):
     for ours, theirs in ((rows, j_rows), (cols, j_cols), (d, j_d), (nn, j_nn), (filt, j_filt)):
         assert np.array_equal(ours, np.asarray(theirs, dtype=np.int64))
     assert (filt < d).any(), "the planted tracts leave the filter nothing to drop"
+
+
+@pytest.mark.parametrize("strains", [2, 3])
+@pytest.mark.parametrize("seed", [5, 2**31 + 19])
+def test_a_mixture_is_at_distance_0_from_each_strain_it_carries(seed, strains):
+    """By the reference, every mixed sample lies at D 0 from each donor
+    whose strain it carries, and the pairs of different clusters that no
+    mixture joins lie far apart."""
+    cfg = _mixtures(60, 20000, strains=strains)
+    planes = generate.alignment(cfg, seed)
+    d, nn = Distances(planes, cfg["sites"], "cpu", site_chunk=4096).block(0, cfg["samples"])
+    draws = rebuilt_mixtures(cfg, seed).draws
+    donors = draws.donors
+    mixed = np.repeat(draws.mixed, donors.shape[1])
+    assert (d[mixed, donors.reshape(-1)] == 0).all() and (nn[mixed, donors.reshape(-1)] > 0).all()
+    assert (d[donors.reshape(-1), mixed] == 0).all()
+    cluster = np.arange(cfg["samples"]) // cfg["cluster_size"]
+    joined = np.zeros(d.shape, dtype=bool)
+    joined[mixed, :] = joined[:, mixed] = True
+    apart = (cluster[:, None] != cluster[None, :]) & ~joined
+    assert apart.any() and (d[apart] > 100).all()
 
 
 def test_transmission_model_equals_tracs_tpu():

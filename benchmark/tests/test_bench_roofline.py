@@ -1,9 +1,14 @@
-"""The sweep's bound, recomputed by hand from bact-1mb-10000.sweep's shapes."""
+"""The sweep's bound, recomputed by hand from bact-1mb-10000.sweep's shapes,
+and the partial sites it counts."""
 
 import json
 import os
 
+import numpy as np
+import pytest
+
 from benchmark import generate, roofline
+from benchmark.tests.conftest import mixtures, rebuilt_mixtures
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -48,3 +53,17 @@ def test_partial_sites_count_the_generated_columns():
     none = generate.make_clustered(40, 5000, cluster_size=6, max_mut=20, n_partial_cols=0,
                                    n_share=0.14, seed=3)
     assert roofline.partial_sites(none) == 0
+
+
+@pytest.mark.parametrize("strains,partial", [(2, 0), (2, 300), (3, 300)])
+def test_partial_sites_of_mixtures_are_where_mixed_strains_differ(strains, partial):
+    """The union, over the mixed samples, of the sites where their strains'
+    bases differ and their own N does not lie, with the M/R columns."""
+    cfg = mixtures(samples=90, sites=5000, cluster_size=6, max_mutations=20,
+                   partial_columns=partial, n_share=0.14, strains=strains)
+    want = rebuilt_mixtures(cfg, 2**31 + 23)
+    bits = np.unpackbits(want.mixed[:, :, None], axis=-1).sum(axis=-1)
+    differ = ((bits >= 2) & ~want.is_n).any(axis=0)
+    assert differ.sum() > 100
+    expected = int((differ | want.partial).sum())
+    assert roofline.partial_sites(generate.alignment(cfg, 2**31 + 23)) == expected

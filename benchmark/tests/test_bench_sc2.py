@@ -12,11 +12,12 @@ import torch
 
 from benchmark import control, generate, harness
 from benchmark.reference.distances import Distances
+from benchmark.tests.conftest import tiny
 
 CELL = "sc2-30kb-32768.sweep"
 #: the configuration's genome at its full 29,903 sites, few samples and
 #: row blocks of 32, so that a CPU run sweeps three blocks
-TINY = {"samples": 90, "sites": 29903, "row_block": 32}
+TINY = tiny(CELL)
 SWEEP_METRICS = ("sweep.survivors_per_sweep", "sweep.copied_bytes_per_sweep")
 
 
